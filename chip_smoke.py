@@ -12,12 +12,13 @@ without printing a result:
 2. build every kernel from ``distributedtensorflowexample_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel) and print the build time;
 3. each kernel against its plain version on the card at the main path's
-   shapes (B=64, and the bench's B=256): dequant bitwise, cross-entropy
-   forward and backward within 1e-5 absolute (float32 summation order),
-   SGD within 1 ulp (the plain version's float64 route can double-round);
-   one JSON line per kernel and batch with the kernel's, the plain
-   version's and the comparable PyTorch library call's times and the
-   kernel's bound;
+   shapes (B=64, the bench's B=256, and for dequant the eval's B=1000):
+   dequant bitwise, cross-entropy forward and backward within 1e-5
+   absolute (float32 summation order), SGD within 1 ulp (the plain
+   version's float64 route can double-round); one JSON line with the
+   card's launch floor, then one per kernel and batch with the kernel's,
+   the plain version's and the comparable PyTorch library call's times
+   and the kernel's bound;
 4. 5 training steps on the card against the same 5 steps on the CPU
    (plain versions) from one init and one index tape: loss tapes within
    2e-2 relative (both bf16; cuDNN and the CPU round at different places);
@@ -28,9 +29,14 @@ without printing a result:
    fall, and ``final_accuracy`` must be printed;
 6. the ``kernels`` JSON line, then the ``ok`` line last.
 
-Times are CUDA-event means over many launches after a warm-up, each
-launch on fresh indices (dequant) or buffers (SGD) where the caller
-would find them cold in L2.
+Times come from ``utils/kernel_timing.py``, by CUDA events after a
+warm-up, each launch on fresh indices (dequant) or buffers (SGD) where
+the caller would find them cold in L2: ``kernel_ms``, ``plain_ms`` and
+``library_ms`` are means of back-to-back calls from Python (for a kernel
+shorter than its wrapper, the host's cost per call); ``kernel_device_us``
+and ``library_device_us`` replay the same calls from a CUDA graph (device
+time per call, the host out of the way); ``floor_device_us`` is a
+1-element ``zero_()`` timed that way, the card's launch floor.
 Bounds use the H100 SXM data-sheet peaks: 3.35 TB/s memory, 67 TFLOP/s
 float32 outside the tensor cores.
 """
@@ -49,12 +55,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from distributedtensorflowexample_tpu_torch.data.dequant import (
-    make_dequant_affine)
 from distributedtensorflowexample_tpu_torch.ops import kernels
 from distributedtensorflowexample_tpu_torch.ops.kernels import build as kbuild
 from distributedtensorflowexample_tpu_torch.ops.kernels import (
     cross_entropy as ce, dequant as dq, sgd)
+from distributedtensorflowexample_tpu_torch.utils import kernel_timing as kt
 
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -79,19 +84,8 @@ def require(ok: bool, what: str) -> None:
 
 
 def time_ms(fn, iters: int) -> float:
-    """Mean milliseconds per call of ``fn(i)`` over ``iters`` calls, by
-    CUDA events, after a warm-up."""
-    for i in range(5):
-        fn(i)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(iters):
-        fn(i)
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+    """Mean host milliseconds per call of ``fn(i)``, back to back."""
+    return kt.host_us(fn, iters) / 1e3
 
 
 def bound(nbytes: float, nops: float) -> tuple[float, str]:
@@ -105,12 +99,7 @@ def ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def check_dequant(batch: int, gen: torch.Generator, iters: int) -> dict:
-    dev = torch.device("cuda")
-    images = torch.randint(0, 256, (60000, 28, 28, 1), dtype=torch.uint8,
-                           device=dev, generator=gen)
-    idx = torch.randint(0, 60000, (iters + 5, batch), dtype=torch.int32,
-                        device=dev, generator=gen)
-    s, b = (torch.from_numpy(a).to(dev) for a in make_dequant_affine("unit"))
+    images, idx, s, b = kt.dequant_inputs(batch, iters + 5, gen)
     got = dq.fused_gather_dequant(images, idx[0], s, b)
     want = dq.gather_dequant_plain(images, idx[0], s, b)
     torch.cuda.synchronize()
@@ -120,22 +109,20 @@ def check_dequant(batch: int, gen: torch.Generator, iters: int) -> dict:
     row = 28 * 28
     nbytes = batch * row * (1 + 4) + batch * 4 + 2 * 4
     b_ms, b_by = bound(nbytes, 2 * batch * row)
-    return {"max_abs_err": err,
-            "ms": time_ms(lambda i: dq.fused_gather_dequant(
-                images, idx[i], s, b), iters),
+    kern = lambda i: dq.fused_gather_dequant(images, idx[i], s, b)
+    lib = lambda i: torch.addcmul(b, images[idx[i]].float(), s)
+    return {"max_abs_err": err, "ms": time_ms(kern, iters),
             "plain_ms": time_ms(lambda i: dq.gather_dequant_plain(
                 images, idx[i], s, b), iters),
-            "library_ms": time_ms(lambda i: torch.addcmul(
-                b, images[idx[i]].float(), s), iters),
+            "library_ms": time_ms(lib, iters),
+            "kernel_device_us": kt.device_us(kern),
+            "library_device_us": kt.device_us(lib),
             "bound_ms": b_ms, "bound_by": b_by}
 
 
 def check_ce(batch: int, gen: torch.Generator, iters: int) -> tuple[dict, dict]:
-    dev, classes = torch.device("cuda"), 10
-    logits = torch.randn(batch, classes, device=dev, generator=gen) * 3
-    labels = torch.randint(0, classes, (batch,), dtype=torch.int32,
-                           device=dev, generator=gen)
-    g = torch.rand(batch, device=dev, generator=gen) + 0.5
+    classes = 10
+    logits, labels, g = kt.ce_inputs(batch, classes, gen)
     out = {}
     for s in (0.0, 0.1):
         fwd = (ce.ce_fwd(logits, labels, s)
@@ -148,24 +135,39 @@ def check_ce(batch: int, gen: torch.Generator, iters: int) -> tuple[dict, dict]:
                 f"exceed 1e-5")
         out[s] = (fwd, bwd)
     labels64 = labels.long()
-    x = logits.clone().requires_grad_(True)
-    lib_rows = F.cross_entropy(x, labels64, reduction="none")
+    lib_fwd = lambda i: F.cross_entropy(logits, labels64, reduction="none")
+    # The library backward: autograd through F.cross_entropy's rows.  Its
+    # forward runs once, on the stream the backward then runs on.
+    tape = {}
+
+    def lib_forward():
+        x = logits.clone().requires_grad_(True)
+        tape["x"], tape["rows"] = x, F.cross_entropy(x, labels64,
+                                                     reduction="none")
+
+    lib_bwd = lambda i: torch.autograd.grad(tape["rows"], tape["x"], g,
+                                            retain_graph=True)
+    lib_forward()
+    kern_fwd = lambda i: ce.ce_fwd(logits, labels)
+    kern_bwd = lambda i: ce.ce_bwd(logits, labels, g)
     n_in = batch * classes
     fb_ms, fb_by = bound(n_in * 4 + batch * 4 + batch * 4, 6 * n_in)
     bb_ms, bb_by = bound(n_in * 4 + batch * 8 + n_in * 4, 11 * n_in)
     fwd = {"max_abs_err": max(v[0] for v in out.values()),
-           "ms": time_ms(lambda i: ce.ce_fwd(logits, labels), iters),
+           "ms": time_ms(kern_fwd, iters),
            "plain_ms": time_ms(lambda i: ce.ce_fwd_plain(logits, labels),
                                iters),
-           "library_ms": time_ms(lambda i: F.cross_entropy(
-               logits, labels64, reduction="none"), iters),
+           "library_ms": time_ms(lib_fwd, iters),
+           "kernel_device_us": kt.device_us(kern_fwd),
+           "library_device_us": kt.device_us(lib_fwd),
            "bound_ms": fb_ms, "bound_by": fb_by}
     bwd = {"max_abs_err": max(v[1] for v in out.values()),
-           "ms": time_ms(lambda i: ce.ce_bwd(logits, labels, g), iters),
+           "ms": time_ms(kern_bwd, iters),
            "plain_ms": time_ms(lambda i: ce.ce_bwd_plain(logits, labels, g),
                                iters),
-           "library_ms": time_ms(lambda i: torch.autograd.grad(
-               lib_rows, x, g, retain_graph=True), iters),
+           "library_ms": time_ms(lib_bwd, iters),
+           "kernel_device_us": kt.device_us(kern_bwd),
+           "library_device_us": kt.device_us(lib_bwd, prepare=lib_forward),
            "bound_ms": bb_ms, "bound_by": bb_by}
     return fwd, bwd
 
@@ -202,15 +204,17 @@ def check_sgd(gen: torch.Generator, iters: int) -> dict:
         torch._foreach_add_(ms, gs)
         torch._foreach_add_(ps, ms, alpha=-lr)
 
+    kern = lambda i: sgd.fused_sgd_apply(*sets[i % 3], lr, mu)
     b_ms, b_by = bound(20 * n, 4 * n)
     return {"max_abs_err": max((pk - pp).abs().max().item(),
                                (mk - mp).abs().max().item()),
             "ulp_mismatches": int((dp > 0).sum() + (dm > 0).sum()),
-            "ms": time_ms(lambda i: sgd.fused_sgd_apply(
-                *sets[i % 3], lr, mu), iters),
+            "ms": time_ms(kern, iters),
             "plain_ms": time_ms(lambda i: sgd.sgd_plain(
                 *sets[i % 3], lr, mu), iters),
             "library_ms": time_ms(foreach, iters),
+            "kernel_device_us": kt.device_us(kern, calls=12, replays=5),
+            "library_device_us": kt.device_us(foreach, calls=12, replays=5),
             "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -305,9 +309,12 @@ def main() -> int:
         print(f"ptxas {name}: {' | '.join(regs)}", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    print(json.dumps({"floor_device_us": kt.floor_device_us(), "gpu": gpu}),
+          flush=True)
     rows = {}
-    for batch in (BATCH, 256):
+    for batch in (BATCH, 256, 1000):
         rows[("dequant", batch)] = check_dequant(batch, gen, 200)
+    for batch in (BATCH, 256):
         rows[("ce_fwd", batch)], rows[("ce_bwd", batch)] = check_ce(
             batch, gen, 200)
     rows[("sgd", BATCH)] = check_sgd(gen, 50)
@@ -317,6 +324,8 @@ def main() -> int:
         print(json.dumps({"kernel": name, "B": batch, "kernel_ms": r["ms"],
                           "plain_ms": r["plain_ms"],
                           "library_ms": r["library_ms"],
+                          "kernel_device_us": r["kernel_device_us"],
+                          "library_device_us": r["library_device_us"],
                           "bound_us": r["bound_ms"] * 1e3,
                           "max_abs_err": r["max_abs_err"], **extra,
                           "gpu": gpu}), flush=True)

@@ -132,26 +132,41 @@ def on_cuda(kernel: str, *tensors) -> bool:
     same CUDA card), False when it takes the plain version (every tensor
     on the CPU).  Anything else — mixed devices, another device type, a
     card other than the current one (the launch targets the current
-    device) — raises: a wrapper never moves data or falls back."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"{kernel}: tensors on different devices "
-                         f"{sorted(map(str, devices))}")
-    (dev,) = devices
-    if dev.type == "cpu":
+    device) — raises: a wrapper never moves data or falls back.
+
+    Every wrapper pays this on every call, so it reads only the tensors'
+    flags and device indices in plain loops (no ``torch.device`` objects,
+    no generators) and the current device from the CUDA runtime."""
+    first = tensors[0]
+    if first.is_cpu:
+        for t in tensors:
+            if not t.is_cpu:
+                _refuse(kernel, tensors)
         return False
-    if dev.type != "cuda":
-        raise ValueError(f"{kernel}: no kernel for device {dev}")
-    if dev.index is not None and dev.index != torch.cuda.current_device():
-        raise ValueError(f"{kernel}: tensors on {dev} but the current "
-                         f"device is cuda:{torch.cuda.current_device()}")
+    index = first.get_device()
+    for t in tensors:
+        if not t.is_cuda or t.get_device() != index:
+            _refuse(kernel, tensors)
+    current = torch._C._cuda_getDevice()
+    if index != current:
+        raise ValueError(f"{kernel}: tensors on cuda:{index} but the "
+                         f"current device is cuda:{current}")
     return True
+
+
+def _refuse(kernel: str, tensors) -> None:
+    devices = sorted({str(t.device) for t in tensors})
+    if len(devices) == 1:
+        raise ValueError(f"{kernel}: no kernel for device {devices[0]}")
+    raise ValueError(f"{kernel}: tensors on different devices {devices}")
 
 
 def stream_of(t) -> int:
     """The raw handle of PyTorch's current stream on ``t``'s card: every
-    kernel launches there, ordered with the surrounding PyTorch work."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    kernel launches there, ordered with the surrounding PyTorch work (and
+    captured with it into a CUDA graph).  One runtime lookup, without
+    building a ``torch.cuda.Stream`` object."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check(name: str, code: int) -> None:

@@ -10,13 +10,15 @@ recomputing the softmax from the saved logits.
 On CUDA tensors :func:`ce_fwd` / :func:`ce_bwd` launch
 ``csrc/cross_entropy.cu``; on CPU tensors they run the plain versions
 below, which spell out the Pallas kernels' formulas in PyTorch.  The two
-differ only in summation order (a warp shuffle tree against PyTorch's
-row reduction), a few float32 ulps of the row's log-sum-exp.
+differ only in summation order (a shuffle tree over each row's lanes
+against PyTorch's row reduction), a few float32 ulps of the row's
+log-sum-exp.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -31,9 +33,11 @@ _BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                  ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
 
 
+@functools.lru_cache(maxsize=64)
 def _smoothing_constants(smoothing: float, classes: int):
     """(1 - s), s and s / C folded in double and rounded to float32 once,
-    as the JAX kernel folds its Python-float constants."""
+    as the JAX kernel folds its Python-float constants.  Cached per
+    ``(smoothing, classes)``: every wrapper call reads them."""
     s = float(smoothing)
     return (float(np.float32(1.0 - s)), float(np.float32(s)),
             float(np.float32(s / classes)))
@@ -78,8 +82,8 @@ def _check(logits: torch.Tensor, labels: torch.Tensor) -> None:
             or not logits.is_contiguous():
         raise TypeError(f"logits must be contiguous float32 [B, C], got "
                         f"{logits.dtype} of shape {tuple(logits.shape)}")
-    if labels.shape != logits.shape[:1] or labels.dtype != torch.int32 \
-            or not labels.is_contiguous():
+    if labels.dim() != 1 or labels.shape[0] != logits.shape[0] \
+            or labels.dtype != torch.int32 or not labels.is_contiguous():
         raise TypeError(f"labels must be contiguous int32 [B], got "
                         f"{labels.dtype} of shape {tuple(labels.shape)}")
 
@@ -92,7 +96,7 @@ def ce_fwd(logits: torch.Tensor, labels: torch.Tensor,
         return ce_fwd_plain(logits, labels, smoothing)
     batch, classes = logits.shape
     one_minus_s, s, _ = _smoothing_constants(smoothing, classes)
-    loss = torch.empty(batch, dtype=torch.float32, device=logits.device)
+    loss = logits.new_empty(batch)
     fn = build.bind("cross_entropy", "ce_fwd", _FWD_ARGTYPES)
     code = fn(logits.data_ptr(), labels.data_ptr(), batch, classes,
               int(smoothing > 0.0), one_minus_s, s, loss.data_ptr(),
@@ -107,8 +111,8 @@ def ce_bwd(logits: torch.Tensor, labels: torch.Tensor, g: torch.Tensor,
     """Backward kernel wrapper: dlogits [B, C] float32 for upstream
     per-row gradients ``g`` [B]."""
     _check(logits, labels)
-    if g.shape != labels.shape or g.dtype != torch.float32 \
-            or not g.is_contiguous():
+    if g.dim() != 1 or g.shape[0] != labels.shape[0] \
+            or g.dtype != torch.float32 or not g.is_contiguous():
         raise TypeError(f"g must be contiguous float32 [B], got {g.dtype} "
                         f"of shape {tuple(g.shape)}")
     if not build.on_cuda("cross_entropy", logits, labels, g):

@@ -16,9 +16,23 @@ import torch
 
 from distributedtensorflowexample_tpu_torch.ops.kernels import build
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_void_p, ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+
+#: Bytes per load on the kernel's vector path (one ``uint4``).
+VECTOR_BYTES = 16
+_INT32_LIMIT = 2 ** 31
+
+
+def vector_path(row_len: int, images_ptr: int, out_ptr: int) -> bool:
+    """Whether the kernel takes its 16-byte path: every source row and
+    every output row starts on a 16-byte boundary, i.e. the row length
+    and both base addresses are multiples of 16 bytes.  Otherwise (a
+    5x7x1 sample, a split sliced at an odd byte) it takes its scalar
+    path, one byte per thread."""
+    return (row_len % VECTOR_BYTES == 0 and images_ptr % VECTOR_BYTES == 0
+            and out_ptr % VECTOR_BYTES == 0)
 
 
 def gather_dequant_plain(images: torch.Tensor, idx: torch.Tensor,
@@ -36,8 +50,8 @@ def fused_gather_dequant(images: torch.Tensor, idx: torch.Tensor,
                          scale: torch.Tensor, bias: torch.Tensor
                          ) -> torch.Tensor:
     """``images``: [N, ...] uint8 resident split (channel last); ``idx``:
-    [B] int32 row ids; ``scale``/``bias``: [C] float32 (C = 1 or the
-    channel count).  Returns the [B, ...] float32 batch."""
+    [B] int32 row ids; ``scale``/``bias``: contiguous [C] float32 (C = 1
+    or the channel count).  Returns the [B, ...] float32 batch."""
     if images.dtype != torch.uint8 or not images.is_contiguous():
         raise TypeError(f"fused_gather_dequant reads contiguous uint8 rows, "
                         f"got {images.dtype} contiguous="
@@ -45,23 +59,33 @@ def fused_gather_dequant(images: torch.Tensor, idx: torch.Tensor,
     if idx.dim() != 1 or idx.dtype != torch.int32 or not idx.is_contiguous():
         raise TypeError(f"idx must be a contiguous 1-D int32 tensor, got "
                         f"{idx.dtype} of shape {tuple(idx.shape)}")
-    if scale.shape != bias.shape or scale.dim() != 1 \
-            or scale.dtype != torch.float32 or bias.dtype != torch.float32:
-        raise TypeError("scale and bias must be 1-D float32 of one shape")
-    row_len = images[0].numel() if images.shape[0] else 0
-    channels = scale.shape[0]
-    if channels not in (1, images.shape[-1]):
+    channels = scale.shape[0] if scale.dim() == 1 else 0
+    if not channels or bias.dim() != 1 or bias.shape[0] != channels \
+            or scale.dtype != torch.float32 or bias.dtype != torch.float32 \
+            or not (scale.is_contiguous() and bias.is_contiguous()):
+        raise TypeError("scale and bias must be contiguous 1-D float32 of "
+                        "one shape")
+    shape = images.shape
+    if channels not in (1, shape[-1]):
         raise ValueError(f"{channels} dequant channels do not match the "
-                         f"sample's last (channel) axis {images.shape[-1]}")
+                         f"sample's last (channel) axis {shape[-1]}")
     if not build.on_cuda("dequant", images, idx, scale, bias):
         return gather_dequant_plain(images, idx, scale, bias)
-    scale, bias = scale.contiguous(), bias.contiguous()
-    out = torch.empty((idx.shape[0],) + tuple(images.shape[1:]),
-                      dtype=torch.float32, device=images.device)
+    n_rows, batch = shape[0], idx.shape[0]
+    row_len = images.numel() // n_rows if n_rows else 0
+    if batch and not n_rows:
+        raise ValueError("fused_gather_dequant: no rows to gather from")
+    if n_rows >= _INT32_LIMIT or batch * row_len >= _INT32_LIMIT:
+        raise ValueError(f"fused_gather_dequant indexes with 32-bit ints: "
+                         f"{n_rows} rows, {batch} x {row_len} outputs")
+    out = torch.empty((batch, *shape[1:]), dtype=torch.float32,
+                      device=images.device)
+    images_ptr, out_ptr = images.data_ptr(), out.data_ptr()
     fn = build.bind("dequant", "dequant_gather", _ARGTYPES)
-    code = fn(images.data_ptr(), images.shape[0], row_len, idx.data_ptr(),
-              idx.shape[0], scale.data_ptr(), bias.data_ptr(), channels,
-              out.data_ptr(), build.stream_of(images))
+    code = fn(images_ptr, n_rows, row_len, idx.data_ptr(), batch,
+              scale.data_ptr(), bias.data_ptr(), channels,
+              vector_path(row_len, images_ptr, out_ptr), out_ptr,
+              build.stream_of(images))
     build.check("dequant", code)
     fused_gather_dequant.launches += 1
     return out

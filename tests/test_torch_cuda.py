@@ -30,32 +30,58 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("spec,shape", [("unit", (28, 28, 1)),
-                                        ("cifar", (32, 32, 3))])
-def test_dequant_kernel_bitwise(cuda, spec, shape):
+def _affine(spec, channels, device):
+    """The named dequant constants, or for ``spec=None`` one scale and
+    bias per channel (the kernel's any-channel-count form)."""
+    if spec is not None:
+        return (torch.from_numpy(a).to(device)
+                for a in make_dequant_affine(spec))
+    s = torch.tensor([1 / 255, 2 / 255, 0.5, 0.25][:channels])
+    b = torch.tensor([0.0, -0.5, 0.25, -1.0][:channels])
+    return s.to(device), b.to(device)
+
+
+@pytest.mark.parametrize("batch", [1, 64, 1000])
+@pytest.mark.parametrize("spec,shape,offset", [
+    ("unit", (28, 28, 1), 0),       # MNIST rows: the 16-byte path
+    ("cifar", (32, 32, 3), 0),
+    (None, (8, 8, 4), 0),           # C=4: the any-channel-count form
+    ("unit", (5, 7, 1), 0),         # a 35-byte row: the scalar path
+    ("unit", (28, 28, 1), 1),       # a split sliced at an odd byte
+    ("cifar", (32, 32, 3), 3),
+])
+def test_dequant_kernel_bitwise(cuda, spec, shape, offset, batch):
     g = torch.Generator(device=cuda).manual_seed(0)
-    images = torch.randint(0, 256, (500,) + shape, dtype=torch.uint8,
-                           device=cuda, generator=g)
-    idx = torch.randint(-3, 503, (64,), dtype=torch.int32, device=cuda,
+    n = 500
+    row_len = int(np.prod(shape))
+    flat = torch.randint(0, 256, (offset + n * row_len,), dtype=torch.uint8,
+                         device=cuda, generator=g)
+    images = flat[offset:].view(n, *shape)
+    idx = torch.randint(-3, n + 3, (batch,), dtype=torch.int32, device=cuda,
                         generator=g)          # out of range rows clamp
-    s, b = (torch.from_numpy(a).to(cuda) for a in make_dequant_affine(spec))
+    s, b = _affine(spec, shape[-1], cuda)
     before = dq.fused_gather_dequant.launches
     got = dq.fused_gather_dequant(images, idx, s, b)
     want = dq.gather_dequant_plain(images, idx, s, b)
     torch.cuda.synchronize()
     assert dq.fused_gather_dequant.launches == before + 1
+    assert dq.vector_path(row_len, images.data_ptr(), got.data_ptr()) is (
+        offset == 0 and row_len % 16 == 0)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
-@pytest.mark.parametrize("classes", [10, 250, 1000])
+@pytest.mark.parametrize("batch", [1, 7, 67, 256])
+@pytest.mark.parametrize("classes", [1, 10, 16, 17, 32, 33, 250, 1000])
 @pytest.mark.parametrize("smoothing", [0.0, 0.1])
-def test_ce_kernels_match_plain(cuda, classes, smoothing):
+def test_ce_kernels_match_plain(cuda, classes, smoothing, batch):
     g = torch.Generator(device=cuda).manual_seed(classes)
-    logits = torch.randn(67, classes, device=cuda, generator=g) * 3
-    labels = torch.randint(0, classes, (67,), dtype=torch.int32, device=cuda,
-                           generator=g)
-    labels[5] = -1
-    up = torch.rand(67, device=cuda, generator=g)
+    logits = torch.randn(batch, classes, device=cuda, generator=g) * 3
+    labels = torch.randint(0, classes, (batch,), dtype=torch.int32,
+                           device=cuda, generator=g)
+    if batch > 2:
+        labels[1] = -1                        # a padding row
+        labels[2] = classes                   # a label past every column
+    up = torch.rand(batch, device=cuda, generator=g)
     x = logits.clone().requires_grad_(True)
     rows = kernels.fused_softmax_cross_entropy_rows(x, labels, smoothing)
     rows.backward(up)
@@ -64,7 +90,8 @@ def test_ce_kernels_match_plain(cuda, classes, smoothing):
     want_grad = ce.ce_bwd_plain(logits, labels, up, smoothing)
     assert (rows.detach() - want_rows).abs().max().item() <= 1e-5
     assert (x.grad - want_grad).abs().max().item() <= 1e-6
-    assert rows[5].item() == 0.0 and not x.grad[5].any()
+    if batch > 2:
+        assert rows[1].item() == 0.0 and not x.grad[1].any()
 
 
 def test_sgd_kernel_within_one_ulp(cuda):

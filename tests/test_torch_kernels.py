@@ -27,7 +27,8 @@ from distributedtensorflowexample_tpu.ops.pallas import (
 from distributedtensorflowexample_tpu_torch.data import dequant as port_dq
 from distributedtensorflowexample_tpu_torch.ops import kernels
 from distributedtensorflowexample_tpu_torch.ops.kernels import (
-    cross_entropy as port_ce, dequant as port_dequant, sgd as port_sgd)
+    build as port_build, cross_entropy as port_ce, dequant as port_dequant,
+    sgd as port_sgd)
 
 
 @pytest.mark.parametrize("spec,shape", [("unit", (28, 28, 1)),
@@ -48,6 +49,58 @@ def test_dequant_plain_matches_pallas_bitwise(spec, shape):
     np.testing.assert_array_equal(
         got.view(np.int32),
         port_dq.affine_numpy(images[idx], spec).view(np.int32))
+
+
+def _split_at(offset, n, shape):
+    """A contiguous uint8 split of ``n`` samples whose data starts
+    ``offset`` bytes into its allocation (offset 0: the allocation's own,
+    16-byte aligned start)."""
+    row_len = int(np.prod(shape))
+    flat = torch.zeros(offset + n * row_len, dtype=torch.uint8)
+    images = flat[offset:].view(n, *shape)
+    assert images.is_contiguous()
+    return images
+
+
+@pytest.mark.parametrize("shape,offset,vector", [
+    ((28, 28, 1), 0, True),       # MNIST: 784 = 49 x 16
+    ((32, 32, 3), 0, True),       # CIFAR: 3072 = 192 x 16
+    ((4, 4, 1), 0, True),
+    ((5, 7, 1), 0, False),        # a 35-byte row
+    ((28, 28, 1), 1, False),      # a split sliced at an odd byte
+    ((28, 28, 1), 8, False),
+    ((32, 32, 3), 4, False),
+])
+def test_dequant_routes_unaligned_rows_to_the_scalar_path(shape, offset,
+                                                          vector):
+    images = _split_at(offset, 3, shape)
+    row_len = images.numel() // images.shape[0]
+    out = torch.empty((2, *shape))
+    assert out.data_ptr() % port_dequant.VECTOR_BYTES == 0
+    assert port_dequant.vector_path(row_len, images.data_ptr(),
+                                    out.data_ptr()) is vector
+    # a misaligned output alone also takes the scalar path
+    assert not port_dequant.vector_path(row_len, images.data_ptr(),
+                                        out.data_ptr() + 4)
+
+
+@pytest.mark.parametrize("shape,offset", [((5, 7, 1), 0), ((28, 28, 1), 1),
+                                          ((32, 32, 3), 3)])
+def test_dequant_scalar_path_inputs_match_pallas_bitwise(shape, offset):
+    rng = np.random.RandomState(7)
+    data = rng.randint(0, 256, size=(41,) + shape).astype(np.uint8)
+    images = _split_at(offset, 41, shape)
+    images.copy_(torch.from_numpy(data))
+    idx = rng.randint(0, 41, size=9).astype(np.int32)
+    spec = "cifar" if shape[-1] == 3 else "unit"
+    s, b = port_dq.make_dequant_affine(spec)
+    want = np.asarray(jax_fused_gather_dequant(
+        jnp.asarray(data), jnp.asarray(idx), jnp.asarray(s), jnp.asarray(b),
+        interpret=True))
+    got = kernels.fused_gather_dequant(
+        images, torch.from_numpy(idx), torch.from_numpy(s),
+        torch.from_numpy(b)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
 def test_dequant_plain_clamps_out_of_range_rows():
@@ -107,6 +160,22 @@ def test_ce_large_logits_and_label_outside_columns():
                                   0.0, interpret=True))
     got = port_ce.ce_fwd(torch.from_numpy(logits), torch.from_numpy(labels))
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("smoothing,classes", [(0.0, 10), (0.1, 10),
+                                               (0.1, 250), (0.2, 1000),
+                                               (1 / 3, 7)])
+def test_smoothing_constants_are_the_float32_folds(smoothing, classes):
+    # The rule: each constant is folded in double from the Python float
+    # and rounded to float32 once, as JAX folds the Pallas kernel's
+    # Python-float constants.
+    want = (np.float32(1.0 - smoothing), np.float32(smoothing),
+            np.float32(smoothing / classes))
+    got = port_ce._smoothing_constants(smoothing, classes)
+    assert [np.float32(v).view(np.int32) for v in got] == \
+        [v.view(np.int32) for v in want]
+    assert all(float(np.float32(v)) == v for v in got)
+    assert port_ce._smoothing_constants(smoothing, classes) is got  # cached
 
 
 def test_ce_plain_matches_the_xla_head():
@@ -171,6 +240,40 @@ def test_cpu_wrappers_never_count_launches():
                                        "ce_bwd": 0, "sgd": 0}
 
 
+@pytest.mark.parametrize("devices,message", [
+    (("cpu", "meta"), "different devices"),
+    (("meta", "cpu", "cpu"), "different devices"),
+    (("meta", "meta"), "no kernel for device meta"),
+])
+def test_device_lookup_raises_on_mixed_or_foreign_devices(devices, message):
+    tensors = [torch.zeros(4, device=d) for d in devices]
+    with pytest.raises(ValueError, match=message):
+        port_build.on_cuda("k", *tensors)
+    assert port_build.on_cuda("k", *(torch.zeros(4) for _ in devices)) \
+        is False
+
+
+@pytest.mark.parametrize("wrapper", ["ce_fwd", "ce_bwd", "dequant", "sgd"])
+def test_wrappers_raise_on_a_mixed_device_call(wrapper):
+    meta = torch.zeros(4, dtype=torch.int32, device="meta")
+    calls = {
+        "ce_fwd": lambda: port_ce.ce_fwd(torch.zeros(4, 10), meta),
+        "ce_bwd": lambda: port_ce.ce_bwd(
+            torch.zeros(4, 10), torch.zeros(4, dtype=torch.int32),
+            torch.ones(4, device="meta")),
+        "dequant": lambda: kernels.fused_gather_dequant(
+            torch.zeros(4, 3, 1, dtype=torch.uint8), meta,
+            torch.ones(1), torch.zeros(1)),
+        "sgd": lambda: port_sgd.fused_sgd_apply(
+            torch.zeros(8), torch.zeros(8, device="meta"), torch.zeros(8),
+            0.1, 0.9),
+    }
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="different devices"):
+        calls[wrapper]()
+    assert sum(kernels.launch_counts().values()) == 0
+
+
 def test_wrappers_reject_bad_inputs():
     with pytest.raises(TypeError):
         port_ce.ce_fwd(torch.zeros(4, 10, dtype=torch.float64),
@@ -179,6 +282,10 @@ def test_wrappers_reject_bad_inputs():
         kernels.fused_gather_dequant(torch.zeros(4, 3, 1),
                                      torch.zeros(2, dtype=torch.int32),
                                      torch.ones(1), torch.zeros(1))
+    with pytest.raises(TypeError):                  # strided constants
+        kernels.fused_gather_dequant(torch.zeros(4, 3, 1, dtype=torch.uint8),
+                                     torch.zeros(2, dtype=torch.int32),
+                                     torch.ones(4)[::2], torch.zeros(2))
     with pytest.raises(ValueError):
         port_sgd.fused_sgd_apply(torch.zeros(8), torch.zeros(8),
                                  torch.zeros(4), 0.1, 0.9)
