@@ -12,13 +12,13 @@ without printing a result:
 2. build every kernel from ``distributedtensorflowexample_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel) and print the build time;
 3. each kernel against its plain version on the card at the main path's
-   shapes (B=64, the bench's B=256, and for dequant the eval's B=1000):
-   dequant bitwise, cross-entropy forward and backward within 1e-5
-   absolute (float32 summation order), SGD within 1 ulp (the plain
-   version's float64 route can double-round); one JSON line with the
-   card's launch floor, then one per kernel and batch with the kernel's,
-   the plain version's and the comparable PyTorch library call's times
-   and the kernel's bound;
+   shapes (B=64, the bench's B=256, for dequant the eval's B=1000, and
+   for cross-entropy the LM head's [2048, 250] as well): dequant bitwise,
+   cross-entropy forward and backward within 1e-5 absolute (float32
+   summation order), SGD within 1 ulp (the plain version's float64 route
+   can double-round); one JSON line with the card's launch floor, then
+   one per kernel and shape with the kernel's, the plain version's and
+   the comparable PyTorch library call's times and the kernel's bound;
 4. 5 training steps on the card against the same 5 steps on the CPU
    (plain versions) from one init and one index tape: loss tapes within
    2e-2 relative (both bf16; cuDNN and the CPU round at different places);
@@ -120,8 +120,8 @@ def check_dequant(batch: int, gen: torch.Generator, iters: int) -> dict:
             "bound_ms": b_ms, "bound_by": b_by}
 
 
-def check_ce(batch: int, gen: torch.Generator, iters: int) -> tuple[dict, dict]:
-    classes = 10
+def check_ce(batch: int, classes: int, gen: torch.Generator,
+             iters: int) -> tuple[dict, dict]:
     logits, labels, g = kt.ce_inputs(batch, classes, gen)
     out = {}
     for s in (0.0, 0.1):
@@ -131,23 +131,12 @@ def check_ce(batch: int, gen: torch.Generator, iters: int) -> tuple[dict, dict]:
                - ce.ce_bwd_plain(logits, labels, g, s)).abs().max().item()
         torch.cuda.synchronize()
         require(fwd <= 1e-5 and bwd <= 1e-5,
-                f"cross-entropy B={batch} s={s}: |fwd| {fwd}, |bwd| {bwd} "
-                f"exceed 1e-5")
+                f"cross-entropy [{batch}, {classes}] s={s}: |fwd| {fwd}, "
+                f"|bwd| {bwd} exceed 1e-5")
         out[s] = (fwd, bwd)
     labels64 = labels.long()
     lib_fwd = lambda i: F.cross_entropy(logits, labels64, reduction="none")
-    # The library backward: autograd through F.cross_entropy's rows.  Its
-    # forward runs once, on the stream the backward then runs on.
-    tape = {}
-
-    def lib_forward():
-        x = logits.clone().requires_grad_(True)
-        tape["x"], tape["rows"] = x, F.cross_entropy(x, labels64,
-                                                     reduction="none")
-
-    lib_bwd = lambda i: torch.autograd.grad(tape["rows"], tape["x"], g,
-                                            retain_graph=True)
-    lib_forward()
+    lib_bwd, lib_forward = kt.ce_library_backward(logits, labels64, g)
     kern_fwd = lambda i: ce.ce_fwd(logits, labels)
     kern_bwd = lambda i: ce.ce_bwd(logits, labels, g)
     n_in = batch * classes
@@ -304,23 +293,25 @@ def main() -> int:
                                        for k, v in report.items()}}),
           flush=True)
     for name, r in report.items():
-        regs = [l.strip() for l in (r["ptxas"] or "").splitlines()
-                if "registers" in l or "spill" in l]
-        print(f"ptxas {name}: {' | '.join(regs)}", flush=True)
+        print(json.dumps({"ptxas": name,
+                          "kernels": kt.ptxas_summary(r["ptxas"])}),
+              flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     print(json.dumps({"floor_device_us": kt.floor_device_us(), "gpu": gpu}),
           flush=True)
-    rows = {}
+    rows = {}                       # (kernel, B, C or None) -> row
     for batch in (BATCH, 256, 1000):
-        rows[("dequant", batch)] = check_dequant(batch, gen, 200)
-    for batch in (BATCH, 256):
-        rows[("ce_fwd", batch)], rows[("ce_bwd", batch)] = check_ce(
-            batch, gen, 200)
-    rows[("sgd", BATCH)] = check_sgd(gen, 50)
-    for (name, batch), r in rows.items():
+        rows[("dequant", batch, None)] = check_dequant(batch, gen, 200)
+    for batch, classes in kt.CE_SHAPES:
+        rows[("ce_fwd", batch, classes)], rows[("ce_bwd", batch, classes)] = \
+            check_ce(batch, classes, gen, 200)
+    rows[("sgd", BATCH, None)] = check_sgd(gen, 50)
+    for (name, batch, classes), r in rows.items():
         extra = ({"ulp_mismatches": r["ulp_mismatches"]}
                  if "ulp_mismatches" in r else {})
+        if classes is not None:
+            extra["C"] = classes
         print(json.dumps({"kernel": name, "B": batch, "kernel_ms": r["ms"],
                           "plain_ms": r["plain_ms"],
                           "library_ms": r["library_ms"],
@@ -340,7 +331,7 @@ def main() -> int:
 
     line = []
     for name, (source, replaces) in SOURCES.items():
-        r = rows[(name, BATCH)]
+        r = rows[(name, BATCH, 10 if name.startswith("ce_") else None)]
         line.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": counts[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],

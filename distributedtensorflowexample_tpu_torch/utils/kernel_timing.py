@@ -16,16 +16,20 @@ Three yardsticks, all by CUDA events on the current stream:
   a 1-element ``zero_()``: the card's launch floor under the same method.
   It is a measurement only; the port never calls it.
 
-Run as a script it prints one JSON line per kernel and batch for the
-dequant and cross-entropy kernels, each beside its one-call PyTorch
-counterpart, timed through the package's public wrappers.  Those wrappers
-have kept their names and signatures since the port began, so the script
-times whichever ``distributedtensorflowexample_tpu_torch`` is on the path.
-``--base DIR`` uses that: it runs the script on the package in ``DIR`` (a
-checkout of another commit, e.g. ``git archive <commit> | tar -x -C DIR``)
-and on this one in turns, base, this, this, base, each in a process of
-its own on the same card, so two versions of the kernels are compared in
-one call.  Each process builds its own tree's kernels.
+Run as a script it prints one JSON line per source with each kernel's
+registers and spills from ``ptxas`` (when the script built it), then one
+per kernel and shape for the dequant and cross-entropy kernels, each
+beside its one-call PyTorch counterpart, timed through the package's
+public wrappers: dequant at B = 64, 256 and 1000, cross-entropy forward
+and backward at [64, 10], [256, 10] and the LM head's [2048, 250].
+Those wrappers have kept their names and signatures since the port
+began, so the script times whichever
+``distributedtensorflowexample_tpu_torch`` is on the path.  ``--base DIR``
+uses that: it runs the script on the package in ``DIR`` (a checkout of
+another commit, e.g. ``git archive <commit> | tar -x -C DIR``) and on
+this one in turns, base, this, this, base, each in a process of its own
+on the same card, so two versions of the kernels are compared in one
+call.  Each process builds its own tree's kernels.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -139,6 +144,62 @@ def ce_inputs(batch: int, classes: int, gen: torch.Generator):
     return logits, labels, g
 
 
+#: Cross-entropy shapes [B, C]: the main path's B=64, the bench's B=256,
+#: and the LM head's 16 x 128 rows over its 250-token vocabulary.
+CE_SHAPES = ((64, 10), (256, 10), (2048, 250))
+
+
+def ce_library_backward(logits, labels64, g):
+    """``F.cross_entropy(reduction="none")``'s autograd backward on the
+    same rows, as ``(fn, prepare)``: ``prepare()`` runs the forward (once
+    here, and again by :func:`device_us` on the stream the backward is
+    captured on); ``fn(i)`` is one backward with upstream gradients
+    ``g``."""
+    tape = {}
+
+    def prepare():
+        x = logits.clone().requires_grad_(True)
+        tape["x"] = x
+        tape["rows"] = F.cross_entropy(x, labels64, reduction="none")
+
+    def fn(i):
+        return torch.autograd.grad(tape["rows"], tape["x"], g,
+                                   retain_graph=True)
+
+    prepare()
+    return fn, prepare
+
+
+def ptxas_summary(log: str | None) -> dict:
+    """Registers and spill bytes per kernel from ``nvcc -Xptxas -v``
+    output, keyed by the kernel's name and template arguments (e.g.
+    ``ce_bwd_kernel<16,1>``); empty for no output."""
+    out, name = {}, None
+    for line in (log or "").splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            base = re.search(r"\d([a-z_]+_kernel)(I\w*?E)?E", mangled)
+            if base is None:
+                name = mangled
+            else:
+                args = re.findall(r"L[a-z]+(-?\d+)E", base.group(2) or "")
+                name = base.group(1) + (f"<{','.join(args)}>" if args else "")
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill:
+            out[name]["spill_stores"] = int(spill.group(1))
+            out[name]["spill_loads"] = int(spill.group(2))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            out[name]["registers"] = int(regs.group(1))
+    return out
+
+
 def host_path(batch: int, gen: torch.Generator) -> dict:
     """Where ``ce_fwd``'s host time per call goes at [B, 10]: each piece
     of the wrapper alone, the whole wrapper and ``F.cross_entropy``, by
@@ -179,18 +240,22 @@ def _rows(gen: torch.Generator) -> list[dict]:
                      "host_us": host_us(kern), "device_us": device_us(kern),
                      "library_host_us": host_us(lib),
                      "library_device_us": device_us(lib)})
-    for batch in (64, 256):
-        logits, labels, g = ce_inputs(batch, 10, gen)
+    for batch, classes in CE_SHAPES:
+        logits, labels, g = ce_inputs(batch, classes, gen)
         labels64 = labels.long()
         fwd = lambda i: ce.ce_fwd(logits, labels)
         lib = lambda i: F.cross_entropy(logits, labels64, reduction="none")
         bwd = lambda i: ce.ce_bwd(logits, labels, g)
-        rows.append({"kernel": "ce_fwd", "B": batch,
+        lib_bwd, lib_forward = ce_library_backward(logits, labels64, g)
+        rows.append({"kernel": "ce_fwd", "B": batch, "C": classes,
                      "host_us": host_us(fwd), "device_us": device_us(fwd),
                      "library_host_us": host_us(lib),
                      "library_device_us": device_us(lib)})
-        rows.append({"kernel": "ce_bwd", "B": batch,
-                     "host_us": host_us(bwd), "device_us": device_us(bwd)})
+        rows.append({"kernel": "ce_bwd", "B": batch, "C": classes,
+                     "host_us": host_us(bwd), "device_us": device_us(bwd),
+                     "library_host_us": host_us(lib_bwd),
+                     "library_device_us": device_us(lib_bwd,
+                                                    prepare=lib_forward)})
     rows.append({"kernel": "ce_fwd", "B": 64,
                  "host_path_us": host_path(64, gen)})
     return rows
@@ -206,7 +271,11 @@ def main(argv=None) -> int:
             print("kernel_timing: no CUDA card", file=sys.stderr)
             return 2
         from distributedtensorflowexample_tpu_torch.ops.kernels import build
-        build.build()
+        for source, r in build.build().items():
+            if r["ptxas"]:
+                print(json.dumps({"ptxas": source,
+                                  "kernels": ptxas_summary(r["ptxas"])}),
+                      flush=True)
         gen = torch.Generator(device="cuda").manual_seed(0)
         for row in _rows(gen):
             print(json.dumps(row), flush=True)

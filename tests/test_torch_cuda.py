@@ -18,7 +18,7 @@ from distributedtensorflowexample_tpu_torch.data.dequant import (
     make_dequant_affine)
 from distributedtensorflowexample_tpu_torch.ops import kernels
 from distributedtensorflowexample_tpu_torch.ops.kernels import (
-    cross_entropy as ce, dequant as dq, sgd)
+    build, cross_entropy as ce, dequant as dq, sgd)
 
 pytestmark = pytest.mark.cuda
 
@@ -70,8 +70,11 @@ def test_dequant_kernel_bitwise(cuda, spec, shape, offset, batch):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
-@pytest.mark.parametrize("batch", [1, 7, 67, 256])
-@pytest.mark.parametrize("classes", [1, 10, 16, 17, 32, 33, 250, 1000])
+@pytest.mark.parametrize("batch,classes", [
+    *((b, c) for c in (1, 10, 16, 17, 32, 33, 250, 1000)
+      for b in (1, 7, 67, 256)),
+    (2048, 250),                              # the LM head: 16 x 128 rows
+])
 @pytest.mark.parametrize("smoothing", [0.0, 0.1])
 def test_ce_kernels_match_plain(cuda, classes, smoothing, batch):
     g = torch.Generator(device=cuda).manual_seed(classes)
@@ -92,6 +95,30 @@ def test_ce_kernels_match_plain(cuda, classes, smoothing, batch):
     assert (x.grad - want_grad).abs().max().item() <= 1e-6
     if batch > 2:
         assert rows[1].item() == 0.0 and not x.grad[1].any()
+
+
+@pytest.mark.parametrize("batch", [1, 7, 67])
+@pytest.mark.parametrize("classes", [10, 17, 1000])
+def test_ce_bwd_stores_nothing_past_the_batch(cuda, classes, batch):
+    # The C entry itself, into a buffer two rows longer than the batch and
+    # filled with NaN: the rows of the batch get the gradient and the two
+    # past its end stay NaN (a row group past the end stores nothing).
+    g = torch.Generator(device=cuda).manual_seed(batch * classes)
+    logits = torch.randn(batch, classes, device=cuda, generator=g) * 3
+    labels = torch.randint(0, classes, (batch,), dtype=torch.int32,
+                           device=cuda, generator=g)
+    up = torch.rand(batch, device=cuda, generator=g)
+    out = torch.full((batch + 2, classes), float("nan"), device=cuda)
+    one_minus_s, _, s_over_c = ce._smoothing_constants(0.1, classes)
+    fn = build.bind("cross_entropy", "ce_bwd", ce._BWD_ARGTYPES)
+    code = fn(logits.data_ptr(), labels.data_ptr(), up.data_ptr(), batch,
+              classes, 1, one_minus_s, s_over_c, out.data_ptr(),
+              build.stream_of(logits))
+    torch.cuda.synchronize()
+    assert code == 0
+    want = ce.ce_bwd_plain(logits, labels, up, 0.1)
+    assert (out[:batch] - want).abs().max().item() <= 1e-6
+    assert out[batch:].isnan().all()
 
 
 def test_sgd_kernel_within_one_ulp(cuda):

@@ -134,7 +134,7 @@ def _ce_inputs(batch, classes, scale, seed):
     return logits, labels, g
 
 
-@pytest.mark.parametrize("classes", [10, 250])
+@pytest.mark.parametrize("classes", [1, 10, 17, 250, 1000])
 @pytest.mark.parametrize("smoothing", [0.0, 0.1])
 def test_ce_forward_and_backward_match_pallas(classes, smoothing):
     logits, labels, g = _ce_inputs(24, classes, 1.0, seed=classes)
@@ -160,6 +160,21 @@ def test_ce_large_logits_and_label_outside_columns():
                                   0.0, interpret=True))
     got = port_ce.ce_fwd(torch.from_numpy(logits), torch.from_numpy(labels))
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-6)
+
+
+def test_ce_backward_label_outside_columns_under_smoothing():
+    # Label = C matches no column: the target is s / C on every column.
+    logits, labels, g = _ce_inputs(16, 10, 5.0, seed=3)
+    labels[2] = 10
+    _, j_vjp = jax.vjp(
+        lambda l: jax_ce_rows(l, jnp.asarray(labels), 0.1, interpret=True),
+        jnp.asarray(logits))
+    (want,) = j_vjp(jnp.asarray(g))
+    got = port_ce.ce_bwd(torch.from_numpy(logits), torch.from_numpy(labels),
+                         torch.from_numpy(g), 0.1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-6)
+    assert not got[1].any()
 
 
 @pytest.mark.parametrize("smoothing,classes", [(0.0, 10), (0.1, 10),
