@@ -1,7 +1,8 @@
 """Chip smoke for the PyTorch/CUDA port: proves, on one CUDA card, that the
 port builds, that each hand-written kernel agrees with its plain PyTorch
-version, and that config 3 (sync-SGD MNIST CNN) trains through all four
-kernels.
+version, that config 3 (sync-SGD MNIST CNN) trains through all four
+kernels, and that the transformer LM (lm_base, 57,289,728 parameters)
+trains through the cross-entropy and SGD kernels.
 
     python3 chip_smoke.py
 
@@ -16,18 +17,28 @@ without printing a result:
    for cross-entropy the LM head's [2048, 250] as well): dequant bitwise,
    cross-entropy forward and backward within 1e-5 absolute (float32
    summation order), SGD within 1 ulp (the plain version's float64 route
-   can double-round); one JSON line with the card's launch floor, then
-   one per kernel and shape with the kernel's, the plain version's and
-   the comparable PyTorch library call's times and the kernel's bound;
+   can double-round) over config 3's 3,274,634 parameters and lm_base's
+   57,289,728; one JSON line with the card's launch floor, then one per
+   kernel and shape with the kernel's, the plain version's and the
+   comparable PyTorch library call's times and the kernel's bound;
 4. 5 training steps on the card against the same 5 steps on the CPU
-   (plain versions) from one init and one index tape: loss tapes within
-   2e-2 relative (both bf16; cuDNN and the CPU round at different places);
-5. the main path: ``trainer_sync_mnist.main`` on ``cuda`` at full width
-   with ``--dequant_impl pallas --pallas_ce --fused_optimizer``, launch
-   counters set to 0 just before and read just after; every kernel must
-   have launched the count the steps imply, the loss must be finite and
-   fall, and ``final_accuracy`` must be printed;
-6. the ``kernels`` JSON line, then the ``ok`` line last.
+   (plain versions) from one init and one index tape, for config 3 and
+   for lm_small: loss tapes within 2e-2 relative (both bf16; cuDNN,
+   cuBLAS and the CPU round at different places);
+5. config 3's main path: ``trainer_sync_mnist.main`` on ``cuda`` at full
+   width with ``--dequant_impl pallas --pallas_ce --fused_optimizer``,
+   launch counters set to 0 just before and read just after; every
+   kernel must have launched the count the steps imply, the loss must be
+   finite and fall, and ``final_accuracy`` must be printed;
+6. the LM's main path: ``trainer_lm.main`` at ``--size lm_base`` on
+   ``cuda`` with ``--pallas_ce true --fused_optimizer true
+   --learning_rate 0.02``, counters set to 0 just before and read just
+   after: ``ce_fwd``, ``ce_bwd`` and ``sgd`` once per step, ``dequant``
+   never; a finite, falling loss and a per-token ``final_accuracy`` of at
+   least 0.5 (the corpus's bigram ceiling is ~0.85; uniform guessing
+   scores 0.004); then one ``lm_main_path`` JSON line;
+7. the ``kernels`` JSON line (each kernel's launches summed over both
+   main paths, and per path), then the ``ok`` line last.
 
 Times come from ``utils/kernel_timing.py``, by CUDA events after a
 warm-up, each launch on fresh indices (dequant) or buffers (SGD) where
@@ -66,6 +77,13 @@ F32_OPS_PER_S = 67e12
 ROOT = Path(__file__).resolve().parent
 TRAIN_STEPS = 600
 BATCH = 64
+LM_SIZE = "lm_base"
+LM_STEPS = 600
+LM_BATCH = 16
+# trainer_lm's default lr 0.1 spikes lm_base's loss above 10 nats before
+# it settles near uniform; at 0.02 the 600 steps learn the chain.
+LM_LR = 0.02
+LM_MIN_ACCURACY = 0.5
 SOURCES = {
     "dequant": ("distributedtensorflowexample_tpu_torch/csrc/dequant.cu",
                 "distributedtensorflowexample_tpu/ops/pallas/dequant.py:35"),
@@ -161,16 +179,22 @@ def check_ce(batch: int, classes: int, gen: torch.Generator,
     return fwd, bwd
 
 
-def check_sgd(gen: torch.Generator, iters: int) -> dict:
-    from distributedtensorflowexample_tpu_torch.models.mnist_cnn import (
-        MnistCNN)
+def param_shapes(name: str) -> list[torch.Size]:
+    """The parameter shapes of a registered model, on the meta device."""
+    from distributedtensorflowexample_tpu_torch.models import build_model
+    with torch.device("meta"):
+        return [p.shape for p in build_model(name).parameters()]
+
+
+def check_sgd(gen: torch.Generator, iters: int, model: str) -> dict:
     dev = torch.device("cuda")
-    shapes = [p.shape for p in MnistCNN().parameters()]
+    shapes = param_shapes(model)
     n = sum(s.numel() for s in shapes)
     lr, mu = 0.05, 0.9
-    # Three (p, m, g) sets, 3 x 39 MB of inputs, used in turn: each timed
-    # launch finds its buffers out of the 50 MB L2, as one apply per
-    # training step does after the forward and backward passes.
+    # Three (p, m, g) sets (3 x 39 MB of inputs for config 3), used in
+    # turn: each timed launch finds its buffers out of the 50 MB L2, as
+    # one apply per training step does after the forward and backward
+    # passes.
     sets = [[torch.randn(n, device=dev, generator=gen) for _ in range(3)]
             for _ in range(3)]
     p, m, g = sets[0]
@@ -195,8 +219,8 @@ def check_sgd(gen: torch.Generator, iters: int) -> dict:
 
     kern = lambda i: sgd.fused_sgd_apply(*sets[i % 3], lr, mu)
     b_ms, b_by = bound(20 * n, 4 * n)
-    return {"max_abs_err": max((pk - pp).abs().max().item(),
-                               (mk - mp).abs().max().item()),
+    return {"n": n, "max_abs_err": max((pk - pp).abs().max().item(),
+                                       (mk - mp).abs().max().item()),
             "ulp_mismatches": int((dp > 0).sum() + (dm > 0).sum()),
             "ms": time_ms(kern, iters),
             "plain_ms": time_ms(lambda i: sgd.sgd_plain(
@@ -207,31 +231,50 @@ def check_sgd(gen: torch.Generator, iters: int) -> dict:
             "bound_ms": b_ms, "bound_by": b_by}
 
 
-def check_card_against_cpu() -> dict:
+def check_card_against_cpu(model: str) -> dict:
     """5 steps with the kernels on the card against the same 5 steps with
-    the plain versions on the CPU, from one init and one index tape."""
+    the plain versions on the CPU, from one init and one index tape:
+    config 3 (``mnist_cnn``) at B=8 or the LM (``lm_small``) at B=16 with
+    ``--remat block``, as lm_base's main path runs it."""
     from distributedtensorflowexample_tpu_torch.config import parse_flags
-    from distributedtensorflowexample_tpu_torch.data.synthetic import (
-        make_synthetic)
     from distributedtensorflowexample_tpu_torch.engine import Engine, RunSpec
-    x, y = make_synthetic(256, (28, 28, 1), 10, seed=0, sample_seed=1)
+    if model == "mnist_cnn":
+        from distributedtensorflowexample_tpu_torch.data.synthetic import (
+            make_synthetic)
+        x, y = make_synthetic(256, (28, 28, 1), 10, seed=0, sample_seed=1)
+        dataset, flags = "mnist", ["--learning_rate", "0.05",
+                                   "--batch_size", "8",
+                                   "--dequant_impl", "pallas"]
+    else:
+        from distributedtensorflowexample_tpu_torch.data.lm import load_lm
+        x, y = load_lm("", "train", num=256)
+        dataset, flags = "lm", ["--learning_rate", "0.1",
+                                "--batch_size", str(LM_BATCH),
+                                "--remat", "block"]
     perm = np.random.RandomState(0).permutation(256)
     cfg = parse_flags(["--fused_optimizer", "true", "--momentum", "0.9",
-                       "--learning_rate", "0.05", "--batch_size", "8",
-                       "--dropout", "0", "--dequant_impl", "pallas",
-                       "--pallas_ce", "true"])
+                       "--dropout", "0", "--pallas_ce", "true"] + flags)
     tapes = {}
     for name in ("cuda", "cpu"):
-        built = Engine(RunSpec("mnist_cnn", "mnist", cfg)).build(
+        built = Engine(RunSpec(model, dataset, cfg)).build(
             torch.device(name), data=(x, y), perm_fn=lambda e: perm)
         tapes[name] = [float(built.step(built.state, next(built.ds))[1]
                              ["loss"]) for _ in range(5)]
     a, b = np.array(tapes["cuda"]), np.array(tapes["cpu"])
-    require(np.all(np.isfinite(a)), f"card loss tape not finite: {a}")
+    require(np.all(np.isfinite(a)), f"{model}: card loss tape not finite: "
+                                    f"{a}")
     rel = float(np.max(np.abs(a - b) / np.abs(b)))
-    require(rel <= 2e-2, f"card vs CPU loss tapes differ by {rel:.3g} "
-                         f"relative (cuda {a}, cpu {b})")
-    return {"cuda": tapes["cuda"], "cpu": tapes["cpu"], "max_rel": rel}
+    require(rel <= 2e-2, f"{model}: card vs CPU loss tapes differ by "
+                         f"{rel:.3g} relative (cuda {a}, cpu {b})")
+    return {"model": model, "cuda": tapes["cuda"], "cpu": tapes["cpu"],
+            "max_rel": rel}
+
+
+def check_loss_tape(summary: dict, text: str) -> None:
+    losses = [l for _, l in summary["loss_tape"]]
+    require(len(losses) >= 2 and all(np.isfinite(losses))
+            and losses[-1] < losses[0], f"loss tape {losses}")
+    require("final_accuracy=" in text, "no final_accuracy line")
 
 
 def run_main_path(gpu: str) -> tuple[dict, dict]:
@@ -259,15 +302,53 @@ def run_main_path(gpu: str) -> tuple[dict, dict]:
     require(counts == expect, f"launch counts {counts}, expected {expect} "
                               f"(one of each per step, plus one dequant "
                               f"per eval batch)")
-    losses = [l for _, l in summary["loss_tape"]]
-    require(len(losses) >= 2 and all(np.isfinite(losses))
-            and losses[-1] < losses[0], f"loss tape {losses}")
-    require("final_accuracy=" in text, "no final_accuracy line")
+    check_loss_tape(summary, text)
     require(summary["final_accuracy"] >= 0.9,
             f"final accuracy {summary['final_accuracy']}")
     result = {"steps": steps, "batch": BATCH,
               "steps_per_call": summary["steps_per_call"],
               "steps_per_sec": summary["steps_per_sec"],
+              "wall_s_incl_setup_and_eval": wall,
+              "final_accuracy": summary["final_accuracy"],
+              "loss_tape": summary["loss_tape"], "launches": counts,
+              "gpu": gpu}
+    return result, counts
+
+
+def run_lm_main_path(gpu: str) -> tuple[dict, dict]:
+    from distributedtensorflowexample_tpu_torch.trainers import trainer_lm
+    argv = ["--device", "cuda", "--size", LM_SIZE, "--pallas_ce", "true",
+            "--fused_optimizer", "true", "--learning_rate", str(LM_LR),
+            "--train_steps", str(LM_STEPS), "--log_every", "100",
+            "--resume", "false",
+            "--log_dir", str(ROOT / "build" / "chip_smoke_lm")]
+    out = io.StringIO()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        summary = trainer_lm.main(argv)
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    text = out.getvalue()
+    print(text, end="")
+    steps = summary["steps"]
+    expect = {"dequant": 0, "ce_fwd": steps, "ce_bwd": steps, "sgd": steps}
+    require(steps == LM_STEPS, f"{LM_SIZE}: trained {steps} of {LM_STEPS} "
+                               f"steps")
+    require(counts == expect, f"{LM_SIZE}: launch counts {counts}, expected "
+                              f"{expect} (CE forward, backward and SGD once "
+                              f"per step; a token split never dequantizes)")
+    check_loss_tape(summary, text)
+    require(summary["final_accuracy"] >= LM_MIN_ACCURACY,
+            f"{LM_SIZE}: per-token final accuracy "
+            f"{summary['final_accuracy']} < {LM_MIN_ACCURACY}")
+    result = {"model": LM_SIZE, "params": sum(
+                  s.numel() for s in param_shapes(LM_SIZE)),
+              "steps": steps, "batch": LM_BATCH, "seq_len": 128,
+              "learning_rate": LM_LR,
+              "steps_per_call": summary["steps_per_call"],
+              "steps_per_sec": summary["steps_per_sec"],
+              "tokens_per_sec": summary["steps_per_sec"] * LM_BATCH * 128,
               "wall_s_incl_setup_and_eval": wall,
               "final_accuracy": summary["final_accuracy"],
               "loss_tape": summary["loss_tape"], "launches": counts,
@@ -306,9 +387,10 @@ def main() -> int:
     for batch, classes in kt.CE_SHAPES:
         rows[("ce_fwd", batch, classes)], rows[("ce_bwd", batch, classes)] = \
             check_ce(batch, classes, gen, 200)
-    rows[("sgd", BATCH, None)] = check_sgd(gen, 50)
+    rows[("sgd", BATCH, None)] = check_sgd(gen, 50, "mnist_cnn")
+    rows[("sgd", LM_BATCH, None)] = check_sgd(gen, 20, LM_SIZE)
     for (name, batch, classes), r in rows.items():
-        extra = ({"ulp_mismatches": r["ulp_mismatches"]}
+        extra = ({"n": r["n"], "ulp_mismatches": r["ulp_mismatches"]}
                  if "ulp_mismatches" in r else {})
         if classes is not None:
             extra["C"] = classes
@@ -321,19 +403,27 @@ def main() -> int:
                           "max_abs_err": r["max_abs_err"], **extra,
                           "gpu": gpu}), flush=True)
 
-    print(json.dumps({"card_vs_cpu_5_steps": check_card_against_cpu()}),
-          flush=True)
+    for model in ("mnist_cnn", "lm_small"):
+        print(json.dumps({"card_vs_cpu_5_steps":
+                          check_card_against_cpu(model)}), flush=True)
 
     result, counts = run_main_path(gpu)
     print(json.dumps({"main_path": result}), flush=True)
     print(f"main path: {result['steps_per_sec']:.1f} steps/s (last "
           f"100-step window, B={BATCH}) on {gpu}", flush=True)
+    lm, lm_counts = run_lm_main_path(gpu)
+    print(json.dumps({"lm_main_path": lm}), flush=True)
+    print(f"lm main path: {lm['steps_per_sec']:.2f} steps/s (last 100-step "
+          f"window, {LM_SIZE}, B={LM_BATCH} x T=128) on {gpu}", flush=True)
 
     line = []
     for name, (source, replaces) in SOURCES.items():
         r = rows[(name, BATCH, 10 if name.startswith("ce_") else None)]
         line.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": counts[name],
+                     "replaces": replaces,
+                     "launches": counts[name] + lm_counts[name],
+                     "launches_by_path": {"mnist_cnn": counts[name],
+                                          LM_SIZE: lm_counts[name]},
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],

@@ -84,7 +84,8 @@ class RunConfig:
                                     # forward instead of keeping activations
                                     # resident (~1 extra forward of flops for
                                     # an activation footprint of one block);
-                                    # resnet20 only, other models ignore it
+                                    # the transformer LM's decoder blocks;
+                                    # other ported models ignore it
     shard_update: bool = False      # shard the f32 master-param update +
                                     # optimizer state across the data mesh
                                     # (arXiv:2004.13336): per-chip weight-
@@ -232,7 +233,8 @@ _FLAG_HELP = {
     "remat": "none | block — rematerialize each residual block in the "
              "backward pass (recompute instead of store; trades ~1 extra "
              "forward of flops for an activation HBM footprint of one "
-             "block). Same math bitwise; resnet20 only",
+             "block). Same math bitwise; the transformer LM's decoder "
+             "blocks (other ported models ignore it)",
     "shard_update": "shard the optimizer state + weight-update compute "
                     "across the data-parallel mesh (ZeRO-1 / "
                     "arXiv:2004.13336): each chip updates 1/D of the "

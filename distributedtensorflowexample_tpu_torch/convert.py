@@ -1,59 +1,85 @@
 """The weight bridge between the JAX package and the port.
 
-Turns a flax ``MnistCNN`` param tree (nested dicts of numpy arrays) and
+Turns a flax param tree (nested dicts of numpy arrays, any depth) and
 its optax momentum trace into the port's layouts, and back, moving
-weights without changing a value:
+weights without changing a value.  Each flax leaf is mapped by its name:
 
-- conv kernels HWIO -> OIHW (``transpose(3, 2, 0, 1)``);
-- dense kernels ``[in, out]`` -> ``[out, in]``;
-- biases unchanged.
+- ``kernel``: conv HWIO -> OIHW (``transpose(3, 2, 0, 1)``), dense
+  ``[in, out]`` -> ``[out, in]``, both to ``weight``;
+- ``embedding``: copied as is to ``weight`` (``nn.Embedding.weight`` is
+  ``[num, features]`` like flax's table);
+- ``scale`` (LayerNorm) -> ``weight``; ``bias`` -> ``bias``.
 
-The feature order of ``fc1``'s input needs no permutation: the port's
-``MnistCNN`` flattens its activation in NHWC order, as flax does.
+A tree path joins with dots: ``block3/ln1/scale`` is ``block3.ln1.weight``.
+Going back, a 2-D ``weight`` is a dense kernel unless its module is one
+of the ``embeddings`` the caller names (``state_to_flax`` finds them in
+the model); a 1-D ``weight`` is a LayerNorm scale.
+
+The feature order of ``MnistCNN``'s ``fc1`` input needs no permutation:
+the port flattens its activation in NHWC order, as flax does.
 
 The momentum comes either as a params-shaped tree (``optax.sgd``'s
 ``TraceState.trace``) or as the Pallas fused optimizer's flat
 ``FusedSgdState.trace``: a ``(rows, 128)`` float32 buffer holding the
 leaves raveled and concatenated in ``jax.tree.flatten`` order (dict keys
-sorted at every level), zero-padded at the end.
+sorted at every level: ``block0 ... block7, embed, ln_f, pos`` for the
+LM), zero-padded at the end.
 """
 
 from __future__ import annotations
+
+from typing import Collection
 
 import numpy as np
 
 _LANES = 128
 
 
-def _to_port(key: str, leaf: str, x: np.ndarray) -> tuple[str, np.ndarray]:
+def _to_port(leaf: str, x: np.ndarray) -> tuple[str, np.ndarray]:
     x = np.asarray(x)
     if leaf == "bias":
-        return f"{key}.bias", x
+        return "bias", x
+    if leaf in ("embedding", "scale"):
+        return "weight", x
+    if leaf != "kernel":
+        raise ValueError(f"unknown flax leaf {leaf!r}")
     if x.ndim == 4:                                   # HWIO -> OIHW
-        return f"{key}.weight", np.ascontiguousarray(x.transpose(3, 2, 0, 1))
-    return f"{key}.weight", np.ascontiguousarray(x.T)  # [in,out] -> [out,in]
+        return "weight", np.ascontiguousarray(x.transpose(3, 2, 0, 1))
+    return "weight", np.ascontiguousarray(x.T)       # [in,out] -> [out,in]
 
 
 def flax_to_port(tree: dict) -> dict[str, np.ndarray]:
-    """flax ``{"conv1": {"kernel", "bias"}, ...}`` -> port
-    ``{"conv1.weight", "conv1.bias", ...}`` (numpy, port layouts)."""
-    return dict(_to_port(key, leaf, x)
-                for key, sub in tree.items() for leaf, x in sub.items())
+    """flax ``{"conv1": {"kernel", "bias"}, "block0": {"ln1": {"scale",
+    ...}}, ...}`` -> port ``{"conv1.weight", "block0.ln1.weight", ...}``
+    (numpy, port layouts)."""
+    out = {}
+    for path, x in _flatten_order(tree):
+        name, y = _to_port(path[-1], x)
+        out[".".join(path[:-1] + (name,))] = y
+    return out
 
 
-def port_to_flax(state: dict) -> dict:
-    """Inverse of :func:`flax_to_port`."""
+def port_to_flax(state: dict, embeddings: Collection[str] = ()) -> dict:
+    """Inverse of :func:`flax_to_port`.  ``embeddings``: the dotted names
+    of the modules whose ``weight`` is an embedding table."""
     out: dict = {}
     for name, x in state.items():
         key, kind = name.rsplit(".", 1)
         x = np.asarray(x)
         if kind == "bias":
             leaf, y = "bias", x
+        elif key in embeddings:
+            leaf, y = "embedding", x
+        elif x.ndim == 1:
+            leaf, y = "scale", x
         elif x.ndim == 4:                              # OIHW -> HWIO
             leaf, y = "kernel", np.ascontiguousarray(x.transpose(2, 3, 1, 0))
         else:
             leaf, y = "kernel", np.ascontiguousarray(x.T)
-        out.setdefault(key, {})[leaf] = y
+        node = out
+        for k in key.split("."):
+            node = node.setdefault(k, {})
+        node[leaf] = y
     return out
 
 
@@ -119,14 +145,21 @@ def load_into_state(state, params: dict, momentum: dict | None = None
                 views[name].copy_(torch.from_numpy(x))
 
 
+def embedding_modules(model) -> set[str]:
+    """The dotted names of ``model``'s ``nn.Embedding`` modules."""
+    from torch import nn
+    return {n for n, m in model.named_modules() if isinstance(m, nn.Embedding)}
+
+
 def state_to_flax(state) -> tuple[dict, dict | None]:
     """(params tree, momentum tree or None) of a port ``TrainState``, as
     numpy copies in flax layouts."""
     copy = lambda t: t.detach().cpu().numpy().copy()
+    emb = embedding_modules(state.model)
     params = {n: copy(p) for n, p in state.model.named_parameters()}
     opt = state.optimizer
     momentum = None
     if opt.momentum_flat is not None:
         momentum = port_to_flax({n: copy(v) for n, v in
-                                 opt.views(opt.momentum_flat).items()})
-    return port_to_flax(params), momentum
+                                 opt.views(opt.momentum_flat).items()}, emb)
+    return port_to_flax(params, emb), momentum

@@ -14,6 +14,11 @@ epoch)`` on the dataset's device, so a run is reproducible from its seed.
 They cannot equal the JAX package's threefry permutations; a test that
 compares the two packages injects the reference's index tape through
 ``perm_fn`` instead.
+
+``token_data=True`` marks an integer split (the transformer LM's token
+ids): nothing is dequantized, and the ids are stored as uint8 (any
+``quantize`` but ``"off"``, which stores int32).  The train step's gather
+is built with the same flag (``parallel/sync.make_device_gather``).
 """
 
 from __future__ import annotations
@@ -65,6 +70,26 @@ def apply_dequant_affine(u8: torch.Tensor, scale: torch.Tensor,
     return (u8.double() * scale.double() + bias.double()).float()
 
 
+def token_storage(ids: np.ndarray, quantize: str) -> np.ndarray:
+    """How an integer token split is stored: uint8 unless ``quantize`` is
+    ``"off"`` (then int32).  Ids outside [0, 255] are refused rather than
+    wrapped into other ids."""
+    ids = np.asarray(ids)
+    if not np.issubdtype(ids.dtype, np.integer):
+        raise ValueError(f"token_data=True expects an integer token split, "
+                         f"got {ids.dtype} (float splits are the image path)")
+    if quantize == "off":
+        return ids.astype(np.int32, copy=False)
+    if ids.dtype != np.uint8:
+        if ids.size and (ids.min() < 0 or ids.max() > 255):
+            raise ValueError(
+                "token ids exceed uint8 range; store them int32 with "
+                "quantize='off' (a silent wrap would corrupt every "
+                "out-of-byte id)")
+        ids = ids.astype(np.uint8)
+    return ids
+
+
 def _epoch_seed(seed: int, epoch: int) -> int:
     return (int(seed) * 1_000_003 + int(epoch)) % (2 ** 63)
 
@@ -87,13 +112,16 @@ class DeviceDataset:
                  batch_size: int, device: torch.device | str = "cpu",
                  seed: int = 0, start_step: int = 0, steps_per_next: int = 1,
                  quantize: str = "auto", dequant_impl: str = "auto",
-                 perm_fn: Callable[[int], np.ndarray] | None = None):
+                 perm_fn: Callable[[int], np.ndarray] | None = None,
+                 token_data: bool = False):
         if quantize not in ("auto", "off", "exact", "scale"):
             raise ValueError(f"unknown quantize mode {quantize!r}")
         self.device = torch.device(device)
         self.dequant: str | None = None
         images = np.asarray(images)
-        if images.dtype == np.uint8:
+        if token_data:
+            images = token_storage(images, quantize)
+        elif images.dtype == np.uint8:
             self.dequant = "unit"
         elif quantize != "off":
             q = try_quantize(images)

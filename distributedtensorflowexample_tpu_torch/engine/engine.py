@@ -5,7 +5,9 @@ the ``sync_dp`` mode on one rank.
 the port does not run yet), loads the split, builds the model, optimizer
 and state on ``--device`` with the device-resident dataset and the
 indexed train step (``Engine.build``), runs the loop with its hooks, and
-ends with an exact eval on the held-out split.
+ends with an exact eval on the held-out split.  The workloads: config 3
+(``mnist_cnn`` on ``mnist``) and the transformer LM (``lm_tiny``,
+``lm_small``, ``lm_base`` on the ``lm`` token split).
 """
 
 from __future__ import annotations
@@ -19,9 +21,10 @@ import torch
 from distributedtensorflowexample_tpu_torch.config import RunConfig
 from distributedtensorflowexample_tpu_torch.data.device_dataset import (
     DEQUANT_IMPLS, DeviceDataset)
+from distributedtensorflowexample_tpu_torch.data.lm import load_lm
 from distributedtensorflowexample_tpu_torch.data.mnist import load_mnist
 from distributedtensorflowexample_tpu_torch.device import resolve_device
-from distributedtensorflowexample_tpu_torch.models.mnist_cnn import MnistCNN
+from distributedtensorflowexample_tpu_torch.models import build_model
 from distributedtensorflowexample_tpu_torch.parallel.sync import (
     make_indexed_train_step, make_resident_eval)
 from distributedtensorflowexample_tpu_torch.refusal import ModeRefusal
@@ -44,7 +47,8 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 class RunSpec:
     """What to run: the workload's model and dataset names plus the
     parsed flags (the slice of the JAX package's ``engine/spec.py``
-    RunSpec that config 3 uses)."""
+    RunSpec that the ported workloads use).  The ``lm`` dataset is an
+    integer token split; every other one holds images."""
 
     model: str
     dataset: str
@@ -75,16 +79,26 @@ def _load_dataset(cfg: RunConfig, name: str, split: str):
             f"--dataset {cfg.dataset!r} does not match this trainer's "
             f"dataset {name!r}; pass --dataset {name} (real bytes in "
             f"--data_dir) or --dataset synthetic")
-    if name != "mnist":
-        raise ModeRefusal(f"the {name!r} dataset is not ported to the "
-                          f"PyTorch package yet")
     source = "synthetic" if cfg.dataset == "synthetic" else "real"
-    return load_mnist(cfg.data_dir, split, seed=cfg.seed, source=source)
+    if name == "mnist":
+        return load_mnist(cfg.data_dir, split, seed=cfg.seed, source=source)
+    if name == "lm":
+        # Both sources are the synthetic chain (data/lm.py).
+        return load_lm(cfg.data_dir, split, seed=cfg.seed, source=source)
+    raise ModeRefusal(f"the {name!r} dataset is not ported to the PyTorch "
+                      f"package yet")
 
 
-def _refuse_unported(cfg: RunConfig) -> None:
-    """Named refusals for every mode this slice does not run, checked
-    before any data is loaded."""
+def _refuse_unported(cfg: RunConfig, token_data: bool = False) -> None:
+    """Named refusals for every mode this slice does not run, and the
+    JAX package's refusal of the host-fed path for a token split,
+    checked before any data is loaded."""
+    if token_data and cfg.device_data == "off":
+        raise ModeRefusal(
+            "the lm dataset is an integer token split and runs on the "
+            "device-resident input path only; --device_data off selects "
+            "the host float-image Batcher, which would dequantize token "
+            "ids into pixels. Drop --device_data off")
     if cfg.sync_mode not in ("sync", "async"):
         raise ValueError(f"unknown sync_mode {cfg.sync_mode!r}")
     if cfg.device_data not in ("auto", "on", "off"):
@@ -142,6 +156,7 @@ class Engine:
 
     def __init__(self, spec: RunSpec):
         self.spec = spec
+        self.token_data = spec.dataset == "lm"
 
     def build(self, device: torch.device, unroll: int = 1, data=None,
               perm_fn=None) -> EngineBuild:
@@ -149,25 +164,24 @@ class Engine:
         ``(images, labels)`` replaces the spec's train split; ``perm_fn``
         injects an index tape (``DeviceDataset``)."""
         cfg = self.spec.config
-        if self.spec.model != "mnist_cnn":
-            raise ModeRefusal(f"model {self.spec.model!r} is not ported to "
-                              f"the PyTorch package yet")
+        model = build_model(self.spec.model, dropout=cfg.dropout,
+                            dtype=_DTYPES[cfg.dtype], remat=cfg.remat)
         x, y = (data if data is not None else
                 _load_dataset(cfg, self.spec.dataset, "train"))
-        model = MnistCNN(num_classes=10, dropout_rate=cfg.dropout,
-                         dtype=_DTYPES[cfg.dtype])
         state = TrainState.create(model, lambda m: build_optimizer(cfg, m),
                                   cfg.seed, device)
         ds = DeviceDataset(x, y, cfg.batch_size, device=device,
                            seed=cfg.seed, start_step=state.step,
                            steps_per_next=unroll, quantize=cfg.quantize,
-                           dequant_impl=cfg.dequant_impl, perm_fn=perm_fn)
+                           dequant_impl=cfg.dequant_impl, perm_fn=perm_fn,
+                           token_data=self.token_data)
         step = make_indexed_train_step(
             cfg.batch_size, ds.steps_per_epoch, cfg.label_smoothing,
             ce_impl="pallas" if cfg.pallas_ce else "xla",
             unroll_steps=unroll,
             replicas_to_aggregate=cfg.replicas_to_aggregate,
-            num_slots=ds.num_slots, dequant_impl=cfg.dequant_impl)
+            num_slots=ds.num_slots, dequant_impl=cfg.dequant_impl,
+            token_data=self.token_data)
         return EngineBuild(state=state, ds=ds, step=step, unroll=unroll)
 
     def run(self) -> dict:
@@ -179,7 +193,7 @@ class Engine:
                   "synchronous data parallelism; this process exits.",
                   flush=True)
             return {"role": "ps", "exited": True}
-        _refuse_unported(cfg)
+        _refuse_unported(cfg, self.token_data)
         device = resolve_device(cfg.device)
         if cfg.resume:
             print("--resume: the PyTorch package has no checkpoint format "
@@ -219,7 +233,8 @@ class Engine:
         eval_fn = make_resident_eval(test_x, test_y, device,
                                      batch_size=eval_batch,
                                      quantize=cfg.quantize,
-                                     dequant_impl=cfg.dequant_impl)
+                                     dequant_impl=cfg.dequant_impl,
+                                     token_data=self.token_data)
         if cfg.eval_every > 0:
             hooks.append(EvalHook(eval_fn, cfg.eval_every, logger))
         metrics_hook = MetricsHook(every=cfg.log_every)

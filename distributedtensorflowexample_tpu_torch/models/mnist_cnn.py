@@ -17,21 +17,12 @@ orders).  Dropout is active only when training and draws from the
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-
-def _lecun_normal_(w: torch.Tensor, fan_in: int,
-                   generator: torch.Generator | None) -> None:
-    # flax's default kernel init: variance 1/fan_in from a normal
-    # truncated at two standard deviations (the stddev is corrected for
-    # the truncation, as jax.nn.initializers.variance_scaling does).
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
-                          generator=generator)
+from distributedtensorflowexample_tpu_torch.models.initializers import (
+    lecun_normal_)
 
 
 class MnistCNN(nn.Module):
@@ -50,7 +41,7 @@ class MnistCNN(nn.Module):
         """flax's default init: lecun-normal kernels, zero biases."""
         for layer in (self.conv1, self.conv2, self.fc1, self.logits):
             fan_in = layer.weight[0].numel()
-            _lecun_normal_(layer.weight, fan_in, generator)
+            lecun_normal_(layer.weight, fan_in, generator)
             layer.bias.zero_()
         return self
 

@@ -32,17 +32,33 @@ from distributedtensorflowexample_tpu_torch.ops.losses import (
 from distributedtensorflowexample_tpu_torch.refusal import ModeRefusal
 
 
+def _per_example_rows(impl: Callable) -> Callable:
+    """Let a [rows, C] loss head also take sequence logits [B, T, C] with
+    labels [B, T] (the transformer LM): the tokens flatten row-major into
+    [B*T, C] rows for ``impl`` and fold back to one value per example,
+    the mean over T, so the batch mean downstream is the image models'."""
+    def rows(logits, labels):
+        if logits.dim() == 3:
+            r = impl(logits.reshape(-1, logits.shape[-1]),
+                     labels.reshape(-1))
+            return r.reshape(logits.shape[0], -1).mean(dim=1)
+        return impl(logits, labels)
+    return rows
+
+
 def make_loss_rows(label_smoothing: float = 0.0,
                    ce_impl: str = "xla") -> Callable:
-    """Per-example loss head [B, C] -> [B].  ``ce_impl="pallas"`` (the
-    ``--pallas_ce`` flag; the name is the JAX package's) runs the fused
-    cross-entropy kernel pair; ``"xla"`` the plain PyTorch ops."""
+    """Per-example loss head [B, C] -> [B] (or [B, T, C] with [B, T]
+    labels -> [B], see :func:`_per_example_rows`).  ``ce_impl="pallas"``
+    (the ``--pallas_ce`` flag; the name is the JAX package's) runs the
+    fused cross-entropy kernel pair; ``"xla"`` the plain PyTorch ops."""
     if ce_impl not in ("xla", "pallas"):
         raise ValueError(f"unknown ce_impl {ce_impl!r}")
     if ce_impl == "xla":
-        return lambda l, y: softmax_cross_entropy_rows(l, y, label_smoothing)
-    return lambda l, y: fused_softmax_cross_entropy_rows(l, y,
-                                                         label_smoothing)
+        return _per_example_rows(
+            lambda l, y: softmax_cross_entropy_rows(l, y, label_smoothing))
+    return _per_example_rows(
+        lambda l, y: fused_softmax_cross_entropy_rows(l, y, label_smoothing))
 
 
 def _resolve_num_slots(unroll_steps: int, steps_per_epoch: int,
@@ -60,12 +76,14 @@ def _resolve_num_slots(unroll_steps: int, steps_per_epoch: int,
 
 
 def make_device_gather(batch_size: int, steps_per_epoch: int, *,
-                       num_slots: int, dequant_impl: str = "auto") -> Callable:
+                       num_slots: int, dequant_impl: str = "auto",
+                       token_data: bool = False) -> Callable:
     """(step, data) -> batch: the on-device minibatch gather from a
     resident split (``DeviceDataset``), with the JAX package's slot and
     position arithmetic.  ``dequant_impl="pallas"`` gathers and
     dequantizes in one kernel launch; otherwise the rows are gathered and
-    dequantized by the plain affine."""
+    dequantized by the plain affine.  ``token_data=True`` (a token split)
+    passes the gathered ids through: they are not pixels."""
     if dequant_impl not in DEQUANT_IMPLS:
         raise ValueError(f"unknown dequant_impl {dequant_impl!r} "
                          f"(one of {DEQUANT_IMPLS})")
@@ -74,7 +92,9 @@ def make_device_gather(batch_size: int, steps_per_epoch: int, *,
         slot = (step // steps_per_epoch) % num_slots
         pos = (step % steps_per_epoch) * batch_size
         idx = data["perm"][slot, pos:pos + batch_size]
-        if dequant_impl == "pallas" and "dq_scale" in data:
+        if token_data:
+            img = data["images"].index_select(0, idx)
+        elif dequant_impl == "pallas" and "dq_scale" in data:
             img = fused_gather_dequant(data["images"], idx,
                                        data["dq_scale"], data["dq_bias"])
         else:
@@ -121,17 +141,20 @@ def make_indexed_train_step(batch_size: int, steps_per_epoch: int,
                             unroll_steps: int = 1,
                             replicas_to_aggregate: int = 0,
                             num_slots: int | None = None,
-                            dequant_impl: str = "auto") -> Callable:
+                            dequant_impl: str = "auto",
+                            token_data: bool = False) -> Callable:
     """Step over a device-resident dataset: ``(state, data) -> (state,
     metrics)``.  ``unroll_steps=K`` runs K consecutive updates per call (a
     Python loop; each sub-step picks its epoch's perm slot, so a window
     may cross epochs) and returns metrics averaged over the K updates,
-    still on the device."""
+    still on the device.  ``token_data=True``: the split holds token ids
+    (:func:`make_device_gather`)."""
     num_slots = _resolve_num_slots(unroll_steps, steps_per_epoch, num_slots)
     inner = _build_step_fn(label_smoothing, ce_impl, replicas_to_aggregate)
     gather = make_device_gather(batch_size, steps_per_epoch,
                                 num_slots=num_slots,
-                                dequant_impl=dequant_impl)
+                                dequant_impl=dequant_impl,
+                                token_data=token_data)
 
     def step(state, data):
         tape = [inner(state, gather(state.step, data))
@@ -147,7 +170,8 @@ def make_indexed_train_step(batch_size: int, steps_per_epoch: int,
 def make_resident_eval(images: np.ndarray, labels: np.ndarray,
                        device: torch.device, batch_size: int = 1000,
                        quantize: str = "auto",
-                       dequant_impl: str = "auto") -> Callable:
+                       dequant_impl: str = "auto",
+                       token_data: bool = False) -> Callable:
     """Exact accuracy over a split held on the device: ``eval_fn(state)
     -> float``, one host read per eval.
 
@@ -156,24 +180,31 @@ def make_resident_eval(images: np.ndarray, labels: np.ndarray,
     ``dequant_impl="pallas"`` each batch is dequantized by the kernel
     (gathering rows ``i*batch .. (i+1)*batch``), so a card run of the
     main path never leaves the kernel for the plain version; otherwise by
-    the plain affine."""
+    the plain affine.
+
+    ``token_data=True`` (the LM): the split is token ids, nothing is
+    dequantized, and accuracy counts label elements (tokens of the
+    [N, T] targets), so the denominator is ``labels.size``."""
     if quantize not in ("auto", "off", "exact", "scale"):
         raise ValueError(f"unknown quantize mode {quantize!r}")
     images = np.asarray(images)
+    labels = np.asarray(labels)
     dequant = None
-    if quantize != "off":
+    if not token_data and quantize != "off":
         q = try_quantize(images)
         if q is not None:
             images, dequant = q
     impl = (resolve_dequant_impl(dequant, dequant_impl)
             if dequant is not None else None)
     n = len(labels)
+    denom = labels.size
     num_batches = -(-n // batch_size)
     pad = num_batches * batch_size - n
     if pad:
         images = np.concatenate(
             [images, np.zeros((pad,) + images.shape[1:], images.dtype)])
-        labels = np.concatenate([labels, np.full((pad,), -1, np.int32)])
+        labels = np.concatenate(
+            [labels, np.full((pad,) + labels.shape[1:], -1, labels.dtype)])
     put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     xs = put(images)
     ys = put(np.asarray(labels, np.int32))
@@ -195,6 +226,6 @@ def make_resident_eval(images: np.ndarray, labels: np.ndarray,
                 bx = xs[lo:hi]
             logits = state.model(bx, train=False)
             total += (logits.argmax(dim=-1) == ys[lo:hi]).sum()
-        return int(total.item()) / n
+        return int(total.item()) / denom
 
     return run

@@ -14,16 +14,20 @@ from __future__ import annotations
 
 import sys
 
-from distributedtensorflowexample_tpu_torch.config import parse_flags
+from distributedtensorflowexample_tpu_torch.config import RunConfig, parse_flags
 from distributedtensorflowexample_tpu_torch.engine import Engine, RunSpec
 
 
+def build_config(argv=None) -> RunConfig:
+    """The config from the trainer's argv and its defaults."""
+    return parse_flags(argv, description=__doc__,
+                       batch_size=64, train_steps=2000, learning_rate=0.05,
+                       momentum=0.9, dataset="mnist", sync_mode="sync")
+
+
 def main(argv=None) -> dict:
-    cfg = parse_flags(argv, description=__doc__,
-                      batch_size=64, train_steps=2000, learning_rate=0.05,
-                      momentum=0.9, dataset="mnist", sync_mode="sync")
     return Engine(RunSpec(model="mnist_cnn", dataset="mnist",
-                          config=cfg)).run()
+                          config=build_config(argv))).run()
 
 
 if __name__ == "__main__":

@@ -1,12 +1,16 @@
-"""Where config 3's step time goes on the card.
+"""Where a training step's time goes on the card.
 
     python -m distributedtensorflowexample_tpu_torch.utils.profiling \
-        [--batch 64 256] [--steps 100] [--dequant_impl pallas ...]
+        [--model mnist_cnn | lm_base] \
+        [--batch 64 256] [--steps 100] [--warmup 50] [--dequant_impl ...]
 
-Builds the main path's train step with ``Engine.build`` (synthetic MNIST
-resident on the card, MnistCNN at full width, by default all three
-kernel flags), warms it up, then for each batch size prints one JSON
-line with:
+Builds the train step with ``Engine.build`` from the trainer's own config
+(``build_config``) plus the kernel flags: for ``mnist_cnn`` (the default)
+config 3's, synthetic MNIST resident on the card, at B=64 and 256 with
+all three kernel flags; for ``lm_base`` ``trainer_lm``'s, the token split
+resident on the card, at B=16 with ``--pallas_ce`` and
+``--fused_optimizer``.  It warms the step up, then for each batch size
+prints one JSON line with:
 
 - ``wall_ms_per_step``: host clock around ``--steps`` steps ending in
   ``torch.cuda.synchronize`` (no profiler attached);
@@ -14,11 +18,15 @@ line with:
   copy's device time from ``torch.profiler`` over the same number of
   steps, and ``idle_share`` = 1 - busy / wall;
 - ``top``: the largest device-time entries per step, ``top_host``: the
-  largest host (CPU self) times per step under the profiler, and
-  ``port_us_per_launch``: each port kernel's device time per launch.
+  largest host (CPU self) times per step under the profiler,
+  ``by_kind``: device time and launches per step by kind of kernel
+  (``kind_of``: matrix products, the port's kernels, elementwise and
+  copies, reductions, softmax, other),
+  ``port_us_per_launch``: each port kernel's device time per launch, and
+  ``port_launches_per_step``.
 
 Any flag of the trainer CLI (``config.py``) is accepted after the
-script's own; the defaults are the trainer's plus the kernel flags.
+script's own.
 """
 
 from __future__ import annotations
@@ -31,15 +39,50 @@ import time
 
 import torch
 
-from distributedtensorflowexample_tpu_torch.config import parse_flags
 from distributedtensorflowexample_tpu_torch.device import resolve_device
 from distributedtensorflowexample_tpu_torch.engine import Engine, RunSpec
+from distributedtensorflowexample_tpu_torch.trainers import (
+    trainer_lm, trainer_sync_mnist)
 
 #: Substrings of the port kernels' device names.
 PORT_KERNELS = {"dequant": "dequant_gather_kernel", "ce_fwd": "ce_fwd_kernel",
                 "ce_bwd": "ce_bwd_kernel", "sgd": "sgd_momentum_kernel"}
 KERNEL_FLAGS = ["--dequant_impl", "pallas", "--pallas_ce", "true",
                 "--fused_optimizer", "true"]
+MODELS = ("mnist_cnn", "lm_base")
+
+
+def workload(model: str, argv: list) -> tuple:
+    """``(spec, default batches)`` for ``--model``: the trainer's config
+    with the kernel flags, then ``argv``."""
+    if model == "mnist_cnn":
+        cfg = trainer_sync_mnist.build_config(
+            KERNEL_FLAGS + ["--dataset", "synthetic"] + argv)
+        return RunSpec(model, "mnist", cfg), [64, 256]
+    if model == "lm_base":
+        size, cfg = trainer_lm.build_config(
+            ["--size", model, "--pallas_ce", "true", "--fused_optimizer",
+             "true"] + argv)
+        return RunSpec(size, "lm", cfg), [16]
+    raise ValueError(f"unknown model {model!r} (one of {MODELS})")
+
+
+#: (kind, substrings of the device names that select it), first match wins.
+KINDS = (
+    ("port", tuple(PORT_KERNELS.values())),
+    ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "sm90_", "cublas")),
+    ("softmax", ("softmax",)),
+    ("reduction", ("reduce",)),
+    ("elementwise_copy", ("elementwise", "copy", "fill", "Memset",
+                          "Memcpy")),
+)
+
+
+def kind_of(name: str) -> str:
+    for kind, subs in KINDS:
+        if any(sub in name for sub in subs):
+            return kind
+    return "other"
 
 
 def _device_us(evt) -> float:
@@ -53,9 +96,10 @@ def _on_device(evt) -> bool:
     return evt.device_type == torch.autograd.DeviceType.CUDA
 
 
-def profile_step(cfg, steps: int, warmup: int) -> dict:
+def profile_step(spec: RunSpec, steps: int, warmup: int) -> dict:
+    cfg = spec.config
     device = resolve_device(cfg.device)
-    built = Engine(RunSpec("mnist_cnn", "mnist", cfg)).build(device)
+    built = Engine(spec).build(device)
 
     def run(n):
         for _ in range(n):
@@ -82,34 +126,44 @@ def profile_step(cfg, steps: int, warmup: int) -> dict:
     top_host = [{"name": e.key[:60],
                  "self_cpu_us_per_step": e.self_cpu_time_total / steps,
                  "calls_per_step": e.count / steps} for e in host[:10]]
-    port = {}
+    by_kind: dict = {}
+    for e in events:
+        k = by_kind.setdefault(kind_of(e.key), {"us_per_step": 0.0,
+                                                "launches_per_step": 0.0})
+        k["us_per_step"] += _device_us(e) / steps
+        k["launches_per_step"] += e.count / steps
+    port, port_calls = {}, {}
     for name, sub in PORT_KERNELS.items():
         hits = [e for e in events if sub in e.key]
         calls = sum(e.count for e in hits)
         port[name] = (sum(_device_us(e) for e in hits) / calls
                       if calls else None)
-    return {"batch": cfg.batch_size, "steps": steps, "wall_ms_per_step": wall_ms,
+        port_calls[name] = calls / steps
+    return {"model": spec.model, "batch": cfg.batch_size, "steps": steps,
+            "wall_ms_per_step": wall_ms,
             "device_busy_ms_per_step": busy_ms,
             "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
             "kernels_per_step": sum(e.count for e in events) / steps,
-            "top": top, "top_host": top_host, "port_us_per_launch": port}
+            "top": top, "top_host": top_host, "by_kind": by_kind,
+            "port_us_per_launch": port,
+            "port_launches_per_step": port_calls}
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--batch", type=int, nargs="+", default=[64, 256])
+    p.add_argument("--model", default="mnist_cnn", choices=MODELS)
+    p.add_argument("--batch", type=int, nargs="+", default=None)
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--warmup", type=int, default=50)
     args, rest = p.parse_known_args(argv)
-    cfg = parse_flags(KERNEL_FLAGS + rest, learning_rate=0.05, momentum=0.9,
-                      dataset="synthetic")
+    spec, batches = workload(args.model, rest)
     gpu = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    for batch in args.batch:
-        cfg.batch_size = batch
-        row = profile_step(cfg, args.steps, args.warmup)
+    for batch in args.batch or batches:
+        spec.config.batch_size = batch
+        row = profile_step(spec, args.steps, args.warmup)
         print(json.dumps({"gpu": gpu, **row}), flush=True)
     return 0
 

@@ -152,3 +152,34 @@ def test_main_path_launches_every_kernel(cuda, tmp_path, monkeypatch):
         "ce_bwd": 40, "sgd": 40}
     losses = [l for _, l in summary["loss_tape"]]
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+@pytest.mark.parametrize("size", ["lm_tiny", "lm_small"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_forward_on_the_card_matches_the_cpu(cuda, dtype, size):
+    """One init, one token batch: the card's logits against the CPU's.
+    float32 within 1e-4 of the largest logit (TF32 off, summation order
+    only); bfloat16 within 6e-2 absolute (two bf16 ulps at |logit| < 8:
+    cuBLAS and the CPU round their products at different places).  One
+    out-of-vocabulary id poisons every logit on the card too."""
+    from distributedtensorflowexample_tpu_torch.device import resolve_device
+    from distributedtensorflowexample_tpu_torch.models import build_model
+    resolve_device("cuda")
+    dt = getattr(torch, dtype)
+    model = build_model(size, dtype=dt).reset_parameters(
+        torch.Generator().manual_seed(0))
+    tokens = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 250, (4, 128)).astype(np.uint8))
+    bad = tokens.clone()
+    bad[3, 7] = 253
+    with torch.no_grad():
+        want = model(tokens)
+        model.to(cuda)
+        got = model(tokens.to(cuda)).cpu()
+        assert model(bad.to(cuda)).isnan().all()
+    assert torch.isfinite(got).all()
+    err = (got - want).abs().max().item()
+    if dtype == "float32":
+        assert err <= 1e-4 * want.abs().max().item()
+    else:
+        assert err <= 6e-2
