@@ -1,8 +1,10 @@
 """Chip smoke for the PyTorch/CUDA port: proves, on one CUDA card, that the
 port builds, that each hand-written kernel agrees with its plain PyTorch
 version, that config 3 (sync-SGD MNIST CNN) trains through all four
-kernels, and that the transformer LM (lm_base, 57,289,728 parameters)
-trains through the cross-entropy and SGD kernels.
+kernels, that the transformer LM (lm_base, 57,289,728 parameters)
+trains through the cross-entropy and SGD kernels, and that both train as
+synchronous data parallelism over several ranks: two gloo ranks on the
+one card, and an NCCL group over the visible cards.
 
     python3 chip_smoke.py
 
@@ -37,8 +39,36 @@ without printing a result:
    never; a finite, falling loss and a per-token ``final_accuracy`` of at
    least 0.5 (the corpus's bigram ceiling is ~0.85; uniform guessing
    scores 0.004); then one ``lm_main_path`` JSON line;
-7. the ``kernels`` JSON line (each kernel's launches summed over both
-   main paths, and per path), then the ``ok`` line last.
+A. two ranks on the one card over gloo (``parallel/launch.spawn``: two
+   processes, a gloo group over a file store in a temporary directory,
+   both ranks on ``cuda:0``; gloo reduces the CUDA tensors through host
+   memory): ``trainer_sync_mnist.main`` at full width, ``--batch_size 64``
+   per rank (global 128), the three kernel flags, 300 steps, counters set
+   to 0 in each rank just before and read just after.  Each rank must
+   have launched every kernel once per step (dequant also once per eval
+   batch), run one gradient all-reduce per step, end with parameters
+   bitwise equal to the other rank's (sha256 of ``params_flat``) and a
+   ``final_accuracy`` of at least 0.9; then one ``multirank_path`` JSON
+   line with steps/s and the host-staged all-reduce time of the flat
+   3,274,634-element gradient;
+B. in the same two ranks first: 5 steps of config 3 on the card against
+   5 steps of the same two gloo ranks on the CPU (plain versions), one
+   init and one index tape: global loss tapes within 2e-2 relative, the
+   bound of phase 4;
+C. config 3 through an NCCL group of ``min(device_count, 4)`` ranks for
+   50 steps (one rank on a one-card machine, which still runs the NCCL
+   all-reduce on the card): with one rank the parameters must be bitwise
+   those of the same 50 steps with no process group (both with cuDNN's
+   deterministic algorithms); with two or more, phase A's cross-rank
+   checks;
+D. in the same two gloo ranks last: ``trainer_lm.main`` at lm_base, 20
+   steps at lr 0.02 with the CE and SGD kernels (B=16 per rank): a
+   finite loss, bitwise-equal parameters across the ranks, ``ce_fwd``,
+   ``ce_bwd`` and ``sgd`` once per step in each rank; each step
+   all-reduces the 57,289,728-element gradient;
+7. the ``kernels`` JSON line (each kernel's launches summed over every
+   path and rank, and per path: per rank for the multi-rank paths), then
+   the ``ok`` line last.
 
 Times come from ``utils/kernel_timing.py``, by CUDA events after a
 warm-up, each launch on fresh indices (dequant) or buffers (SGD) where
@@ -55,6 +85,7 @@ float32 outside the tensor cores.
 from __future__ import annotations
 
 import contextlib
+import importlib
 import io
 import json
 import subprocess
@@ -64,12 +95,14 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from distributedtensorflowexample_tpu_torch.ops import kernels
 from distributedtensorflowexample_tpu_torch.ops.kernels import build as kbuild
 from distributedtensorflowexample_tpu_torch.ops.kernels import (
     cross_entropy as ce, dequant as dq, sgd)
+from distributedtensorflowexample_tpu_torch.parallel import launch
 from distributedtensorflowexample_tpu_torch.utils import kernel_timing as kt
 
 HBM_BYTES_PER_S = 3.35e12
@@ -84,6 +117,12 @@ LM_BATCH = 16
 # it settles near uniform; at 0.02 the 600 steps learn the chain.
 LM_LR = 0.02
 LM_MIN_ACCURACY = 0.5
+MR_RANKS = 2                # phases A, B, D: gloo ranks on the one card
+MR_STEPS = 300
+MR_LM_STEPS = 20
+NCCL_STEPS = 50
+CNN_PARAMS = 3_274_634
+LM_PARAMS = 57_289_728
 SOURCES = {
     "dequant": ("distributedtensorflowexample_tpu_torch/csrc/dequant.cu",
                 "distributedtensorflowexample_tpu/ops/pallas/dequant.py:35"),
@@ -356,6 +395,203 @@ def run_lm_main_path(gpu: str) -> tuple[dict, dict]:
     return result, counts
 
 
+def run_trainer(trainer: str, argv: list) -> dict:
+    """One trainer run in this process, its stdout captured: the launch
+    counters set to 0 just before and read just after."""
+    module = importlib.import_module(
+        f"distributedtensorflowexample_tpu_torch.trainers.{trainer}")
+    out = io.StringIO()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        summary = module.main(argv)
+    wall = time.perf_counter() - t0
+    return dict(summary, launches=kernels.launch_counts(),
+                text=out.getvalue(), wall_s_incl_setup_and_eval=wall)
+
+
+def all_reduce_ms(numel: int, iters: int) -> float:
+    """Host milliseconds per ``all_reduce`` of a float32 buffer of
+    ``numel`` on this rank's card, back to back, synchronized."""
+    buf = torch.zeros(numel, device="cuda")
+    for _ in range(2):
+        dist.all_reduce(buf)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        dist.all_reduce(buf)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def two_rank_card_vs_cpu() -> dict:
+    """Phase B in one rank: config 3 at B=8 per rank for 5 steps on the
+    card, then the same 5 steps on the CPU, both through this rank's
+    group, from one init and one index tape; the global loss tapes."""
+    from distributedtensorflowexample_tpu_torch.config import parse_flags
+    from distributedtensorflowexample_tpu_torch.data.synthetic import (
+        make_synthetic)
+    from distributedtensorflowexample_tpu_torch.engine import Engine, RunSpec
+    from distributedtensorflowexample_tpu_torch.parallel.mesh import make_mesh
+    x, y = make_synthetic(256, (28, 28, 1), 10, seed=0, sample_seed=1)
+    perm = np.random.RandomState(0).permutation(256)
+    cfg = parse_flags(["--fused_optimizer", "true", "--momentum", "0.9",
+                       "--dropout", "0", "--pallas_ce", "true",
+                       "--learning_rate", "0.05", "--batch_size", "8",
+                       "--dequant_impl", "pallas"])
+    tapes = {}
+    for name in ("cuda", "cpu"):
+        mesh = make_mesh(name)
+        built = Engine(RunSpec("mnist_cnn", "mnist", cfg)).build(
+            mesh, data=(x, y), perm_fn=lambda e: perm)
+        tapes[name] = [float(mesh.sum_metrics(
+            built.step(built.state, next(built.ds))[1])["loss"])
+            for _ in range(5)]
+    return tapes
+
+
+def gloo_rank_phases() -> dict:
+    """Phases B, A and D in one of the two gloo ranks on ``cuda:0``."""
+    out = {"card_vs_cpu": two_rank_card_vs_cpu()}
+    out["mnist"] = run_trainer("trainer_sync_mnist", [
+        "--device", "cuda", "--dataset", "synthetic", "--dequant_impl",
+        "pallas", "--pallas_ce", "true", "--fused_optimizer", "true",
+        "--train_steps", str(MR_STEPS), "--batch_size", str(BATCH),
+        "--log_every", "100", "--resume", "false",
+        "--log_dir", str(ROOT / "build" / "chip_smoke_gloo")])
+    out["mnist"]["all_reduce_ms"] = all_reduce_ms(CNN_PARAMS, 50)
+    out["lm"] = run_trainer("trainer_lm", [
+        "--device", "cuda", "--size", LM_SIZE, "--pallas_ce", "true",
+        "--fused_optimizer", "true", "--learning_rate", str(LM_LR),
+        "--train_steps", str(MR_LM_STEPS), "--log_every", "10",
+        "--resume", "false",
+        "--log_dir", str(ROOT / "build" / "chip_smoke_gloo_lm")])
+    out["lm"]["all_reduce_ms"] = all_reduce_ms(LM_PARAMS, 10)
+    return out
+
+
+def nccl_rank(argv: list) -> dict:
+    torch.backends.cudnn.deterministic = True
+    return run_trainer("trainer_sync_mnist", argv)
+
+
+def check_ranks(ranks: list, what: str, expect: dict, steps: int) -> None:
+    """Phase A's cross-rank checks: every rank trained ``steps`` steps
+    with one gradient all-reduce each, launched ``expect``, and holds the
+    same parameters bit for bit; only rank 0 printed step lines."""
+    for r in ranks:
+        require(r["steps"] == steps and r["all_reduces"] == steps,
+                f"{what}: rank {r['rank']} trained {r['steps']} steps with "
+                f"{r['all_reduces']} gradient all-reduces, expected {steps}")
+        require(r["launches"] == expect,
+                f"{what}: rank {r['rank']} launch counts {r['launches']}, "
+                f"expected {expect}")
+        losses = [l for _, l in r["loss_tape"]]
+        require(len(losses) >= 1 and all(np.isfinite(losses)),
+                f"{what}: rank {r['rank']} loss tape {r['loss_tape']}")
+    digests = {r["params_digest"] for r in ranks}
+    require(len(digests) == 1, f"{what}: replicas differ ({digests})")
+    require(all("step " not in r["text"] for r in ranks[1:]),
+            f"{what}: a rank other than 0 printed step lines")
+
+
+def run_gloo_phases(gpu: str) -> dict:
+    """Phases A, B and D: two gloo ranks on the one card."""
+    ranks = launch.spawn(gloo_rank_phases, MR_RANKS, "gloo", timeout_s=900)
+    b = [r["card_vs_cpu"] for r in ranks]
+    a, c = np.array(b[0]["cuda"]), np.array(b[0]["cpu"])
+    require(all(t == b[0] for t in b), f"phase B: the ranks' tapes differ {b}")
+    require(np.all(np.isfinite(a)), f"phase B: card tape not finite {a}")
+    rel = float(np.max(np.abs(a - c) / np.abs(c)))
+    require(rel <= 2e-2, f"phase B: 2-rank card vs CPU loss tapes differ by "
+                         f"{rel:.3g} relative (cuda {a}, cpu {c})")
+    print(json.dumps({"multirank_card_vs_cpu_5_steps": {
+        "ranks": MR_RANKS, "cuda": b[0]["cuda"], "cpu": b[0]["cpu"],
+        "max_rel": rel}}), flush=True)
+
+    mn = [r["mnist"] for r in ranks]
+    print(mn[0]["text"], end="")
+    evals = mn[0]["eval_batches"]
+    check_ranks(mn, "phase A", {"dequant": MR_STEPS + evals,
+                                "ce_fwd": MR_STEPS, "ce_bwd": MR_STEPS,
+                                "sgd": MR_STEPS}, MR_STEPS)
+    check_loss_tape(mn[0], mn[0]["text"])
+    require(mn[0]["final_accuracy"] >= 0.9,
+            f"phase A: final accuracy {mn[0]['final_accuracy']}")
+    path = {"ranks": MR_RANKS, "backend": "gloo", "device": mn[0]["device"],
+            "steps": MR_STEPS, "batch_per_rank": BATCH,
+            "global_batch": mn[0]["global_batch"],
+            "steps_per_call": mn[0]["steps_per_call"],
+            "steps_per_sec": mn[0]["steps_per_sec"],
+            "all_reduce_ms_host_staged": [r["all_reduce_ms"] for r in mn],
+            "all_reduce_numel": CNN_PARAMS,
+            "wall_s_incl_setup_and_eval": mn[0]["wall_s_incl_setup_and_eval"],
+            "final_accuracy": mn[0]["final_accuracy"],
+            "loss_tape": mn[0]["loss_tape"],
+            "launches_by_rank": [r["launches"] for r in mn],
+            "params_digest": mn[0]["params_digest"], "gpu": gpu}
+    print(json.dumps({"multirank_path": path}), flush=True)
+
+    lm = [r["lm"] for r in ranks]
+    print(lm[0]["text"], end="")
+    check_ranks(lm, "phase D", {"dequant": 0, "ce_fwd": MR_LM_STEPS,
+                                "ce_bwd": MR_LM_STEPS, "sgd": MR_LM_STEPS},
+                MR_LM_STEPS)
+    lm_path = {"model": LM_SIZE, "ranks": MR_RANKS, "backend": "gloo",
+               "steps": MR_LM_STEPS, "batch_per_rank": LM_BATCH,
+               "global_batch": lm[0]["global_batch"],
+               "steps_per_sec": lm[0]["steps_per_sec"],
+               "all_reduce_ms_host_staged": [r["all_reduce_ms"] for r in lm],
+               "all_reduce_numel": LM_PARAMS,
+               "wall_s_incl_setup_and_eval":
+                   lm[0]["wall_s_incl_setup_and_eval"],
+               "final_accuracy": lm[0]["final_accuracy"],
+               "loss_tape": lm[0]["loss_tape"],
+               "launches_by_rank": [r["launches"] for r in lm], "gpu": gpu}
+    print(json.dumps({"multirank_lm_path": lm_path}), flush=True)
+    return {"mnist_cnn_gloo2": [r["launches"] for r in mn],
+            f"{LM_SIZE}_gloo2": [r["launches"] for r in lm]}
+
+
+def run_nccl_phase(gpu: str) -> dict:
+    """Phase C: config 3 through an NCCL group on the visible cards."""
+    world = min(torch.cuda.device_count(), 4)
+    argv = ["--device", "cuda", "--dataset", "synthetic", "--dequant_impl",
+            "pallas", "--pallas_ce", "true", "--fused_optimizer", "true",
+            "--train_steps", str(NCCL_STEPS), "--batch_size", str(BATCH),
+            "--log_every", "10", "--resume", "false",
+            "--log_dir", str(ROOT / "build" / "chip_smoke_nccl")]
+    ranks = launch.spawn(nccl_rank, world, "nccl", (argv,), timeout_s=600)
+    evals = ranks[0]["eval_batches"]
+    check_ranks(ranks, "phase C", {"dequant": NCCL_STEPS + evals,
+                                   "ce_fwd": NCCL_STEPS,
+                                   "ce_bwd": NCCL_STEPS, "sgd": NCCL_STEPS},
+                NCCL_STEPS)
+    result = {"world": world, "backend": "nccl",
+              "global_batch": ranks[0]["global_batch"],
+              "steps": NCCL_STEPS,
+              "steps_per_sec": ranks[0]["steps_per_sec"],
+              "loss_tape": ranks[0]["loss_tape"],
+              "launches_by_rank": [r["launches"] for r in ranks],
+              "params_digest": ranks[0]["params_digest"], "gpu": gpu}
+    if world == 1:
+        cudnn = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            alone = run_trainer("trainer_sync_mnist", argv)
+        finally:
+            torch.backends.cudnn.deterministic = cudnn
+        require(alone["params_digest"] == ranks[0]["params_digest"],
+                "phase C: the 1-rank NCCL run's parameters differ from the "
+                "same steps with no process group")
+        require(alone["loss_tape"] == ranks[0]["loss_tape"],
+                f"phase C: loss tapes differ ({alone['loss_tape']} without "
+                f"a group, {ranks[0]['loss_tape']} under NCCL)")
+        result["bitwise_equal_to_no_group"] = True
+    print(json.dumps({"nccl_path": result}), flush=True)
+    return {"mnist_cnn_nccl": [r["launches"] for r in ranks]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -416,14 +652,20 @@ def main() -> int:
     print(f"lm main path: {lm['steps_per_sec']:.2f} steps/s (last 100-step "
           f"window, {LM_SIZE}, B={LM_BATCH} x T=128) on {gpu}", flush=True)
 
+    by_path = run_gloo_phases(gpu)
+    by_path.update(run_nccl_phase(gpu))
+
     line = []
     for name, (source, replaces) in SOURCES.items():
         r = rows[(name, BATCH, 10 if name.startswith("ce_") else None)]
+        paths = {"mnist_cnn": counts[name], LM_SIZE: lm_counts[name],
+                 **{p: [c[name] for c in per_rank]
+                    for p, per_rank in by_path.items()}}
         line.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces,
-                     "launches": counts[name] + lm_counts[name],
-                     "launches_by_path": {"mnist_cnn": counts[name],
-                                          LM_SIZE: lm_counts[name]},
+                     "launches": sum(sum(v) if isinstance(v, list) else v
+                                     for v in paths.values()),
+                     "launches_by_path": paths,
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],

@@ -23,8 +23,11 @@ class DeviceUnavailable(RuntimeError):
     """``--device cuda`` was asked for but no CUDA card is visible."""
 
 
-def resolve_device(name: str) -> torch.device:
-    """``"cuda"`` or ``"cpu"`` -> ``torch.device``; sets the TF32 policy."""
+def resolve_device(name: str, local_rank: int = 0) -> torch.device:
+    """``"cuda"`` or ``"cpu"`` -> ``torch.device``; sets the TF32 policy.
+    On ``cuda`` the device is card ``local_rank`` (this rank's card,
+    ``parallel/mesh.py``), which becomes the current CUDA device: the
+    kernels launch on the current device."""
     if name not in DEVICES:
         raise ValueError(f"unknown device {name!r} (one of {DEVICES})")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -35,5 +38,10 @@ def resolve_device(name: str) -> torch.device:
                 "--device cuda: torch.cuda.is_available() is False (no "
                 "visible CUDA card, or a CPU-only PyTorch build). Pass "
                 "--device cpu to run the port's plain versions on the CPU")
-        return torch.device("cuda", torch.cuda.current_device())
+        visible = torch.cuda.device_count()
+        if not 0 <= local_rank < visible:
+            raise ValueError(f"--device cuda: card {local_rank} requested, "
+                             f"{visible} visible")
+        torch.cuda.set_device(local_rank)
+        return torch.device("cuda", local_rank)
     return torch.device("cpu")

@@ -1,30 +1,50 @@
 """The Engine (the JAX package's ``engine/engine.py`` ``Engine.run``), for
-the ``sync_dp`` mode on one rank.
+the ``sync_dp`` mode on one rank or on N ranks, one process each.
 
-``Engine(spec).run()`` resolves the flags (refusing by name every mode
-the port does not run yet), loads the split, builds the model, optimizer
-and state on ``--device`` with the device-resident dataset and the
-indexed train step (``Engine.build``), runs the loop with its hooks, and
-ends with an exact eval on the held-out split.  The workloads: config 3
-(``mnist_cnn`` on ``mnist``) and the transformer LM (``lm_tiny``,
-``lm_small``, ``lm_base`` on the ``lm`` token split).
+``Engine(spec).run()`` resolves the cluster flags (a ``ps`` role prints
+the notice and exits), refuses by name every mode the port does not run
+yet, and then either
+
+* starts ``--num_devices N`` local ranks (N > 1, no cluster flags, no
+  process group yet: ``parallel/launch.py``; on ``cuda`` 0 means every
+  visible card), each of which runs this same method inside the group and
+  sends back its summary, rank 0's being the one returned; or
+* runs one rank: joins or takes the process group
+  (``cluster.maybe_initialize_distributed``), places itself on its card
+  (``parallel/mesh.py``), checks that every rank was started with the
+  same config (a crc32 digest, all-gathered), loads the split, builds the
+  model, optimizer and state with the device-resident dataset and the
+  indexed train step over this rank's slice of the global batch
+  (``Engine.build``), runs the loop with its hooks, and ends with an
+  exact eval on the held-out split.
+
+The workloads: config 3 (``mnist_cnn`` on ``mnist``) and the transformer
+LM (``lm_tiny``, ``lm_small``, ``lm_base`` on the ``lm`` token split).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
+import zlib
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
+from distributedtensorflowexample_tpu_torch import cluster
 from distributedtensorflowexample_tpu_torch.config import RunConfig
 from distributedtensorflowexample_tpu_torch.data.device_dataset import (
     DEQUANT_IMPLS, DeviceDataset)
 from distributedtensorflowexample_tpu_torch.data.lm import load_lm
 from distributedtensorflowexample_tpu_torch.data.mnist import load_mnist
-from distributedtensorflowexample_tpu_torch.device import resolve_device
 from distributedtensorflowexample_tpu_torch.models import build_model
+from distributedtensorflowexample_tpu_torch.ops.kernels import launch_counts
+from distributedtensorflowexample_tpu_torch.ops.kernels import build as kbuild
+from distributedtensorflowexample_tpu_torch.parallel.launch import spawn
+from distributedtensorflowexample_tpu_torch.parallel.mesh import (
+    Mesh, local_world_size, make_mesh)
 from distributedtensorflowexample_tpu_torch.parallel.sync import (
     make_indexed_train_step, make_resident_eval)
 from distributedtensorflowexample_tpu_torch.refusal import ModeRefusal
@@ -89,10 +109,11 @@ def _load_dataset(cfg: RunConfig, name: str, split: str):
                       f"package yet")
 
 
-def _refuse_unported(cfg: RunConfig, token_data: bool = False) -> None:
+def _refuse_unported(cfg: RunConfig, info: cluster.ClusterInfo,
+                     token_data: bool = False) -> None:
     """Named refusals for every mode this slice does not run, and the
     JAX package's refusal of the host-fed path for a token split,
-    checked before any data is loaded."""
+    checked before any data is loaded or any rank is started."""
     if token_data and cfg.device_data == "off":
         raise ModeRefusal(
             "the lm dataset is an integer token split and runs on the "
@@ -123,18 +144,101 @@ def _refuse_unported(cfg: RunConfig, token_data: bool = False) -> None:
          "Batcher path)"),
         (cfg.checkpoint_every > 0, "--checkpoint_every > 0 (the port has "
          "no checkpoint format yet)"),
-        (cfg.num_processes > 1 or bool(cfg.coordinator_address)
-         or len(cfg.worker_host_list) > 1,
-         "multi-process runs (--num_processes, --coordinator_address, "
-         "--worker_hosts)"),
-        (cfg.num_devices > 1, "--num_devices > 1 (one rank per card; "
-         "multi-rank sync comes with the NCCL slice)"),
         (bool(cfg.profile_dir), "--profile_dir (the profiler hook)"),
     ]
     for hit, what in not_yet:
         if hit:
             raise ModeRefusal(f"{what} is not ported to the PyTorch package "
-                              f"yet; this slice runs sync_dp on one rank")
+                              f"yet; this slice runs sync_dp, one rank per "
+                              f"process")
+    processes = (info.num_processes if info.is_distributed else
+                 dist.get_world_size() if dist.is_initialized() else 0)
+    if processes and cfg.num_devices not in (0, processes):
+        raise ModeRefusal(
+            f"--num_devices {cfg.num_devices} across {processes} processes: "
+            f"the PyTorch package runs one rank per process on one device "
+            f"(--num_devices 0 or {processes}); the N-process x M-local-"
+            f"device layout is not ported to the PyTorch package yet")
+
+
+def _global_batch(cfg: RunConfig, replicas: int) -> int:
+    """``--batch_size`` per replica (or the global batch with
+    ``--global_batch``), which must divide across the replicas."""
+    batch = cfg.batch_size if cfg.global_batch else cfg.batch_size * replicas
+    if batch % replicas:
+        raise ValueError(f"global batch {batch} not divisible by "
+                         f"{replicas} replicas")
+    return batch
+
+
+# Fields a process may legitimately set on its own (the JAX Engine's set):
+# cluster identity and local data / profile paths.
+_PER_PROCESS = frozenset({"job_name", "task_index", "process_id", "ps_hosts",
+                          "worker_hosts", "coordinator_address",
+                          "num_processes", "data_dir", "profile_dir"})
+
+
+def _config_digest(cfg: RunConfig) -> int:
+    """crc32 of the config without its per-process fields (and without
+    ``--log_dir`` when neither checkpoints nor resume touch it), as the
+    JAX Engine digests it."""
+    per_process = _PER_PROCESS
+    if not (cfg.checkpoint_every > 0 or cfg.resume):
+        per_process = per_process | {"log_dir"}
+    blob = repr(sorted((k, v) for k, v in dataclasses.asdict(cfg).items()
+                       if k not in per_process)).encode()
+    return zlib.crc32(blob)
+
+
+def _check_same_config(cfg: RunConfig, mesh: Mesh) -> None:
+    """Every later collective (loop length, unroll, eval cadence) assumes
+    the ranks run one config: all-gather the digests and refuse by name,
+    on every rank, instead of hanging in a mismatched collective."""
+    digests = mesh.all_gather_int(_config_digest(cfg))
+    if len(set(digests)) > 1:
+        raise ModeRefusal(
+            f"run configuration differs across the {mesh.size} processes "
+            f"(config digests {sorted(set(digests))}). Collective decisions "
+            f"(train_steps, steps_per_loop, eval cadence) must agree on "
+            f"every process — launch all workers with identical flags (only "
+            f"cluster identity, --data_dir and --profile_dir may differ)")
+
+
+def _uses_kernels(cfg: RunConfig) -> bool:
+    return (cfg.pallas_ce or cfg.fused_optimizer
+            or cfg.dequant_impl == "pallas")
+
+
+def _build_kernels_once(cfg: RunConfig, mesh: Mesh) -> None:
+    """Rank 0 compiles the kernels while the others wait (one all-gather
+    as the barrier), so N ranks do not run N compiles of each source."""
+    if mesh.grouped and mesh.device.type == "cuda" and _uses_kernels(cfg):
+        if mesh.rank == 0:
+            kbuild.build()
+        mesh.all_gather_int(0)
+
+
+def _params_digest(state) -> str:
+    """A short sha256 of the flat parameters: replicas that agree bit for
+    bit have one digest."""
+    flat = state.optimizer.params_flat.detach().cpu().numpy()
+    return hashlib.sha256(flat.tobytes()).hexdigest()[:16]
+
+
+def _local_rank_run(spec: "RunSpec") -> dict:
+    """One local rank (``parallel/launch.spawn``'s child): the run inside
+    the group, plus this process's kernel launch counts."""
+    return dict(Engine(spec).run(), launches=launch_counts())
+
+
+def _run_local_ranks(spec: "RunSpec", ranks: int) -> dict:
+    results = spawn(_local_rank_run, ranks,
+                    cluster.BACKENDS[spec.config.device], args=(spec,))
+    summary = dict(results[0])
+    summary["ranks"] = [{k: r[k] for k in ("launches", "all_reduces",
+                                          "params_digest")}
+                        for r in results]
+    return summary
 
 
 @dataclasses.dataclass
@@ -158,49 +262,62 @@ class Engine:
         self.spec = spec
         self.token_data = spec.dataset == "lm"
 
-    def build(self, device: torch.device, unroll: int = 1, data=None,
+    def build(self, mesh: Mesh | torch.device, unroll: int = 1, data=None,
               perm_fn=None) -> EngineBuild:
-        """State, resident dataset and train step on ``device``.  ``data``
+        """State, resident dataset and train step for this rank of
+        ``mesh`` (a ``torch.device`` is one rank on that device).  ``data``
         ``(images, labels)`` replaces the spec's train split; ``perm_fn``
         injects an index tape (``DeviceDataset``)."""
+        if isinstance(mesh, torch.device):
+            mesh = Mesh(mesh)
+        device = mesh.device
         cfg = self.spec.config
+        global_batch = _global_batch(cfg, mesh.size)
         model = build_model(self.spec.model, dropout=cfg.dropout,
                             dtype=_DTYPES[cfg.dtype], remat=cfg.remat)
         x, y = (data if data is not None else
                 _load_dataset(cfg, self.spec.dataset, "train"))
         state = TrainState.create(model, lambda m: build_optimizer(cfg, m),
-                                  cfg.seed, device)
-        ds = DeviceDataset(x, y, cfg.batch_size, device=device,
+                                  cfg.seed, device, mesh=mesh)
+        ds = DeviceDataset(x, y, global_batch, device=device,
                            seed=cfg.seed, start_step=state.step,
                            steps_per_next=unroll, quantize=cfg.quantize,
                            dequant_impl=cfg.dequant_impl, perm_fn=perm_fn,
                            token_data=self.token_data)
         step = make_indexed_train_step(
-            cfg.batch_size, ds.steps_per_epoch, cfg.label_smoothing,
+            global_batch, ds.steps_per_epoch, cfg.label_smoothing,
             ce_impl="pallas" if cfg.pallas_ce else "xla",
             unroll_steps=unroll,
             replicas_to_aggregate=cfg.replicas_to_aggregate,
             num_slots=ds.num_slots, dequant_impl=cfg.dequant_impl,
-            token_data=self.token_data)
+            token_data=self.token_data, mesh=mesh)
         return EngineBuild(state=state, ds=ds, step=step, unroll=unroll)
 
     def run(self) -> dict:
         """Train per the spec; returns a summary dict."""
         spec = self.spec
         cfg: RunConfig = spec.config
-        if cfg.job_name == "ps":
-            print("--job_name ps: there are no parameter servers in "
-                  "synchronous data parallelism; this process exits.",
-                  flush=True)
+        info = cluster.resolve(cfg)
+        if info.role == "ps":
+            print(cluster.PS_NOTICE, flush=True)
             return {"role": "ps", "exited": True}
-        _refuse_unported(cfg, self.token_data)
-        device = resolve_device(cfg.device)
-        if cfg.resume:
+        _refuse_unported(cfg, info, self.token_data)
+        if not info.is_distributed and not dist.is_initialized():
+            ranks = local_world_size(cfg.num_devices, cfg.device)
+            if ranks > 1:
+                return _run_local_ranks(spec, ranks)
+        cluster.maybe_initialize_distributed(info, cfg.device)
+        mesh = make_mesh(cfg.device)
+        device = mesh.device
+        if mesh.size > 1:
+            _check_same_config(cfg, mesh)
+        _build_kernels_once(cfg, mesh)
+        if cfg.resume and mesh.is_chief:
             print("--resume: the PyTorch package has no checkpoint format "
                   "yet, so there is nothing to resume from (no-op)",
                   flush=True)
-        num_replicas = 1
-        global_batch = cfg.batch_size
+        num_replicas = mesh.size
+        global_batch = _global_batch(cfg, num_replicas)
 
         train_x, train_y = _load_dataset(cfg, spec.dataset, "train")
         test_x, test_y = _load_dataset(cfg, spec.dataset, "test")
@@ -212,7 +329,7 @@ class Engine:
                 remaining, len(train_x) // global_batch,
                 intervals=(cfg.log_every, cfg.eval_every))
                 if remaining > 0 else 1)
-            if steps_per_call > 1:
+            if steps_per_call > 1 and mesh.is_chief:
                 print(f"steps_per_loop auto: fusing {steps_per_call} steps "
                       f"per call (--steps_per_loop 1 for per-step calls)",
                       flush=True)
@@ -223,25 +340,29 @@ class Engine:
                     f"remaining steps {remaining} (train_steps "
                     f"{cfg.train_steps}) must be a multiple of "
                     f"--steps_per_loop {steps_per_call}")
-        built = self.build(device, unroll=steps_per_call,
+        built = self.build(mesh, unroll=steps_per_call,
                            data=(train_x, train_y))
 
         logger = MetricsLogger(cfg.log_dir, num_chips=num_replicas,
-                               log_every=cfg.log_every, device=device)
+                               log_every=cfg.log_every, device=device,
+                               is_chief=mesh.is_chief)
         hooks = []
-        eval_batch = max(global_batch, 1000)
+        # The eval batch divides across the ranks like the train batch.
+        eval_batch = max(global_batch,
+                         (1000 // num_replicas) * num_replicas)
         eval_fn = make_resident_eval(test_x, test_y, device,
                                      batch_size=eval_batch,
                                      quantize=cfg.quantize,
                                      dequant_impl=cfg.dequant_impl,
-                                     token_data=self.token_data)
+                                     token_data=self.token_data, mesh=mesh)
         if cfg.eval_every > 0:
             hooks.append(EvalHook(eval_fn, cfg.eval_every, logger))
         metrics_hook = MetricsHook(every=cfg.log_every)
         hooks.append(metrics_hook)
 
         loop = TrainLoop(built.step, built.ds, cfg.train_steps, hooks, logger,
-                         steps_per_call=steps_per_call)
+                         steps_per_call=steps_per_call,
+                         reduce_metrics=mesh.sum_metrics)
         state = loop.run(built.state)
         final_acc = eval_fn(state)
         logger.scalar(state.step, "final_accuracy", final_acc)
@@ -256,4 +377,7 @@ class Engine:
                 "steps_per_call": steps_per_call,
                 "eval_batches": -(-len(test_y) // eval_batch),
                 "device": str(device),
+                "rank": mesh.rank,
+                "all_reduces": mesh.all_reduces,
+                "params_digest": _params_digest(state),
                 "loss_tape": metrics_hook.loss_tape}

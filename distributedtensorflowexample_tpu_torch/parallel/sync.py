@@ -1,16 +1,26 @@
 """Sync data-parallel train and eval steps (the JAX package's
-``parallel/sync.py``), on one rank.
+``parallel/sync.py``), on one rank or on a mesh of N (``parallel/mesh.py``).
 
-The step gathers its minibatch from the device-resident split by index
-(:func:`make_device_gather`), runs the model forward and the per-row loss
-head, backpropagates into the optimizer's flat gradient buffer, and
-applies the update.  With one rank the gradient all-reduce is the
-identity; ``--replicas_to_aggregate`` (and, in the engine, every
-multi-rank flag) is refused by name until the multi-rank slice.
+The step gathers this rank's rows of the global minibatch from the
+device-resident split by index (:func:`make_device_gather`; rank ``i``
+owns rows ``[i*per, (i+1)*per)`` of each global batch, as the JAX step
+shards them), runs the model forward and the per-row loss head,
+backpropagates into the optimizer's flat gradient buffer, all-reduces
+that buffer once (the JAX step's psum), and applies the update.  The
+loss each rank differentiates is its share of the global loss: its mean
+over its rows divided by N (exact for a power of two), so the summed
+gradient is the gradient of the mean over the global batch.  With
+``replicas_to_aggregate`` R (0 < R < N) rank ``i`` counts at step ``s``
+iff ``(i - s) mod N < R``, and the loss is ``sum(rows * sel) / (R *
+per)`` (the JAX package's rotating subset).
+
+The step's metrics are this rank's shares of the global ones (summing
+over the ranks gives the global loss and accuracy); they stay on the
+device, and the loop sums them once per host read (``Mesh.sum_metrics``).
 
 With the three kernel flags (``--dequant_impl pallas --pallas_ce
---fused_optimizer``) one step launches each port kernel once: the
-dequant gather, the cross-entropy forward, its backward, and the SGD
+--fused_optimizer``) one step launches each port kernel once per rank:
+the dequant gather, the cross-entropy forward, its backward, and the SGD
 apply.
 """
 
@@ -29,7 +39,7 @@ from distributedtensorflowexample_tpu_torch.ops.kernels import (
     fused_gather_dequant, fused_softmax_cross_entropy_rows)
 from distributedtensorflowexample_tpu_torch.ops.losses import (
     accuracy, softmax_cross_entropy_rows)
-from distributedtensorflowexample_tpu_torch.refusal import ModeRefusal
+from distributedtensorflowexample_tpu_torch.parallel.mesh import Mesh
 
 
 def _per_example_rows(impl: Callable) -> Callable:
@@ -75,23 +85,35 @@ def _resolve_num_slots(unroll_steps: int, steps_per_epoch: int,
     return num_slots
 
 
+def _ranks(mesh: Mesh | None) -> tuple[int, int]:
+    return (0, 1) if mesh is None else (mesh.rank, mesh.size)
+
+
 def make_device_gather(batch_size: int, steps_per_epoch: int, *,
                        num_slots: int, dequant_impl: str = "auto",
-                       token_data: bool = False) -> Callable:
+                       token_data: bool = False,
+                       mesh: Mesh | None = None) -> Callable:
     """(step, data) -> batch: the on-device minibatch gather from a
     resident split (``DeviceDataset``), with the JAX package's slot and
-    position arithmetic.  ``dequant_impl="pallas"`` gathers and
+    position arithmetic over the GLOBAL ``batch_size``; on a ``mesh`` this
+    rank takes its ``batch_size // N`` rows of the global index slice.
+    ``dequant_impl="pallas"`` gathers and
     dequantizes in one kernel launch; otherwise the rows are gathered and
     dequantized by the plain affine.  ``token_data=True`` (a token split)
     passes the gathered ids through: they are not pixels."""
     if dequant_impl not in DEQUANT_IMPLS:
         raise ValueError(f"unknown dequant_impl {dequant_impl!r} "
                          f"(one of {DEQUANT_IMPLS})")
+    rank, n = _ranks(mesh)
+    if batch_size % n:
+        raise ValueError(f"global batch {batch_size} not divisible by {n} "
+                         f"replicas")
+    per = batch_size // n
 
     def gather(step: int, data: dict) -> dict:
         slot = (step // steps_per_epoch) % num_slots
-        pos = (step % steps_per_epoch) * batch_size
-        idx = data["perm"][slot, pos:pos + batch_size]
+        pos = (step % steps_per_epoch) * batch_size + rank * per
+        idx = data["perm"][slot, pos:pos + per]
         if token_data:
             img = data["images"].index_select(0, idx)
         elif dequant_impl == "pallas" and "dq_scale" in data:
@@ -111,26 +133,39 @@ def make_device_gather(batch_size: int, steps_per_epoch: int, *,
 
 
 def _build_step_fn(label_smoothing: float = 0.0, ce_impl: str = "xla",
-                   replicas_to_aggregate: int = 0) -> Callable:
-    """The (state, batch) -> metrics step body: forward, loss, backward
-    into the flat gradient buffer, one optimizer apply."""
-    if replicas_to_aggregate not in (0, 1):
-        raise ModeRefusal(
-            "--replicas_to_aggregate selects R of N rank gradients per "
-            "step; the PyTorch package runs one rank until the multi-rank "
-            "slice")
+                   replicas_to_aggregate: int = 0,
+                   mesh: Mesh | None = None) -> Callable:
+    """The (state, batch) -> metrics step body on this rank's rows:
+    forward, this rank's share of the global loss, backward into the flat
+    gradient buffer, one all-reduce of that buffer, one optimizer apply."""
+    rank, n = _ranks(mesh)
+    r = int(replicas_to_aggregate)
+    if not 0 <= r <= n:
+        raise ValueError(
+            f"replicas_to_aggregate {r} must be in [0, {n}] (0 = all)")
+    partial_agg = 0 < r < n
     loss_rows = make_loss_rows(label_smoothing, ce_impl)
+
+    def share(step: int) -> float:
+        # This rank's weight on its mean loss: 1/N, or under partial
+        # aggregation 1/R when the rotating subset selects it, else 0
+        # (its rows still run forward and backward, with a zero gradient).
+        if not partial_agg:
+            return 1.0 / n
+        return 1.0 / r if (rank - step) % n < r else 0.0
 
     def step(state, batch) -> dict:
         state.optimizer.zero_grad()
         logits = state.model(batch["image"], train=True,
                              generator=state.generator)
-        loss = loss_rows(logits, batch["label"]).mean()
+        loss = loss_rows(logits, batch["label"]).mean() * share(state.step)
         loss.backward()
+        if mesh is not None:
+            mesh.all_reduce(state.optimizer.grads_flat)
         state.optimizer.step()
         state.step += 1
         return {"loss": loss.detach(),
-                "accuracy": accuracy(logits.detach(), batch["label"])}
+                "accuracy": accuracy(logits.detach(), batch["label"]) / n}
 
     return step
 
@@ -142,19 +177,23 @@ def make_indexed_train_step(batch_size: int, steps_per_epoch: int,
                             replicas_to_aggregate: int = 0,
                             num_slots: int | None = None,
                             dequant_impl: str = "auto",
-                            token_data: bool = False) -> Callable:
+                            token_data: bool = False,
+                            mesh: Mesh | None = None) -> Callable:
     """Step over a device-resident dataset: ``(state, data) -> (state,
-    metrics)``.  ``unroll_steps=K`` runs K consecutive updates per call (a
-    Python loop; each sub-step picks its epoch's perm slot, so a window
-    may cross epochs) and returns metrics averaged over the K updates,
-    still on the device.  ``token_data=True``: the split holds token ids
+    metrics)``.  ``batch_size`` is the global batch; on a ``mesh`` each
+    rank trains on its slice of it.  ``unroll_steps=K`` runs K consecutive
+    updates per call (a Python loop; each sub-step picks its epoch's perm
+    slot, so a window may cross epochs) and returns this rank's metric
+    shares averaged over the K updates, still on the device.
+    ``token_data=True``: the split holds token ids
     (:func:`make_device_gather`)."""
     num_slots = _resolve_num_slots(unroll_steps, steps_per_epoch, num_slots)
-    inner = _build_step_fn(label_smoothing, ce_impl, replicas_to_aggregate)
+    inner = _build_step_fn(label_smoothing, ce_impl, replicas_to_aggregate,
+                           mesh)
     gather = make_device_gather(batch_size, steps_per_epoch,
                                 num_slots=num_slots,
                                 dequant_impl=dequant_impl,
-                                token_data=token_data)
+                                token_data=token_data, mesh=mesh)
 
     def step(state, data):
         tape = [inner(state, gather(state.step, data))
@@ -171,9 +210,13 @@ def make_resident_eval(images: np.ndarray, labels: np.ndarray,
                        device: torch.device, batch_size: int = 1000,
                        quantize: str = "auto",
                        dequant_impl: str = "auto",
-                       token_data: bool = False) -> Callable:
+                       token_data: bool = False,
+                       mesh: Mesh | None = None) -> Callable:
     """Exact accuracy over a split held on the device: ``eval_fn(state)
-    -> float``, one host read per eval.
+    -> float``, one host read per eval.  On a ``mesh`` every rank holds
+    the split and evaluates its ``batch_size // N`` rows of each batch;
+    the correct count is summed over the ranks (the batch must divide
+    across them, as in the JAX package).
 
     The split is uploaded once, padded to whole batches with label -1
     (never an argmax) and stored uint8 when quantizable.  With
@@ -196,6 +239,11 @@ def make_resident_eval(images: np.ndarray, labels: np.ndarray,
             images, dequant = q
     impl = (resolve_dequant_impl(dequant, dequant_impl)
             if dequant is not None else None)
+    rank, ranks = _ranks(mesh)
+    if batch_size % ranks:
+        raise ValueError(f"eval batch {batch_size} must divide across "
+                         f"{ranks} devices")
+    per = batch_size // ranks
     n = len(labels)
     denom = labels.size
     num_batches = -(-n // batch_size)
@@ -217,7 +265,8 @@ def make_resident_eval(images: np.ndarray, labels: np.ndarray,
     def run(state) -> float:
         total = torch.zeros((), dtype=torch.int64, device=device)
         for i in range(num_batches):
-            lo, hi = i * batch_size, (i + 1) * batch_size
+            lo = i * batch_size + rank * per
+            hi = lo + per
             if impl == "pallas":
                 bx = fused_gather_dequant(xs, rows[lo:hi], s, b)
             elif dequant is not None:
@@ -226,6 +275,8 @@ def make_resident_eval(images: np.ndarray, labels: np.ndarray,
                 bx = xs[lo:hi]
             logits = state.model(bx, train=False)
             total += (logits.argmax(dim=-1) == ys[lo:hi]).sum()
+        if mesh is not None:
+            mesh.sum_(total)
         return int(total.item()) / denom
 
     return run

@@ -6,8 +6,14 @@
         --fused_optimizer true
 
 runs on the CUDA card (``--device cpu`` for the plain versions on the
-CPU).  One rank: ``--replicas_to_aggregate`` and multi-rank flags are
-refused by name until the multi-rank slice.
+CPU).  Sync data parallelism over N ranks, one process each:
+``--num_devices N`` starts N ranks on this host (cards 0..N-1 over NCCL,
+0 = every visible card; N gloo ranks with ``--device cpu``), and the
+cluster flags (``--coordinator_address``/``--num_processes``/
+``--process_id``, ``--worker_hosts``/``--task_index``, ``TF_CONFIG``)
+join a process started per rank.  ``--batch_size`` is per rank (the
+global batch is N times it) and ``--replicas_to_aggregate R`` takes R of
+the N rank gradients per step, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -32,4 +38,6 @@ def main(argv=None) -> dict:
 
 if __name__ == "__main__":
     summary = main(sys.argv[1:])
-    print(f"final accuracy: {summary.get('final_accuracy', float('nan')):.4f}")
+    if summary.get("rank", 0) == 0:         # the chief prints, as it logs
+        print(f"final accuracy: "
+              f"{summary.get('final_accuracy', float('nan')):.4f}")

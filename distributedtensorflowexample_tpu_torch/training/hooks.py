@@ -5,7 +5,8 @@ A hook sees the loop at call boundaries; stopping is a return value.
 ``needs_sync(step)`` tells the loop that the hook will wait on the device
 at this boundary, so the loop synchronizes the card BEFORE starting the
 hook's clock: the train steps still in flight then count as training
-time, not as hook time.
+time, not as hook time.  ``reads_metrics(step)`` tells it that the hook
+reads the step's metrics, which the loop then sums over the ranks first.
 """
 
 from __future__ import annotations
@@ -15,6 +16,9 @@ class Hook:
     def begin(self, loop) -> None: ...
 
     def needs_sync(self, step: int) -> bool:
+        return False
+
+    def reads_metrics(self, step: int) -> bool:
         return False
 
     def after_step(self, step: int, state, metrics) -> bool:
@@ -84,6 +88,9 @@ class MetricsHook(Hook):
 
     def begin(self, loop) -> None:
         self._due = _EveryN(self._every, int(loop.start_step))
+
+    def reads_metrics(self, step) -> bool:
+        return self._due.due(step)
 
     def after_step(self, step, state, metrics) -> bool:
         if self._due(step) and "loss" in metrics:

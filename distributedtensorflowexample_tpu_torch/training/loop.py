@@ -1,7 +1,10 @@
 """The training loop (the JAX package's ``training/loop.py``): a plain
 Python loop around one train-step call, with hooks at call boundaries.
 Per-call host work is an iterator ``next`` and the step's launches;
-metrics stay on the device until the logger's boundary.
+metrics stay on the device until the logger's boundary.  On N ranks the
+step returns each rank's share of the metrics; ``reduce_metrics`` (the
+mesh's sum) turns them into the global ones, once per host read: at a
+step where the logger or a hook reads them, never on the others.
 """
 
 from __future__ import annotations
@@ -18,9 +21,10 @@ class TrainLoop:
     def __init__(self, train_step, batches: Iterator, num_steps: int,
                  hooks: Iterable[Hook] = (),
                  logger: MetricsLogger | None = None,
-                 steps_per_call: int = 1):
+                 steps_per_call: int = 1, reduce_metrics=None):
         """``steps_per_call``: global steps one ``train_step`` call
         advances (the indexed step's ``unroll_steps``)."""
+        self._reduce = reduce_metrics
         self._train_step = train_step
         self._batches = batches
         self._prefetch = getattr(batches, "prefetch", None)
@@ -41,6 +45,10 @@ class TrainLoop:
             state, metrics = self._train_step(state, batch)
             if self._prefetch is not None:
                 self._prefetch()
+            if self._reduce is not None and (
+                    self._logger.due(step)
+                    or any(h.reads_metrics(step) for h in self._hooks)):
+                metrics = self._reduce(metrics)
             self._logger.maybe_log(step, metrics)
             if any(h.needs_sync(step) for h in self._hooks):
                 self._logger.sync()

@@ -8,6 +8,10 @@ time between log boundaries, with the card synchronized before each clock
 read (PyTorch returns before the device finishes, so an unsynchronized
 clock would time the enqueue) and hook wall time discounted through
 :meth:`MetricsLogger.exclude`.
+
+Only the chief (rank 0, as in the JAX logger) prints and writes scalars;
+every rank keeps the same clock, since the metrics it is handed at a log
+boundary were summed over the ranks (``training/loop.py``).
 """
 
 from __future__ import annotations
@@ -21,14 +25,16 @@ import torch
 
 class MetricsLogger:
     def __init__(self, log_dir: str = "", num_chips: int = 1,
-                 log_every: int = 100, device: torch.device | None = None):
+                 log_every: int = 100, device: torch.device | None = None,
+                 is_chief: bool = True):
         self._num_chips = max(1, num_chips)
         self._log_every = max(1, log_every)
         self._device = device
+        self._is_chief = is_chief
         self._last_time = None
         self._last_step = 0
         self._file = None
-        if log_dir:
+        if log_dir and is_chief:
             os.makedirs(log_dir, exist_ok=True)
             self._file = open(os.path.join(log_dir, "scalars.jsonl"), "a",
                               buffering=1)
@@ -50,10 +56,14 @@ class MetricsLogger:
         if self._last_time is not None:
             self._last_time += seconds
 
+    def due(self, step: int) -> bool:
+        """Whether :meth:`maybe_log` logs at ``step``.  Boundary crossing,
+        not a modulo: multi-step calls advance the step in strides that may
+        jump over a multiple of log_every."""
+        return step >= self._last_step + self._log_every
+
     def maybe_log(self, step: int, metrics) -> None:
-        # Boundary crossing, not a modulo: multi-step calls advance the
-        # step in strides that may jump over a multiple of log_every.
-        if step < self._last_step + self._log_every:
+        if not self.due(step):
             return
         fetched = {k: float(v) for k, v in metrics.items()}
         self.sync()
@@ -68,12 +78,16 @@ class MetricsLogger:
                     sps / self._num_chips, 2)
         self._last_time = now
         self._last_step = step
+        if not self._is_chief:
+            return
         parts = " ".join(f"{k}={v:.4f}" for k, v in fetched.items())
         print(f"step {step}: {parts}", flush=True)
         if self._file:
             self._file.write(json.dumps({"step": step, **fetched}) + "\n")
 
     def scalar(self, step: int, name: str, value: float) -> None:
+        if not self._is_chief:
+            return
         print(f"step {step}: {name}={value:.4f}", flush=True)
         if self._file:
             self._file.write(json.dumps({"step": step, name: value}) + "\n")

@@ -180,5 +180,5 @@ def build_optimizer(cfg: RunConfig, model: nn.Module) -> MomentumSGD:
     if cfg.shard_update:
         raise ModeRefusal(
             "--shard_update (ZeRO-1 update sharding) is not ported to the "
-            "PyTorch package yet; it needs the multi-rank slice")
+            "PyTorch package yet; it comes with the bucketed modes")
     return MomentumSGD(model, sched, cfg.momentum, fused=cfg.fused_optimizer)

@@ -4,6 +4,13 @@ The JAX ``TrainState`` is an immutable pytree the jitted step donates and
 returns.  Here it is a plain mutable holder: the step updates the model's
 parameters in place (they are views into the optimizer's flat buffer) and
 advances ``step``, a host int, so reading it never waits on the device.
+
+On a mesh of N ranks every rank holds a replica: each initializes from
+the same seed and rank 0's flat parameters are broadcast, so the replicas
+start bitwise equal and stay so (every rank applies the same all-reduced
+gradient).  Dropout is drawn per rank, from a generator seeded from
+``(seed, rank)``: each rank masks its own slice of the global batch, as
+the JAX package draws one mask over the whole batch.
 """
 
 from __future__ import annotations
@@ -26,16 +33,28 @@ class TrainState:
 
     @classmethod
     def create(cls, model: nn.Module, build_opt, seed: int,
-               device: torch.device) -> "TrainState":
+               device: torch.device, mesh=None) -> "TrainState":
         """Initialize ``model`` from ``seed`` on the host (flax's default
         init distributions), move it to ``device``, then hand it to
         ``build_opt(model)``, which binds its parameters into the
-        optimizer's flat buffers.  Dropout draws from a second generator
-        on ``device``, seeded from ``seed`` too."""
+        optimizer's flat buffers; on a ``mesh`` (``parallel/mesh.py``)
+        rank 0's flat parameters are then broadcast.  Dropout draws from
+        a second generator on ``device``, seeded from ``seed`` and the
+        rank."""
         init = torch.Generator().manual_seed(int(seed))
         model.reset_parameters(init)
         model.to(device)
         optimizer = build_opt(model)
+        rank = 0
+        if mesh is not None:
+            mesh.broadcast(optimizer.params_flat)
+            rank = mesh.rank
         gen = torch.Generator(device=device)
-        gen.manual_seed(int(seed) + 1)
+        gen.manual_seed(_dropout_seed(seed, rank))
         return cls(step=0, model=model, optimizer=optimizer, generator=gen)
+
+
+def _dropout_seed(seed: int, rank: int) -> int:
+    """The seed of ``rank``'s dropout generator; rank 0 keeps the
+    one-rank run's ``seed + 1``."""
+    return (int(seed) + 1 + int(rank) * 0x9E3779B97F4A7C15) % (2 ** 63)

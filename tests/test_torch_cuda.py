@@ -183,3 +183,32 @@ def test_lm_forward_on_the_card_matches_the_cpu(cuda, dtype, size):
         assert err <= 1e-4 * want.abs().max().item()
     else:
         assert err <= 6e-2
+
+
+def _two_ranks_on_one_card(log_dir: str) -> dict:
+    """One of two gloo ranks (``launch.spawn``'s child): 20 config-3 steps
+    on cuda:0 through the trainer, then this process's launch counts."""
+    from distributedtensorflowexample_tpu_torch.data import mnist
+    from distributedtensorflowexample_tpu_torch.trainers import (
+        trainer_sync_mnist)
+    mnist._SYNTH_SIZES = {"train": 2048, "test": 512}
+    kernels.reset_launch_counts()
+    summary = trainer_sync_mnist.main([
+        "--dataset", "synthetic", "--train_steps", "20", "--batch_size",
+        "32", "--log_every", "10", "--dequant_impl", "pallas",
+        "--pallas_ce", "true", "--fused_optimizer", "true",
+        "--log_dir", log_dir])
+    return dict(summary, launches=kernels.launch_counts())
+
+
+def test_two_gloo_ranks_on_one_card(cuda, tmp_path):
+    from distributedtensorflowexample_tpu_torch.parallel import launch
+    build.build()                   # once, before the ranks start
+    ranks = launch.spawn(_two_ranks_on_one_card, 2, "gloo",
+                         (str(tmp_path),), timeout_s=600)
+    assert [r["device"] for r in ranks] == ["cuda:0", "cuda:0"]
+    assert ranks[0]["params_digest"] == ranks[1]["params_digest"]
+    for r in ranks:
+        assert r["global_batch"] == 64 and r["all_reduces"] == 20
+        assert r["launches"] == {"dequant": 20 + r["eval_batches"],
+                                 "ce_fwd": 20, "ce_bwd": 20, "sgd": 20}

@@ -254,10 +254,15 @@ def test_cli_converges_on_cpu(small_torch_mnist, tmp_path, capsys):
     ["--sync_mode", "async"], ["--bucket_grads", "auto"],
     ["--shard_update", "true"], ["--shard_params", "true"],
     ["--data_sharding", "sharded"], ["--device_data", "off"],
-    ["--checkpoint_every", "10"], ["--replicas_to_aggregate", "2"],
+    ["--checkpoint_every", "10"],
+    ["--bucket_grads", "auto", "--num_devices", "2"],
     ["--dequant_impl", "onehot"], ["--dequant_impl", "lut"],
     ["--fused_optimizer", "true", "--momentum", "0"],
-    ["--weight_decay", "0.1"], ["--num_processes", "2"],
+    ["--weight_decay", "0.1"],
+    # 2 processes x 2 local devices: refused before any group is joined
+    ["--coordinator_address", "localhost:1", "--num_processes", "2",
+     "--process_id", "0", "--num_devices", "4"],
+    ["--data_sharding", "sharded", "--num_devices", "2"],
 ])
 def test_unported_modes_are_refused_by_name(small_torch_mnist, flags):
     from distributedtensorflowexample_tpu_torch.trainers import (
