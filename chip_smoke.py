@@ -55,17 +55,23 @@ B. in the same two ranks first: 5 steps of config 3 on the card against
    5 steps of the same two gloo ranks on the CPU (plain versions), one
    init and one index tape: global loss tapes within 2e-2 relative, the
    bound of phase 4;
-C. config 3 through an NCCL group of ``min(device_count, 4)`` ranks for
-   50 steps (one rank on a one-card machine, which still runs the NCCL
+C. config 3 through an NCCL group of the largest power of two of
+   ``min(device_count, 4)`` ranks for 50 steps (one rank on a one-card machine, which still runs the NCCL
    all-reduce on the card): with one rank the parameters must be bitwise
    those of the same 50 steps with no process group (both with cuDNN's
    deterministic algorithms); with two or more, phase A's cross-rank
    checks;
-D. in the same two gloo ranks last: ``trainer_lm.main`` at lm_base, 20
-   steps at lr 0.02 with the CE and SGD kernels (B=16 per rank): a
-   finite loss, bitwise-equal parameters across the ranks, ``ce_fwd``,
-   ``ce_bwd`` and ``sgd`` once per step in each rank; each step
-   all-reduces the 57,289,728-element gradient;
+D. in the same two gloo ranks last: first 3 steps of lm_base at B=16
+   per rank against the same 3 steps of one rank at B=32 with no group,
+   from one init and one index tape (global loss tapes within 2e-2
+   relative, the bound of phase 4; the first update within 8e-2 of its
+   largest element, ``tests/test_torch_slice.py``'s bf16 bound: a wrong
+   share of the gradient, e.g. a missing 1/N, is off by 100%); then
+   ``trainer_lm.main`` at lm_base, 20 steps at lr 0.02 with the CE and
+   SGD kernels (B=16 per rank): a finite, falling loss, bitwise-equal
+   parameters across the ranks, ``ce_fwd``, ``ce_bwd`` and ``sgd`` once
+   per step in each rank; each step all-reduces the 57,289,728-element
+   gradient;
 7. the ``kernels`` JSON line (each kernel's launches summed over every
    path and rank, and per path: per rank for the multi-rank paths), then
    the ``ok`` line last.
@@ -103,6 +109,8 @@ from distributedtensorflowexample_tpu_torch.ops.kernels import build as kbuild
 from distributedtensorflowexample_tpu_torch.ops.kernels import (
     cross_entropy as ce, dequant as dq, sgd)
 from distributedtensorflowexample_tpu_torch.parallel import launch
+from distributedtensorflowexample_tpu_torch.parallel.mesh import (
+    Mesh, make_mesh)
 from distributedtensorflowexample_tpu_torch.utils import kernel_timing as kt
 
 HBM_BYTES_PER_S = 3.35e12
@@ -120,6 +128,7 @@ LM_MIN_ACCURACY = 0.5
 MR_RANKS = 2                # phases A, B, D: gloo ranks on the one card
 MR_STEPS = 300
 MR_LM_STEPS = 20
+MR_LM_REF_STEPS = 3         # phase D's reference: 2 ranks against 1
 NCCL_STEPS = 50
 CNN_PARAMS = 3_274_634
 LM_PARAMS = 57_289_728
@@ -296,7 +305,7 @@ def check_card_against_cpu(model: str) -> dict:
     tapes = {}
     for name in ("cuda", "cpu"):
         built = Engine(RunSpec(model, dataset, cfg)).build(
-            torch.device(name), data=(x, y), perm_fn=lambda e: perm)
+            Mesh(torch.device(name)), data=(x, y), perm_fn=lambda e: perm)
         tapes[name] = [float(built.step(built.state, next(built.ds))[1]
                              ["loss"]) for _ in range(5)]
     a, b = np.array(tapes["cuda"]), np.array(tapes["cpu"])
@@ -432,7 +441,6 @@ def two_rank_card_vs_cpu() -> dict:
     from distributedtensorflowexample_tpu_torch.data.synthetic import (
         make_synthetic)
     from distributedtensorflowexample_tpu_torch.engine import Engine, RunSpec
-    from distributedtensorflowexample_tpu_torch.parallel.mesh import make_mesh
     x, y = make_synthetic(256, (28, 28, 1), 10, seed=0, sample_seed=1)
     perm = np.random.RandomState(0).permutation(256)
     cfg = parse_flags(["--fused_optimizer", "true", "--momentum", "0.9",
@@ -450,6 +458,44 @@ def two_rank_card_vs_cpu() -> dict:
     return tapes
 
 
+def two_rank_lm_vs_one_rank() -> dict:
+    """Phase D's reference in one of the two gloo ranks: 3 steps of
+    lm_base at B=16 per rank from one init and one index tape, then (rank
+    0 only) the same 3 steps as one rank at B=32 with no group; the
+    global loss tapes and the first step's update of the flat
+    parameters."""
+    from distributedtensorflowexample_tpu_torch.config import parse_flags
+    from distributedtensorflowexample_tpu_torch.data.lm import load_lm
+    from distributedtensorflowexample_tpu_torch.engine import Engine, RunSpec
+    x, y = load_lm("", "train", num=256)
+    perm = np.random.RandomState(0).permutation(256)
+
+    def run(mesh, batch):
+        cfg = parse_flags(["--fused_optimizer", "true", "--momentum", "0.9",
+                           "--dropout", "0", "--pallas_ce", "true",
+                           "--remat", "block", "--learning_rate", str(LM_LR),
+                           "--batch_size", str(batch)])
+        built = Engine(RunSpec(LM_SIZE, "lm", cfg)).build(
+            mesh, data=(x, y), perm_fn=lambda e: perm)
+        flat = built.state.optimizer.params_flat
+        start, tape = flat.clone(), []
+        for i in range(MR_LM_REF_STEPS):
+            metrics = built.step(built.state, next(built.ds))[1]
+            tape.append(float(mesh.sum_metrics(metrics)["loss"]))
+            if i == 0:
+                update = flat - start
+        return tape, update
+
+    mesh = make_mesh("cuda")
+    tape, update = run(mesh, LM_BATCH)
+    out = {"tape": tape}
+    if mesh.rank == 0:
+        one_tape, one_update = run(Mesh(mesh.device), LM_BATCH * mesh.size)
+        out.update(one_rank_tape=one_tape, update_rel=float(
+            (update - one_update).abs().max() / one_update.abs().max()))
+    return out
+
+
 def gloo_rank_phases() -> dict:
     """Phases B, A and D in one of the two gloo ranks on ``cuda:0``."""
     out = {"card_vs_cpu": two_rank_card_vs_cpu()}
@@ -460,6 +506,7 @@ def gloo_rank_phases() -> dict:
         "--log_every", "100", "--resume", "false",
         "--log_dir", str(ROOT / "build" / "chip_smoke_gloo")])
     out["mnist"]["all_reduce_ms"] = all_reduce_ms(CNN_PARAMS, 50)
+    out["lm_vs_one_rank"] = two_rank_lm_vs_one_rank()
     out["lm"] = run_trainer("trainer_lm", [
         "--device", "cuda", "--size", LM_SIZE, "--pallas_ce", "true",
         "--fused_optimizer", "true", "--learning_rate", str(LM_LR),
@@ -532,11 +579,30 @@ def run_gloo_phases(gpu: str) -> dict:
             "params_digest": mn[0]["params_digest"], "gpu": gpu}
     print(json.dumps({"multirank_path": path}), flush=True)
 
+    ref = [r["lm_vs_one_rank"] for r in ranks]
+    two, one = np.array(ref[0]["tape"]), np.array(ref[0]["one_rank_tape"])
+    require(ref[1]["tape"] == ref[0]["tape"],
+            f"phase D: the ranks' reference tapes differ {ref}")
+    rel = float(np.max(np.abs(two - one) / np.abs(one)))
+    require(np.all(np.isfinite(two)) and rel <= 2e-2,
+            f"phase D: 2 ranks at B={LM_BATCH} against 1 rank at "
+            f"B={LM_BATCH * MR_RANKS}: loss tapes differ by {rel:.3g} "
+            f"relative (2 ranks {two}, 1 rank {one})")
+    require(ref[0]["update_rel"] <= 8e-2,
+            f"phase D: the first update differs from one rank's by "
+            f"{ref[0]['update_rel']:.3g} of its largest element")
+    print(json.dumps({"multirank_lm_vs_one_rank": {
+        "model": LM_SIZE, "ranks": MR_RANKS, "batch_per_rank": LM_BATCH,
+        "steps": MR_LM_REF_STEPS, "two_ranks": ref[0]["tape"],
+        "one_rank": ref[0]["one_rank_tape"], "max_rel": rel,
+        "first_update_rel": ref[0]["update_rel"]}}), flush=True)
+
     lm = [r["lm"] for r in ranks]
     print(lm[0]["text"], end="")
     check_ranks(lm, "phase D", {"dequant": 0, "ce_fwd": MR_LM_STEPS,
                                 "ce_bwd": MR_LM_STEPS, "sgd": MR_LM_STEPS},
                 MR_LM_STEPS)
+    check_loss_tape(lm[0], lm[0]["text"])
     lm_path = {"model": LM_SIZE, "ranks": MR_RANKS, "backend": "gloo",
                "steps": MR_LM_STEPS, "batch_per_rank": LM_BATCH,
                "global_batch": lm[0]["global_batch"],
@@ -554,8 +620,10 @@ def run_gloo_phases(gpu: str) -> dict:
 
 
 def run_nccl_phase(gpu: str) -> dict:
-    """Phase C: config 3 through an NCCL group on the visible cards."""
-    world = min(torch.cuda.device_count(), 4)
+    """Phase C: config 3 through an NCCL group on the visible cards: the
+    largest power of two of them up to 4, so that the eval batch of 1000
+    divides across the ranks."""
+    world = 1 << (min(torch.cuda.device_count(), 4).bit_length() - 1)
     argv = ["--device", "cuda", "--dataset", "synthetic", "--dequant_impl",
             "pallas", "--pallas_ce", "true", "--fused_optimizer", "true",
             "--train_steps", str(NCCL_STEPS), "--batch_size", str(BATCH),

@@ -262,14 +262,12 @@ class Engine:
         self.spec = spec
         self.token_data = spec.dataset == "lm"
 
-    def build(self, mesh: Mesh | torch.device, unroll: int = 1, data=None,
+    def build(self, mesh: Mesh, unroll: int = 1, data=None,
               perm_fn=None) -> EngineBuild:
         """State, resident dataset and train step for this rank of
-        ``mesh`` (a ``torch.device`` is one rank on that device).  ``data``
+        ``mesh`` (``Mesh(device)`` is one rank on that device).  ``data``
         ``(images, labels)`` replaces the spec's train split; ``perm_fn``
         injects an index tape (``DeviceDataset``)."""
-        if isinstance(mesh, torch.device):
-            mesh = Mesh(mesh)
         device = mesh.device
         cfg = self.spec.config
         global_batch = _global_batch(cfg, mesh.size)
@@ -343,13 +341,13 @@ class Engine:
         built = self.build(mesh, unroll=steps_per_call,
                            data=(train_x, train_y))
 
-        logger = MetricsLogger(cfg.log_dir, num_chips=num_replicas,
+        logger = MetricsLogger(cfg.log_dir, num_chips=mesh.num_chips,
                                log_every=cfg.log_every, device=device,
                                is_chief=mesh.is_chief)
         hooks = []
-        # The eval batch divides across the ranks like the train batch.
-        eval_batch = max(global_batch,
-                         (1000 // num_replicas) * num_replicas)
+        # The JAX Engine's eval batch: one that does not divide across the
+        # ranks raises in make_resident_eval.
+        eval_batch = max(global_batch, 1000)
         eval_fn = make_resident_eval(test_x, test_y, device,
                                      batch_size=eval_batch,
                                      quantize=cfg.quantize,
@@ -371,8 +369,9 @@ class Engine:
         return {"final_accuracy": final_acc,
                 "steps": state.step,
                 "steps_per_sec": steps_per_sec,
-                "steps_per_sec_per_chip": steps_per_sec / num_replicas,
+                "steps_per_sec_per_chip": steps_per_sec / mesh.num_chips,
                 "num_replicas": num_replicas,
+                "num_chips": mesh.num_chips,
                 "global_batch": global_batch,
                 "steps_per_call": steps_per_call,
                 "eval_batches": -(-len(test_y) // eval_batch),

@@ -2,50 +2,43 @@
 group: the engine's ``--num_devices N`` (``engine/engine.py``) and the
 harness of the multi-rank checks (``chip_smoke.py``, the tests).
 
-:func:`spawn` runs ``fn(*args)`` in ``world`` fresh interpreters (the
-``spawn`` start method: a parent holding CUDA or OpenMP threads must not
-fork).  Each child takes an equal part of the caller's intra-op
-threads, joins the group over a file store in a temporary directory (no
-TCP port to collide with another run), runs ``fn`` and sends its result
-back on a pipe of its own.  A rank that raises sends its exception, and
-the caller gets it re-raised with the rank's traceback attached; the
-other ranks, which may be waiting in a collective for it, are
-terminated.  ``fn`` and its arguments are pickled, so ``fn`` is a
+:func:`spawn` runs ``fn(*args)`` in ``world`` fresh interpreters through
+``torch.multiprocessing.spawn`` (the ``spawn`` start method: a parent
+holding CUDA or OpenMP threads must not fork; a rank that fails gets the
+other ranks terminated).  Each child takes an equal part of the caller's
+intra-op threads, joins the group over a file store in a temporary
+directory (no TCP port to collide with another run), runs ``fn`` and puts
+its result on a queue.  A rank that raises puts its exception there too,
+and the caller gets the first one raised, with the rank's traceback
+attached.  ``fn`` and its arguments are pickled, so ``fn`` is a
 module-level function.
 """
 
 from __future__ import annotations
 
-import multiprocessing as mp
 import os
 import tempfile
+import time
 import traceback
-from multiprocessing.connection import wait
 
 import torch
 import torch.distributed as dist
-
-
-class RankFailed(RuntimeError):
-    """A rank died without sending a result (a crash or a signal)."""
+import torch.multiprocessing as mp
+from torch.multiprocessing.spawn import ProcessException
 
 
 def _rank_main(rank: int, world: int, backend: str, init_method: str,
-               threads: int, fn, args, conn) -> None:
+               threads: int, fn, args, queue) -> None:
     torch.set_num_threads(threads)
+    dist.init_process_group(backend, init_method=init_method,
+                            world_size=world, rank=rank)
     try:
-        dist.init_process_group(backend, init_method=init_method,
-                                world_size=world, rank=rank)
-        out = (True, fn(*args))
-    except Exception as exc:        # sent to the parent, which re-raises
-        out = (False, (exc, traceback.format_exc()))
-    try:
-        conn.send(out)
-    except Exception:               # a result that does not pickle
-        conn.send((False, (RankFailed(f"rank {rank}: unpicklable result"),
-                           traceback.format_exc())))
-    conn.close()
-    if dist.is_initialized():
+        queue.put((rank, True, fn(*args)))
+    except Exception as exc:
+        # Re-raised in the caller, with this rank's traceback.
+        queue.put((rank, False, (exc, traceback.format_exc())))
+        raise
+    finally:
         dist.destroy_process_group()
 
 
@@ -53,67 +46,44 @@ def spawn(fn, world: int, backend: str, args: tuple = (),
           timeout_s: float | None = None) -> list:
     """``[fn(*args) on rank 0, ..., on rank world-1]``, each computed in
     its own process inside a ``backend`` group of ``world`` ranks."""
-    ctx = mp.get_context("spawn")
+    queue = mp.get_context("spawn").SimpleQueue()
     # The ranks share this host's cores: an equal part of the caller's
     # intra-op threads each (idle OpenMP threads spin on the others).
     threads = max(1, torch.get_num_threads() // world)
+    results, errors = {}, []
+
+    def drain() -> None:
+        # Read while the ranks run: a rank blocks on a result larger than
+        # the pipe's buffer until it is read.
+        while not queue.empty():
+            rank, ok, out = queue.get()
+            if ok:
+                results[rank] = out
+            else:
+                errors.append((rank, out))
+
+    deadline = None if timeout_s is None else time.monotonic() + timeout_s
     with tempfile.TemporaryDirectory(prefix="ranks-") as tmp:
-        init_method = "file://" + os.path.join(tmp, "store")
-        procs, readers = [], {}
-        for rank in range(world):
-            recv, send = ctx.Pipe(duplex=False)
-            p = ctx.Process(target=_rank_main, name=f"rank{rank}",
-                            args=(rank, world, backend, init_method, threads,
-                                  fn, args, send))
-            p.start()
-            send.close()
-            procs.append(p)
-            readers[recv] = rank
-        results: dict[int, object] = {}
+        ranks = mp.spawn(_rank_main, nprocs=world, join=False, args=(
+            world, backend, "file://" + os.path.join(tmp, "store"), threads,
+            fn, args, queue))
         try:
-            _collect(procs, readers, results, timeout_s)
-        finally:
-            for p in procs:
-                if p.is_alive() and len(results) < world:
-                    p.terminate()
-                p.join(timeout=60)
-                if p.is_alive():
-                    p.kill()
-                    p.join()
-            for conn in readers:
-                conn.close()
+            while not ranks.join(timeout=1):
+                drain()
+                if deadline is not None and time.monotonic() > deadline:
+                    for p in ranks.processes:
+                        p.kill()
+                        p.join()
+                    raise TimeoutError(f"{world} ranks sent no result "
+                                       f"within {timeout_s} s")
+        except ProcessException as failed:
+            drain()
+            if not errors:          # a crash or a signal: nothing was sent
+                raise
+            # The first exception raised is the cause; the other ranks'
+            # follow from it (a peer leaving a collective).
+            rank, (exc, tb) = errors[0]
+            exc.add_note(f"raised on rank {rank}:\n{tb}")
+            raise exc from None
+        drain()
     return [results[r] for r in range(world)]
-
-
-def _collect(procs, readers: dict, results: dict,
-             timeout_s: float | None) -> None:
-    pending = dict(readers)
-    sentinels = {p.sentinel: rank for rank, p in enumerate(procs)}
-    while pending:
-        ready = wait(list(pending) + list(sentinels), timeout=timeout_s)
-        if not ready:
-            raise TimeoutError(f"ranks {sorted(pending.values())} sent no "
-                               f"result within {timeout_s} s")
-        for obj in ready:
-            if obj in pending:
-                rank = pending.pop(obj)
-                try:
-                    ok, payload = obj.recv()
-                except EOFError:
-                    raise RankFailed(
-                        f"rank {rank} exited with code "
-                        f"{procs[rank].exitcode} without a result") from None
-                if not ok:
-                    exc, tb = payload
-                    exc.add_note(f"raised on rank {rank}:\n{tb}")
-                    raise exc
-                results[rank] = payload
-            elif obj in sentinels:
-                rank = sentinels.pop(obj)
-                if rank in pending.values() and procs[rank].exitcode:
-                    # Its pipe may still hold the result or the error.
-                    conn = next(c for c, r in pending.items() if r == rank)
-                    if not conn.poll():
-                        raise RankFailed(
-                            f"rank {rank} exited with code "
-                            f"{procs[rank].exitcode} without a result")

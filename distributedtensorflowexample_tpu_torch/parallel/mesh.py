@@ -12,18 +12,22 @@ collectives it needs by hand, on the rank's device:
   digest).
 
 Metrics and the eval's correct count are summed with the same
-``all_reduce`` collective, once per host read (:meth:`Mesh.sum_metrics`,
-:meth:`Mesh.sum_`), and are not counted.  Without a process group the
-mesh is one rank and every collective is the identity.
+collective, once per host read (:meth:`Mesh.sum_metrics`), uncounted.
+A run with no process group is one rank (:data:`ONE_RANK`, or an
+ungrouped ``Mesh(device)``), whose collectives are the identity.
 
 Placement: rank ``r`` runs on ``cuda:<r % device_count>``.  Under NCCL
 that must be a card of its own: a group with more ranks than visible
 cards is refused by name before NCCL fails on it.  A ``gloo`` group may
 put several ranks on one card (it reduces CUDA tensors through host
-memory), which is how two ranks run on a one-card machine.
+memory), which is how two ranks run on a one-card machine; ``num_chips``
+then counts that card once.
 """
 
 from __future__ import annotations
+
+import socket
+import zlib
 
 import torch
 import torch.distributed as dist
@@ -34,8 +38,10 @@ from distributedtensorflowexample_tpu_torch.refusal import ModeRefusal
 
 class Mesh:
     """This rank's place in the data-parallel group: ``rank``, ``size``
-    (the world size), ``device``, and whether a process group backs it
-    (``grouped``; a one-rank group still runs its collectives)."""
+    (the world size), ``device``, whether a process group backs it
+    (``grouped``; a one-rank group still runs its collectives), and the
+    number of distinct devices its ranks run on (``num_chips``; set by
+    :func:`make_mesh`)."""
 
     def __init__(self, device: torch.device, rank: int = 0, size: int = 1,
                  grouped: bool = False):
@@ -43,18 +49,22 @@ class Mesh:
         self.rank = rank
         self.size = size
         self.grouped = grouped
+        self.num_chips = size
         self.all_reduces = 0
 
     @property
     def is_chief(self) -> bool:
         return self.rank == 0
 
-    def all_reduce(self, flat: torch.Tensor) -> torch.Tensor:
-        """Sum ``flat`` over the ranks, in place (the gradient all-reduce,
-        the counterpart of the JAX step's psum); counted."""
+    def all_reduce(self, flat: torch.Tensor,
+                   counted: bool = True) -> torch.Tensor:
+        """Sum ``flat`` over the ranks, in place.  The gradient all-reduce
+        (the counterpart of the JAX step's psum) is counted in
+        ``all_reduces``; the metrics' and the eval's sums pass
+        ``counted=False``."""
         if self.grouped:
             dist.all_reduce(flat)
-            self.all_reduces += 1
+            self.all_reduces += counted
         return flat
 
     def broadcast(self, flat: torch.Tensor) -> torch.Tensor:
@@ -73,23 +83,21 @@ class Mesh:
         dist.all_gather(out, mine)
         return [int(t.item()) for t in out]
 
-    def sum_(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum a tensor over the ranks, in place, uncounted (the eval's
-        correct count, the metrics)."""
-        if self.grouped:
-            dist.all_reduce(t)
-        return t
-
     def sum_metrics(self, metrics: dict) -> dict:
         """Each rank's share of the step metrics -> the global metrics, in
         one collective; the values stay on the device."""
         if not self.grouped or not metrics:
             return metrics
         names = list(metrics)
-        stacked = self.sum_(torch.stack(
+        stacked = self.all_reduce(torch.stack(
             [torch.as_tensor(metrics[k], device=self.device).float()
-             for k in names]))
+             for k in names]), counted=False)
         return dict(zip(names, stacked.unbind()))
+
+
+# The mesh of a run with no process group: one rank, whose collectives
+# are the identity (the gather and the step never read its device).
+ONE_RANK = Mesh(torch.device("cpu"))
 
 
 def local_world_size(num_devices: int, device: str) -> int:
@@ -122,12 +130,18 @@ def card_of(rank: int, world: int, backend: str) -> int:
 
 def make_mesh(device: str) -> Mesh:
     """The mesh over the default process group, or a one-rank mesh when
-    there is none; sets this rank's card as the current CUDA device."""
+    there is none; sets this rank's card as the current CUDA device.  On
+    ``cuda`` the ranks all-gather which card of which host they run on,
+    so ``num_chips`` counts a card that several gloo ranks share once."""
     if not dist.is_initialized():
         return Mesh(resolve_device(device))
     rank, world = dist.get_rank(), dist.get_world_size()
     local = 0
     if device == "cuda":
         local = card_of(rank, world, dist.get_backend())
-    return Mesh(resolve_device(device, local), rank=rank, size=world,
+    mesh = Mesh(resolve_device(device, local), rank=rank, size=world,
                 grouped=True)
+    if device == "cuda":
+        card = zlib.crc32(f"{socket.gethostname()}/cuda:{local}".encode())
+        mesh.num_chips = len(set(mesh.all_gather_int(card)))
+    return mesh

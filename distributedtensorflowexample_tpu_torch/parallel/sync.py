@@ -39,7 +39,8 @@ from distributedtensorflowexample_tpu_torch.ops.kernels import (
     fused_gather_dequant, fused_softmax_cross_entropy_rows)
 from distributedtensorflowexample_tpu_torch.ops.losses import (
     accuracy, softmax_cross_entropy_rows)
-from distributedtensorflowexample_tpu_torch.parallel.mesh import Mesh
+from distributedtensorflowexample_tpu_torch.parallel.mesh import (
+    ONE_RANK, Mesh)
 
 
 def _per_example_rows(impl: Callable) -> Callable:
@@ -85,14 +86,10 @@ def _resolve_num_slots(unroll_steps: int, steps_per_epoch: int,
     return num_slots
 
 
-def _ranks(mesh: Mesh | None) -> tuple[int, int]:
-    return (0, 1) if mesh is None else (mesh.rank, mesh.size)
-
-
 def make_device_gather(batch_size: int, steps_per_epoch: int, *,
                        num_slots: int, dequant_impl: str = "auto",
                        token_data: bool = False,
-                       mesh: Mesh | None = None) -> Callable:
+                       mesh: Mesh = ONE_RANK) -> Callable:
     """(step, data) -> batch: the on-device minibatch gather from a
     resident split (``DeviceDataset``), with the JAX package's slot and
     position arithmetic over the GLOBAL ``batch_size``; on a ``mesh`` this
@@ -104,7 +101,7 @@ def make_device_gather(batch_size: int, steps_per_epoch: int, *,
     if dequant_impl not in DEQUANT_IMPLS:
         raise ValueError(f"unknown dequant_impl {dequant_impl!r} "
                          f"(one of {DEQUANT_IMPLS})")
-    rank, n = _ranks(mesh)
+    rank, n = mesh.rank, mesh.size
     if batch_size % n:
         raise ValueError(f"global batch {batch_size} not divisible by {n} "
                          f"replicas")
@@ -134,11 +131,11 @@ def make_device_gather(batch_size: int, steps_per_epoch: int, *,
 
 def _build_step_fn(label_smoothing: float = 0.0, ce_impl: str = "xla",
                    replicas_to_aggregate: int = 0,
-                   mesh: Mesh | None = None) -> Callable:
+                   mesh: Mesh = ONE_RANK) -> Callable:
     """The (state, batch) -> metrics step body on this rank's rows:
     forward, this rank's share of the global loss, backward into the flat
     gradient buffer, one all-reduce of that buffer, one optimizer apply."""
-    rank, n = _ranks(mesh)
+    rank, n = mesh.rank, mesh.size
     r = int(replicas_to_aggregate)
     if not 0 <= r <= n:
         raise ValueError(
@@ -160,8 +157,7 @@ def _build_step_fn(label_smoothing: float = 0.0, ce_impl: str = "xla",
                              generator=state.generator)
         loss = loss_rows(logits, batch["label"]).mean() * share(state.step)
         loss.backward()
-        if mesh is not None:
-            mesh.all_reduce(state.optimizer.grads_flat)
+        mesh.all_reduce(state.optimizer.grads_flat)
         state.optimizer.step()
         state.step += 1
         return {"loss": loss.detach(),
@@ -178,7 +174,7 @@ def make_indexed_train_step(batch_size: int, steps_per_epoch: int,
                             num_slots: int | None = None,
                             dequant_impl: str = "auto",
                             token_data: bool = False,
-                            mesh: Mesh | None = None) -> Callable:
+                            mesh: Mesh = ONE_RANK) -> Callable:
     """Step over a device-resident dataset: ``(state, data) -> (state,
     metrics)``.  ``batch_size`` is the global batch; on a ``mesh`` each
     rank trains on its slice of it.  ``unroll_steps=K`` runs K consecutive
@@ -211,7 +207,7 @@ def make_resident_eval(images: np.ndarray, labels: np.ndarray,
                        quantize: str = "auto",
                        dequant_impl: str = "auto",
                        token_data: bool = False,
-                       mesh: Mesh | None = None) -> Callable:
+                       mesh: Mesh = ONE_RANK) -> Callable:
     """Exact accuracy over a split held on the device: ``eval_fn(state)
     -> float``, one host read per eval.  On a ``mesh`` every rank holds
     the split and evaluates its ``batch_size // N`` rows of each batch;
@@ -239,7 +235,7 @@ def make_resident_eval(images: np.ndarray, labels: np.ndarray,
             images, dequant = q
     impl = (resolve_dequant_impl(dequant, dequant_impl)
             if dequant is not None else None)
-    rank, ranks = _ranks(mesh)
+    rank, ranks = mesh.rank, mesh.size
     if batch_size % ranks:
         raise ValueError(f"eval batch {batch_size} must divide across "
                          f"{ranks} devices")
@@ -275,8 +271,7 @@ def make_resident_eval(images: np.ndarray, labels: np.ndarray,
                 bx = xs[lo:hi]
             logits = state.model(bx, train=False)
             total += (logits.argmax(dim=-1) == ys[lo:hi]).sum()
-        if mesh is not None:
-            mesh.sum_(total)
+        mesh.all_reduce(total, counted=False)
         return int(total.item()) / denom
 
     return run

@@ -20,6 +20,8 @@ import dataclasses
 import torch
 from torch import nn
 
+from distributedtensorflowexample_tpu_torch.parallel.mesh import (
+    ONE_RANK, Mesh)
 from distributedtensorflowexample_tpu_torch.training.optimizers import (
     MomentumSGD)
 
@@ -33,24 +35,22 @@ class TrainState:
 
     @classmethod
     def create(cls, model: nn.Module, build_opt, seed: int,
-               device: torch.device, mesh=None) -> "TrainState":
+               device: torch.device,
+               mesh: Mesh = ONE_RANK) -> "TrainState":
         """Initialize ``model`` from ``seed`` on the host (flax's default
         init distributions), move it to ``device``, then hand it to
         ``build_opt(model)``, which binds its parameters into the
-        optimizer's flat buffers; on a ``mesh`` (``parallel/mesh.py``)
-        rank 0's flat parameters are then broadcast.  Dropout draws from
+        optimizer's flat buffers; rank 0 of ``mesh`` (``parallel/mesh.py``)
+        then broadcasts its flat parameters.  Dropout draws from
         a second generator on ``device``, seeded from ``seed`` and the
         rank."""
         init = torch.Generator().manual_seed(int(seed))
         model.reset_parameters(init)
         model.to(device)
         optimizer = build_opt(model)
-        rank = 0
-        if mesh is not None:
-            mesh.broadcast(optimizer.params_flat)
-            rank = mesh.rank
+        mesh.broadcast(optimizer.params_flat)
         gen = torch.Generator(device=device)
-        gen.manual_seed(_dropout_seed(seed, rank))
+        gen.manual_seed(_dropout_seed(seed, mesh.rank))
         return cls(step=0, model=model, optimizer=optimizer, generator=gen)
 
 

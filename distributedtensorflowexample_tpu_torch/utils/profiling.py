@@ -41,6 +41,7 @@ import torch
 
 from distributedtensorflowexample_tpu_torch.device import resolve_device
 from distributedtensorflowexample_tpu_torch.engine import Engine, RunSpec
+from distributedtensorflowexample_tpu_torch.parallel.mesh import Mesh
 from distributedtensorflowexample_tpu_torch.trainers import (
     trainer_lm, trainer_sync_mnist)
 
@@ -99,7 +100,7 @@ def _on_device(evt) -> bool:
 def profile_step(spec: RunSpec, steps: int, warmup: int) -> dict:
     cfg = spec.config
     device = resolve_device(cfg.device)
-    built = Engine(spec).build(device)
+    built = Engine(spec).build(Mesh(device))
 
     def run(n):
         for _ in range(n):

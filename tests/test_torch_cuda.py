@@ -210,5 +210,7 @@ def test_two_gloo_ranks_on_one_card(cuda, tmp_path):
     assert ranks[0]["params_digest"] == ranks[1]["params_digest"]
     for r in ranks:
         assert r["global_batch"] == 64 and r["all_reduces"] == 20
+        # Two ranks on one card: the per-chip rate is that card's.
+        assert r["num_chips"] == 1
         assert r["launches"] == {"dequant": 20 + r["eval_batches"],
                                  "ce_fwd": 20, "ce_bwd": 20, "sgd": 20}

@@ -23,9 +23,11 @@ element; lm_tiny in float32 as ``tests/test_torch_lm.py``: the tape
 within 1e-4 relative, parameters and momentum within 1e-4 of the largest
 value.  N ranks at B against one rank at N*B in float32: rtol 2e-5, atol
 2e-6 after 3 steps (``tests/test_sync_dp.py``'s bound: the sums run in
-another order).  Partial aggregation against a one-rank step on the
-selected rows: rtol 1e-5, atol 1e-6 (``test_sync_dp.py``'s).  Replicas
-against each other, and the eval count: exact.
+another order).  Partial aggregation (float32, one step at R of 4 and
+step s) against the JAX mesh's step with the same R, and against one
+rank's plain step on the selected replicas' rows: rtol 1e-5, atol 1e-6
+(``test_sync_dp.py``'s).  Replicas against each other, and the eval
+count: exact.
 """
 
 import dataclasses
@@ -50,9 +52,9 @@ from distributedtensorflowexample_tpu_torch.engine import Engine, RunSpec
 from distributedtensorflowexample_tpu_torch.models import build_model
 from distributedtensorflowexample_tpu_torch.parallel import launch
 from distributedtensorflowexample_tpu_torch.parallel.mesh import (
-    Mesh, card_of, local_world_size, make_mesh)
+    ONE_RANK, Mesh, card_of, local_world_size, make_mesh)
 from distributedtensorflowexample_tpu_torch.parallel.sync import (
-    _build_step_fn, make_resident_eval)
+    _build_step_fn, make_device_gather, make_resident_eval)
 from distributedtensorflowexample_tpu_torch.refusal import ModeRefusal
 from distributedtensorflowexample_tpu_torch.training.optimizers import (
     build_optimizer)
@@ -186,7 +188,7 @@ def _n_ranks_equal_one_rank(mesh, inp) -> dict:
     state = run(mesh, B)
     out = {"digest": _digest(state), "all_reduces": mesh.all_reduces - before}
     if mesh.rank == 0:
-        one = run(CPU, B * mesh.size)
+        one = run(Mesh(CPU), B * mesh.size)
         out["vs_one_rank"] = _close(state.optimizer.params_flat.numpy(),
                                     one.optimizer.params_flat.numpy(),
                                     rtol=2e-5, atol=2e-6)
@@ -194,40 +196,39 @@ def _n_ranks_equal_one_rank(mesh, inp) -> dict:
 
 
 def _partial_aggregation(mesh, inp) -> dict:
-    """One plain-SGD step (lr 0.5) at each R and s; rank 0 compares it
-    with one rank's step on the selected replicas' rows."""
-    cfg = parse_flags(["--dtype", "float32", "--dropout", "0",
-                       "--learning_rate", "0.5", "--momentum", "0"])
-    x, y = _split()
-    n, per = mesh.size, B
-    rows = lambda idx: {"image": torch.from_numpy(x[idx]),
-                        "label": torch.from_numpy(y[idx])}
-
-    def state_at(s, m):
-        st = TrainState.create(build_model("mnist_cnn", dropout=0.0,
-                                           dtype=torch.float32),
-                               lambda mod: build_optimizer(cfg, mod), 1, CPU,
-                               mesh=m)
-        st.step = s
-        return st
-
+    """One float32 step of config 3 at each R and s, from the converted
+    JAX init over the JAX index tape.  Rank 0 keeps the parameters for
+    the JAX mesh's step, and compares them with one rank's plain step on
+    the selected replicas' rows of the same global batch."""
+    n = mesh.size
+    flags = lambda *extra: _flags("--dtype", "float32", *extra)
     out, plain = {}, {}
     for r in PARTIAL_R:
         for s in PARTIAL_S:
-            st = state_at(s, mesh)
-            _build_step_fn(ce_impl="pallas", replicas_to_aggregate=r,
-                           mesh=mesh)(st, rows(np.arange(
-                               mesh.rank * per, (mesh.rank + 1) * per)))
-            got = st.optimizer.params_flat.numpy()
+            built = Engine(RunSpec("mnist_cnn", "mnist", parse_flags(flags(
+                "--replicas_to_aggregate", str(r))))).build(
+                mesh, data=_split(), perm_fn=inp["cnn_perms"].__getitem__)
+            convert.load_into_state(built.state, inp["cnn_params0"])
+            built.state.step = s
+            data = next(built.ds)
+            built.step(built.state, data)
+            got = built.state.optimizer.params_flat.numpy()
             if r in (0, n):
                 plain.setdefault(s, []).append(got.copy())
             if mesh.rank != 0 or r in (0, n):
                 continue
+            out[("jax", r, s)] = convert.state_to_flax(built.state)[0]
             sel = [i for i in range(n) if (i - s) % n < r]
-            ref = state_at(s, None)
-            _build_step_fn(ce_impl="pallas")(ref, rows(np.concatenate(
-                [np.arange(i * per, (i + 1) * per) for i in sel])))
-            out[(r, s)] = _close(got, ref.optimizer.params_flat.numpy(),
+            gathered = [make_device_gather(
+                B * n, built.ds.steps_per_epoch, num_slots=built.ds.num_slots,
+                dequant_impl="pallas", mesh=Mesh(CPU, rank=i, size=n))(s, data)
+                for i in sel]
+            ref = Engine(RunSpec("mnist_cnn", "mnist", parse_flags(
+                flags()))).build(Mesh(CPU), data=_split())
+            convert.load_into_state(ref.state, inp["cnn_params0"])
+            _build_step_fn(ce_impl="pallas")(ref.state, {
+                k: torch.cat([g[k] for g in gathered]) for k in gathered[0]})
+            out[(r, s)] = _close(got, ref.state.optimizer.params_flat.numpy(),
                                  rtol=1e-5, atol=1e-6)
     out["full_r_is_plain"] = all(np.array_equal(a.view(np.int32),
                                                 b.view(np.int32))
@@ -252,7 +253,7 @@ def _eval(mesh, inp, state) -> dict:
     tx, ty = make_synthetic(200, (28, 28, 1), 10, seed=0, sample_seed=2)
     return {n: make_resident_eval(tx, ty, CPU, batch_size=64,
                                   dequant_impl="pallas", mesh=m)(state)
-            for n, m in (("mesh", mesh), ("one", None))}
+            for n, m in (("mesh", mesh), ("one", ONE_RANK))}
 
 
 def _config_digest(mesh, inp) -> str | None:
@@ -357,7 +358,7 @@ def _jax_cnn_tape(n, params0):
     return tape, params1
 
 
-def _jax_state(model, params, tx, mesh):
+def _jax_state(model, params, tx, mesh, step=0):
     import jax
     import jax.numpy as jnp
 
@@ -366,11 +367,48 @@ def _jax_state(model, params, tx, mesh):
     from distributedtensorflowexample_tpu.training.state import (
         TrainState as JaxTrainState)
     params = jax.tree.map(jnp.asarray, params)
-    state = JaxTrainState(step=jnp.zeros((), jnp.int32), params=params,
+    state = JaxTrainState(step=jnp.asarray(step, jnp.int32), params=params,
                           opt_state=tx.init(params), batch_stats={},
                           rng=jax.random.PRNGKey(1), tx=tx,
                           apply_fn=model.apply)
     return jax.device_put(state, replicated_sharding(mesh))
+
+
+def _jax_partial(params0):
+    """{(R, s): parameters after one float32 step at step s} of config 3
+    on a 4-device mesh with ``replicas_to_aggregate`` R, from
+    ``params0`` over the JAX dataset's own index tape."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from distributedtensorflowexample_tpu.data.device_dataset import (
+        DeviceDataset as JaxDeviceDataset)
+    from distributedtensorflowexample_tpu.models.mnist_cnn import (
+        MnistCNN as JaxMnistCNN)
+    from distributedtensorflowexample_tpu.parallel.mesh import (
+        make_mesh as jax_make_mesh)
+    from distributedtensorflowexample_tpu.parallel.sync import (
+        make_indexed_train_step as jax_make_indexed_train_step)
+    n, mesh = 4, jax_make_mesh(4)
+    x, y = _split()
+    jds = JaxDeviceDataset(x, y, B * n, mesh=mesh, seed=0,
+                           dequant_impl="pallas")
+    data = next(jds)
+    model = JaxMnistCNN(dropout_rate=0.0, dtype=jnp.float32)
+    out = {}
+    for r in (1, 3):
+        jstep = jax_make_indexed_train_step(
+            B * n, jds.steps_per_epoch, ce_impl="pallas",
+            dequant_impl="pallas", mesh=mesh, num_replicas=n,
+            replicas_to_aggregate=r, num_slots=jds.num_slots)
+        for s in PARTIAL_S:
+            jstate, _ = jstep(_jax_state(model, params0,
+                                         optax.sgd(LR, momentum=MU), mesh,
+                                         step=s), data)
+            out[(r, s)] = jax.tree.map(lambda a: np.array(a, copy=True),
+                                       jstate.params)
+    return out
 
 
 def _jax_lm_params0():
@@ -444,6 +482,7 @@ def runs(tmp_path_factory):
             jax_cnn = {n: _jax_cnn_tape(n, inputs[n]["cnn_params0"])
                        for n in sizes}
             jax_lm = _jax_lm_tape(2, lm_params0)
+            jax_partial = _jax_partial(params0)
             ranks = {n: g.result() for n, g in groups.items()}
             failed = failing.exception()
         cluster_out = [(*p.communicate(timeout=300), p.returncode)
@@ -454,7 +493,8 @@ def runs(tmp_path_factory):
                 proc.kill()
                 proc.communicate()
     return {"inputs": inputs, "ranks": ranks, "jax_cnn": jax_cnn,
-            "jax_lm": jax_lm, "failed": failed, "data_dir": data_dir,
+            "jax_lm": jax_lm, "jax_partial": jax_partial,
+            "failed": failed, "data_dir": data_dir,
             "cluster_flags": cluster_out}
 
 
@@ -508,6 +548,16 @@ def test_replicas_stay_bitwise_equal(runs, n):
 @pytest.mark.parametrize("n", [2, 4])
 def test_n_ranks_at_b_equal_one_rank_at_n_b(runs, n):
     assert runs["ranks"][n][0]["n_vs_1"]["vs_one_rank"] is None
+
+
+@pytest.mark.parametrize("r", [1, 3])
+@pytest.mark.parametrize("s", PARTIAL_S)
+def test_partial_aggregation_tracks_the_jax_mesh(runs, r, s):
+    got = runs["ranks"][4][0]["partial"][("jax", r, s)]
+    for k0, leaves in runs["jax_partial"][(r, s)].items():
+        for k1, want in leaves.items():
+            np.testing.assert_allclose(got[k0][k1], want, rtol=1e-5,
+                                       atol=1e-6, err_msg=f"{k0}/{k1}")
 
 
 @pytest.mark.parametrize("r", [1, 3])
@@ -663,6 +713,9 @@ def test_cli_two_cpu_ranks_print_once_from_rank_0(runs, tmp_path, capfd):
     assert out.count("final_accuracy=") == 1
     assert summary["global_batch"] == 2 * B and summary["num_replicas"] == 2
     assert summary["steps"] == 20 and summary["rank"] == 0
+    # Each CPU rank is a device of its own, as the JAX package counts
+    # the virtual CPU devices.
+    assert summary["num_chips"] == 2
     assert summary["steps_per_sec_per_chip"] == \
         summary["steps_per_sec"] / 2
     ranks = summary["ranks"]
