@@ -2,9 +2,12 @@
 port builds, that each hand-written kernel agrees with its plain PyTorch
 version, that config 3 (sync-SGD MNIST CNN) trains through all four
 kernels, that the transformer LM (lm_base, 57,289,728 parameters)
-trains through the cross-entropy and SGD kernels, and that both train as
+trains through the cross-entropy and SGD kernels, that both train as
 synchronous data parallelism over several ranks: two gloo ranks on the
-one card, and an NCCL group over the visible cards.
+one card, and an NCCL group over the visible cards, and that configs 1,
+4 and 5 (MNIST softmax; CIFAR-10 ResNet-20 with weight decay, the
+on-device crop and flip and global-batch batch norm) train through
+their trainers.
 
     python3 chip_smoke.py
 
@@ -16,7 +19,9 @@ without printing a result:
    (one ``nvcc`` per source, in parallel) and print the build time;
 3. each kernel against its plain version on the card at the main path's
    shapes (B=64, the bench's B=256, for dequant the eval's B=1000, and
-   for cross-entropy the LM head's [2048, 250] as well): dequant bitwise,
+   for cross-entropy config 4's [128, 10] and the LM head's [2048, 250]
+   as well; dequant also at config 4's three-channel [128, 32, 32, 3] and
+   its eval's [1000, 32, 32, 3] over a 50,000-row split): dequant bitwise,
    cross-entropy forward and backward within 1e-5 absolute (float32
    summation order), SGD within 1 ulp (the plain version's float64 route
    can double-round) over config 3's 3,274,634 parameters and lm_base's
@@ -24,8 +29,9 @@ without printing a result:
    kernel and shape with the kernel's, the plain version's and the
    comparable PyTorch library call's times and the kernel's bound;
 4. 5 training steps on the card against the same 5 steps on the CPU
-   (plain versions) from one init and one index tape, for config 3 and
-   for lm_small: loss tapes within 2e-2 relative (both bf16; cuDNN,
+   (plain versions) from one init and one index tape, for config 3, for
+   lm_small and for ResNet-20 at B=128 (config 4's update, one tape of
+   augment draws): loss tapes within 2e-2 relative (all bf16; cuDNN,
    cuBLAS and the CPU round at different places);
 5. config 3's main path: ``trainer_sync_mnist.main`` on ``cuda`` at full
    width with ``--dequant_impl pallas --pallas_ce --fused_optimizer``,
@@ -72,6 +78,28 @@ D. in the same two gloo ranks last: first 3 steps of lm_base at B=16
    parameters across the ranks, ``ce_fwd``, ``ce_bwd`` and ``sgd`` once
    per step in each rank; each step all-reduces the 57,289,728-element
    gradient;
+E. config 4's main path: ``trainer_mirrored_cifar.main`` on ``cuda`` at
+   full width (ResNet-20, 272,474 parameters, synthetic CIFAR-10: 50,000
+   train rows resident as uint8) with ``--dequant_impl pallas
+   --pallas_ce true``, 600 steps at B=128, counters set to 0 just before
+   and read just after: dequant once per step and per eval batch (610),
+   ``ce_fwd`` = ``ce_bwd`` = 600, ``sgd`` never (weight decay rules the
+   fused apply out); the loss logged at step 100 above the one at step
+   600, all finite, and a final accuracy above 0.2 (chance is 0.1);
+   then one ``cifar_main_path`` JSON line;
+F. in two gloo ranks on the one card: config 4 for 50 steps at B=128
+   per rank: every rank 43 all-reduces a step (21 batch-norm layers, one
+   forward and one backward each, plus the flat gradient), parameters
+   and batch-norm buffers bitwise equal across the ranks, the launch
+   counts of phase E per step; then one ``multirank_cifar_path`` line;
+G. config 1: ``trainer_local_mnist.main`` on ``cuda`` with its defaults
+   (1000 steps at B=100, lr 0.5, no kernel flag, so no kernel launches);
+   a finite, falling loss and a final accuracy of at least 0.9;
+H. config 5: ``trainer_multiworker_cifar.main`` as one NCCL process,
+   started with the cluster flags (``--worker_hosts``, ``--task_index``)
+   inside a one-rank NCCL group, 50 steps: a host-name exchange places
+   the rank, one gradient all-reduce a step and none for batch norm (one
+   rank), phase E's launches per step;
 7. the ``kernels`` JSON line (each kernel's launches summed over every
    path and rank, and per path: per rank for the multi-rank paths), then
    the ``ok`` line last.
@@ -130,6 +158,11 @@ MR_STEPS = 300
 MR_LM_STEPS = 20
 MR_LM_REF_STEPS = 3         # phase D's reference: 2 ranks against 1
 NCCL_STEPS = 50
+CIFAR_STEPS = 600
+CIFAR_BATCH = 128
+CIFAR_MIN_ACCURACY = 0.2
+MR_CIFAR_STEPS = 50
+BN_LAYERS = 21              # ResNet-20's batch-norm layers
 CNN_PARAMS = 3_274_634
 LM_PARAMS = 57_289_728
 SOURCES = {
@@ -164,16 +197,20 @@ def ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
 
 
-def check_dequant(batch: int, gen: torch.Generator, iters: int) -> dict:
-    images, idx, s, b = kt.dequant_inputs(batch, iters + 5, gen)
+def check_dequant(batch: int, gen: torch.Generator, iters: int,
+                  shape: tuple = (28, 28, 1), rows: int = 60000,
+                  spec: str = "unit") -> dict:
+    images, idx, s, b = kt.dequant_inputs(batch, iters + 5, gen, shape,
+                                          rows, spec)
     got = dq.fused_gather_dequant(images, idx[0], s, b)
     want = dq.gather_dequant_plain(images, idx[0], s, b)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
-            f"dequant B={batch} is not bitwise equal to its plain version")
-    row = 28 * 28
-    nbytes = batch * row * (1 + 4) + batch * 4 + 2 * 4
+            f"dequant [{batch}, {shape}] is not bitwise equal to its plain "
+            f"version")
+    row = int(np.prod(shape))
+    nbytes = batch * row * (1 + 4) + batch * 4 + 2 * 4 * s.numel()
     b_ms, b_by = bound(nbytes, 2 * batch * row)
     kern = lambda i: dq.fused_gather_dequant(images, idx[i], s, b)
     lib = lambda i: torch.addcmul(b, images[idx[i]].float(), s)
@@ -282,30 +319,49 @@ def check_sgd(gen: torch.Generator, iters: int, model: str) -> dict:
 def check_card_against_cpu(model: str) -> dict:
     """5 steps with the kernels on the card against the same 5 steps with
     the plain versions on the CPU, from one init and one index tape:
-    config 3 (``mnist_cnn``) at B=8 or the LM (``lm_small``) at B=16 with
-    ``--remat block``, as lm_base's main path runs it."""
+    config 3 (``mnist_cnn``) at B=8, the LM (``lm_small``) at B=16 with
+    ``--remat block``, as lm_base's main path runs it, or ResNet-20 at
+    config 4's B=128 with its update (weight decay, no fused SGD) and
+    one tape of crop and flip draws."""
     from distributedtensorflowexample_tpu_torch.config import parse_flags
     from distributedtensorflowexample_tpu_torch.engine import Engine, RunSpec
+    fused, augment, draws_fn = ["--fused_optimizer", "true"], False, None
+    rows = 256
     if model == "mnist_cnn":
         from distributedtensorflowexample_tpu_torch.data.synthetic import (
             make_synthetic)
-        x, y = make_synthetic(256, (28, 28, 1), 10, seed=0, sample_seed=1)
+        x, y = make_synthetic(rows, (28, 28, 1), 10, seed=0, sample_seed=1)
         dataset, flags = "mnist", ["--learning_rate", "0.05",
                                    "--batch_size", "8",
                                    "--dequant_impl", "pallas"]
+    elif model == "resnet20":
+        from distributedtensorflowexample_tpu_torch.data.cifar10 import (
+            load_cifar10)
+        x, y = load_cifar10("", "train", synthetic_size=rows,
+                            source="synthetic")
+        dataset, flags = "cifar10", ["--learning_rate", "0.1",
+                                     "--weight_decay", "1e-4",
+                                     "--batch_size", str(CIFAR_BATCH),
+                                     "--dequant_impl", "pallas"]
+        fused, augment = [], True
+        rs = np.random.RandomState(1)
+        draws = [(rs.randint(0, 9, CIFAR_BATCH), rs.randint(0, 9, CIFAR_BATCH),
+                  rs.rand(CIFAR_BATCH) < 0.5) for _ in range(5)]
+        draws_fn = draws.__getitem__
     else:
         from distributedtensorflowexample_tpu_torch.data.lm import load_lm
-        x, y = load_lm("", "train", num=256)
+        x, y = load_lm("", "train", num=rows)
         dataset, flags = "lm", ["--learning_rate", "0.1",
                                 "--batch_size", str(LM_BATCH),
                                 "--remat", "block"]
-    perm = np.random.RandomState(0).permutation(256)
-    cfg = parse_flags(["--fused_optimizer", "true", "--momentum", "0.9",
-                       "--dropout", "0", "--pallas_ce", "true"] + flags)
+    perm = np.random.RandomState(0).permutation(rows)
+    cfg = parse_flags(fused + ["--momentum", "0.9", "--dropout", "0",
+                               "--pallas_ce", "true"] + flags)
     tapes = {}
     for name in ("cuda", "cpu"):
-        built = Engine(RunSpec(model, dataset, cfg)).build(
-            Mesh(torch.device(name)), data=(x, y), perm_fn=lambda e: perm)
+        built = Engine(RunSpec(model, dataset, cfg, augment=augment)).build(
+            Mesh(torch.device(name)), data=(x, y), perm_fn=lambda e: perm,
+            draws_fn=draws_fn)
         tapes[name] = [float(built.step(built.state, next(built.ds))[1]
                              ["loss"]) for _ in range(5)]
     a, b = np.array(tapes["cuda"]), np.array(tapes["cpu"])
@@ -404,6 +460,69 @@ def run_lm_main_path(gpu: str) -> tuple[dict, dict]:
     return result, counts
 
 
+def cifar_argv(steps: int, log_dir: str, log_every: int = 100) -> list:
+    """Config 4's trainer flags on the card: its defaults with the dequant
+    and CE kernels (weight decay rules the SGD kernel out)."""
+    return ["--device", "cuda", "--dataset", "synthetic", "--dequant_impl",
+            "pallas", "--pallas_ce", "true", "--train_steps", str(steps),
+            "--log_every", str(log_every), "--resume", "false",
+            "--log_dir", str(ROOT / "build" / log_dir)]
+
+
+def cifar_expect(steps: int, evals: int) -> dict:
+    return {"dequant": steps + evals, "ce_fwd": steps, "ce_bwd": steps,
+            "sgd": 0}
+
+
+def run_cifar_main_path(gpu: str) -> tuple[dict, dict]:
+    """Phase E: config 4 through ``trainer_mirrored_cifar``."""
+    r = run_trainer("trainer_mirrored_cifar",
+                    cifar_argv(CIFAR_STEPS, "chip_smoke_cifar"))
+    print(r["text"], end="")
+    steps, counts = r["steps"], r["launches"]
+    require(steps == CIFAR_STEPS, f"config 4: trained {steps} of "
+                                  f"{CIFAR_STEPS} steps")
+    expect = cifar_expect(steps, r["eval_batches"])
+    require(counts == expect, f"config 4: launch counts {counts}, expected "
+                              f"{expect} (dequant per step and eval batch, "
+                              f"the CE pair per step, no fused SGD)")
+    check_loss_tape(r, r["text"])
+    require(r["final_accuracy"] > CIFAR_MIN_ACCURACY,
+            f"config 4: final accuracy {r['final_accuracy']} <= "
+            f"{CIFAR_MIN_ACCURACY}")
+    result = {"model": "resnet20", "steps": steps, "batch": CIFAR_BATCH,
+              "steps_per_call": r["steps_per_call"],
+              "steps_per_sec": r["steps_per_sec"],
+              "images_per_sec": r["steps_per_sec"] * CIFAR_BATCH,
+              "wall_s_incl_setup_and_eval": r["wall_s_incl_setup_and_eval"],
+              "final_accuracy": r["final_accuracy"],
+              "loss_tape": r["loss_tape"], "launches": counts, "gpu": gpu}
+    return result, counts
+
+
+def run_local_mnist(gpu: str) -> dict:
+    """Phase G: config 1 through ``trainer_local_mnist`` with its
+    defaults; no kernel flag is set, so no kernel launches."""
+    r = run_trainer("trainer_local_mnist", [
+        "--device", "cuda", "--dataset", "synthetic", "--resume", "false",
+        "--log_dir", str(ROOT / "build" / "chip_smoke_softmax")])
+    print(r["text"], end="")
+    require(r["steps"] == 1000 and r["global_batch"] == 100,
+            f"config 1: {r['steps']} steps at B={r['global_batch']}")
+    require(r["launches"] == {k: 0 for k in r["launches"]},
+            f"config 1: launch counts {r['launches']}, expected none")
+    check_loss_tape(r, r["text"])
+    require(r["final_accuracy"] >= 0.9,
+            f"config 1: final accuracy {r['final_accuracy']}")
+    result = {"model": "softmax", "steps": r["steps"], "batch": 100,
+              "steps_per_sec": r["steps_per_sec"],
+              "final_accuracy": r["final_accuracy"],
+              "loss_tape": r["loss_tape"], "launches": r["launches"],
+              "gpu": gpu}
+    print(json.dumps({"local_mnist_path": result}), flush=True)
+    return r["launches"]
+
+
 def run_trainer(trainer: str, argv: list) -> dict:
     """One trainer run in this process, its stdout captured: the launch
     counters set to 0 just before and read just after."""
@@ -497,7 +616,7 @@ def two_rank_lm_vs_one_rank() -> dict:
 
 
 def gloo_rank_phases() -> dict:
-    """Phases B, A and D in one of the two gloo ranks on ``cuda:0``."""
+    """Phases B, A, D and F in one of the two gloo ranks on ``cuda:0``."""
     out = {"card_vs_cpu": two_rank_card_vs_cpu()}
     out["mnist"] = run_trainer("trainer_sync_mnist", [
         "--device", "cuda", "--dataset", "synthetic", "--dequant_impl",
@@ -514,6 +633,8 @@ def gloo_rank_phases() -> dict:
         "--resume", "false",
         "--log_dir", str(ROOT / "build" / "chip_smoke_gloo_lm")])
     out["lm"]["all_reduce_ms"] = all_reduce_ms(LM_PARAMS, 10)
+    out["cifar"] = run_trainer("trainer_mirrored_cifar", cifar_argv(
+        MR_CIFAR_STEPS, "chip_smoke_gloo_cifar", log_every=10))
     return out
 
 
@@ -522,22 +643,27 @@ def nccl_rank(argv: list) -> dict:
     return run_trainer("trainer_sync_mnist", argv)
 
 
-def check_ranks(ranks: list, what: str, expect: dict, steps: int) -> None:
+def check_ranks(ranks: list, what: str, expect: dict, steps: int,
+                reduces_per_step: int = 1) -> None:
     """Phase A's cross-rank checks: every rank trained ``steps`` steps
-    with one gradient all-reduce each, launched ``expect``, and holds the
-    same parameters bit for bit; only rank 0 printed step lines."""
+    with ``reduces_per_step`` all-reduces each (the gradient's, and batch
+    norm's), launched ``expect``, and holds the same parameters and
+    buffers bit for bit; only rank 0 printed step lines."""
     for r in ranks:
-        require(r["steps"] == steps and r["all_reduces"] == steps,
+        want = steps * reduces_per_step
+        require(r["steps"] == steps and r["all_reduces"] == want,
                 f"{what}: rank {r['rank']} trained {r['steps']} steps with "
-                f"{r['all_reduces']} gradient all-reduces, expected {steps}")
+                f"{r['all_reduces']} all-reduces, expected {steps} steps "
+                f"and {want}")
         require(r["launches"] == expect,
                 f"{what}: rank {r['rank']} launch counts {r['launches']}, "
                 f"expected {expect}")
         losses = [l for _, l in r["loss_tape"]]
         require(len(losses) >= 1 and all(np.isfinite(losses)),
                 f"{what}: rank {r['rank']} loss tape {r['loss_tape']}")
-    digests = {r["params_digest"] for r in ranks}
-    require(len(digests) == 1, f"{what}: replicas differ ({digests})")
+    digests = {(r["params_digest"], r["stats_digest"]) for r in ranks}
+    require(len(digests) == 1, f"{what}: replicas or their batch-norm "
+                               f"buffers differ ({digests})")
     require(all("step " not in r["text"] for r in ranks[1:]),
             f"{what}: a rank other than 0 printed step lines")
 
@@ -615,8 +741,29 @@ def run_gloo_phases(gpu: str) -> dict:
                "loss_tape": lm[0]["loss_tape"],
                "launches_by_rank": [r["launches"] for r in lm], "gpu": gpu}
     print(json.dumps({"multirank_lm_path": lm_path}), flush=True)
+
+    cf = [r["cifar"] for r in ranks]
+    print(cf[0]["text"], end="")
+    check_ranks(cf, "phase F", cifar_expect(MR_CIFAR_STEPS,
+                                            cf[0]["eval_batches"]),
+                MR_CIFAR_STEPS, reduces_per_step=2 * BN_LAYERS + 1)
+    losses = [l for _, l in cf[0]["loss_tape"]]
+    require(all(np.isfinite(losses)), f"phase F: loss tape {losses}")
+    cifar_path = {"model": "resnet20", "ranks": MR_RANKS, "backend": "gloo",
+                  "steps": MR_CIFAR_STEPS, "batch_per_rank": CIFAR_BATCH,
+                  "global_batch": cf[0]["global_batch"],
+                  "steps_per_sec": cf[0]["steps_per_sec"],
+                  "all_reduces_per_step": cf[0]["all_reduces"]
+                  / MR_CIFAR_STEPS,
+                  "final_accuracy": cf[0]["final_accuracy"],
+                  "loss_tape": cf[0]["loss_tape"],
+                  "launches_by_rank": [r["launches"] for r in cf],
+                  "params_digest": cf[0]["params_digest"],
+                  "stats_digest": cf[0]["stats_digest"], "gpu": gpu}
+    print(json.dumps({"multirank_cifar_path": cifar_path}), flush=True)
     return {"mnist_cnn_gloo2": [r["launches"] for r in mn],
-            f"{LM_SIZE}_gloo2": [r["launches"] for r in lm]}
+            f"{LM_SIZE}_gloo2": [r["launches"] for r in lm],
+            "resnet20_gloo2": [r["launches"] for r in cf]}
 
 
 def run_nccl_phase(gpu: str) -> dict:
@@ -660,6 +807,33 @@ def run_nccl_phase(gpu: str) -> dict:
     return {"mnist_cnn_nccl": [r["launches"] for r in ranks]}
 
 
+def multiworker_rank(argv: list) -> dict:
+    return run_trainer("trainer_multiworker_cifar", argv)
+
+
+def run_multiworker_phase(gpu: str) -> dict:
+    """Phase H: config 5 as one NCCL process started with the cluster
+    flags; the process group is the one-rank NCCL group it runs in."""
+    argv = cifar_argv(MR_CIFAR_STEPS, "chip_smoke_multiworker",
+                      log_every=10) + ["--worker_hosts", "localhost:2222",
+                                       "--task_index", "0"]
+    (r,) = launch.spawn(multiworker_rank, 1, "nccl", (argv,), timeout_s=600)
+    print(r["text"], end="")
+    check_ranks([r], "phase H", cifar_expect(MR_CIFAR_STEPS,
+                                             r["eval_batches"]),
+                MR_CIFAR_STEPS)
+    require(r["device"] == "cuda:0", f"phase H: placed on {r['device']}")
+    losses = [l for _, l in r["loss_tape"]]
+    require(all(np.isfinite(losses)), f"phase H: loss tape {losses}")
+    print(json.dumps({"multiworker_path": {
+        "model": "resnet20", "world": 1, "backend": "nccl",
+        "steps": r["steps"], "steps_per_sec": r["steps_per_sec"],
+        "final_accuracy": r["final_accuracy"],
+        "loss_tape": r["loss_tape"], "launches": r["launches"],
+        "gpu": gpu}}), flush=True)
+    return {"resnet20_nccl": [r["launches"]]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -688,6 +862,9 @@ def main() -> int:
     rows = {}                       # (kernel, B, C or None) -> row
     for batch in (BATCH, 256, 1000):
         rows[("dequant", batch, None)] = check_dequant(batch, gen, 200)
+    for batch in (CIFAR_BATCH, 1000):
+        rows[("dequant", batch, 3)] = check_dequant(
+            batch, gen, 200, (32, 32, 3), 50000, "cifar")
     for batch, classes in kt.CE_SHAPES:
         rows[("ce_fwd", batch, classes)], rows[("ce_bwd", batch, classes)] = \
             check_ce(batch, classes, gen, 200)
@@ -697,6 +874,7 @@ def main() -> int:
         extra = ({"n": r["n"], "ulp_mismatches": r["ulp_mismatches"]}
                  if "ulp_mismatches" in r else {})
         if classes is not None:
+            # classes for cross-entropy; channels for dequant
             extra["C"] = classes
         print(json.dumps({"kernel": name, "B": batch, "kernel_ms": r["ms"],
                           "plain_ms": r["plain_ms"],
@@ -707,7 +885,7 @@ def main() -> int:
                           "max_abs_err": r["max_abs_err"], **extra,
                           "gpu": gpu}), flush=True)
 
-    for model in ("mnist_cnn", "lm_small"):
+    for model in ("mnist_cnn", "lm_small", "resnet20"):
         print(json.dumps({"card_vs_cpu_5_steps":
                           check_card_against_cpu(model)}), flush=True)
 
@@ -720,13 +898,23 @@ def main() -> int:
     print(f"lm main path: {lm['steps_per_sec']:.2f} steps/s (last 100-step "
           f"window, {LM_SIZE}, B={LM_BATCH} x T=128) on {gpu}", flush=True)
 
+    cifar, cifar_counts = run_cifar_main_path(gpu)
+    print(json.dumps({"cifar_main_path": cifar}), flush=True)
+    print(f"cifar main path: {cifar['steps_per_sec']:.1f} steps/s (last "
+          f"100-step window, resnet20, B={CIFAR_BATCH}) on {gpu}",
+          flush=True)
+
     by_path = run_gloo_phases(gpu)
     by_path.update(run_nccl_phase(gpu))
+    softmax_counts = run_local_mnist(gpu)
+    by_path.update(run_multiworker_phase(gpu))
 
     line = []
     for name, (source, replaces) in SOURCES.items():
         r = rows[(name, BATCH, 10 if name.startswith("ce_") else None)]
         paths = {"mnist_cnn": counts[name], LM_SIZE: lm_counts[name],
+                 "resnet20": cifar_counts[name],
+                 "softmax": softmax_counts[name],
                  **{p: [c[name] for c in per_rank]
                     for p, per_rank in by_path.items()}}
         line.append({"name": name, "route": "cuda", "source": source,

@@ -8,15 +8,21 @@ weights without changing a value.  Each flax leaf is mapped by its name:
   ``[in, out]`` -> ``[out, in]``, both to ``weight``;
 - ``embedding``: copied as is to ``weight`` (``nn.Embedding.weight`` is
   ``[num, features]`` like flax's table);
-- ``scale`` (LayerNorm) -> ``weight``; ``bias`` -> ``bias``.
+- ``scale`` (LayerNorm, BatchNorm) -> ``weight``; ``bias`` -> ``bias``.
 
 A tree path joins with dots: ``block3/ln1/scale`` is ``block3.ln1.weight``.
 Going back, a 2-D ``weight`` is a dense kernel unless its module is one
 of the ``embeddings`` the caller names (``state_to_flax`` finds them in
-the model); a 1-D ``weight`` is a LayerNorm scale.
+the model); a 1-D ``weight`` is a LayerNorm or BatchNorm scale.
 
 The feature order of ``MnistCNN``'s ``fc1`` input needs no permutation:
 the port flattens its activation in NHWC order, as flax does.
+
+A model with batch norm (``models/resnet.py``) also has flax's
+``batch_stats`` tree, ``{"bn_init": {"mean", "var"}, "stage0_block0":
+{"bn1": {...}}, ...}``: its leaves are the port's buffers of the same
+dotted name (``stage0_block0.bn1.mean``), copied as they are
+(:func:`batch_stats_to_port`, :func:`port_to_batch_stats`).
 
 The momentum comes either as a params-shaped tree (``optax.sgd``'s
 ``TraceState.trace``) or as the Pallas fused optimizer's flat
@@ -83,6 +89,23 @@ def port_to_flax(state: dict, embeddings: Collection[str] = ()) -> dict:
     return out
 
 
+def batch_stats_to_port(tree: dict) -> dict[str, np.ndarray]:
+    """flax ``batch_stats`` -> the port's buffers by dotted name."""
+    return {".".join(path): x for path, x in _flatten_order(tree)}
+
+
+def port_to_batch_stats(buffers: dict) -> dict:
+    """Inverse of :func:`batch_stats_to_port`."""
+    out: dict = {}
+    for name, x in buffers.items():
+        *keys, leaf = name.split(".")
+        node = out
+        for k in keys:
+            node = node.setdefault(k, {})
+        node[leaf] = np.asarray(x)
+    return out
+
+
 def _flatten_order(tree: dict, prefix=()) -> list[tuple[tuple, np.ndarray]]:
     """Leaves with their key paths in ``jax.tree.flatten`` order."""
     out = []
@@ -129,16 +152,21 @@ def tree_to_flat_trace(tree: dict) -> np.ndarray:
     return out.reshape(rows, _LANES)
 
 
-def load_into_state(state, params: dict, momentum: dict | None = None
-                    ) -> None:
+def load_into_state(state, params: dict, momentum: dict | None = None,
+                    batch_stats: dict | None = None) -> None:
     """Copy a flax param tree (and optionally a params-shaped momentum
-    tree) into a port ``TrainState``, in place — the values land in the
-    optimizer's flat buffers, which the model's parameters view."""
+    tree and a ``batch_stats`` tree) into a port ``TrainState``, in place
+    — the parameters land in the optimizer's flat buffers, which the
+    model's parameters view, and the statistics in the model's
+    buffers."""
     import torch
     named = dict(state.model.named_parameters())
+    buffers = dict(state.model.named_buffers())
     with torch.no_grad():
         for name, x in flax_to_port(params).items():
             named[name].copy_(torch.from_numpy(x))
+        for name, x in batch_stats_to_port(batch_stats or {}).items():
+            buffers[name].copy_(torch.from_numpy(np.asarray(x)))
         if momentum is not None:
             views = state.optimizer.views(state.optimizer.momentum_flat)
             for name, x in flax_to_port(momentum).items():
@@ -163,3 +191,10 @@ def state_to_flax(state) -> tuple[dict, dict | None]:
         momentum = port_to_flax({n: copy(v) for n, v in
                                  opt.views(opt.momentum_flat).items()}, emb)
     return port_to_flax(params, emb), momentum
+
+
+def state_batch_stats(state) -> dict:
+    """The flax ``batch_stats`` tree of a port ``TrainState`` (numpy
+    copies; ``{}`` for a model without batch norm)."""
+    return port_to_batch_stats({n: b.detach().cpu().numpy().copy()
+                                for n, b in state.model.named_buffers()})

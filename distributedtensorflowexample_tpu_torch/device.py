@@ -23,6 +23,15 @@ class DeviceUnavailable(RuntimeError):
     """``--device cuda`` was asked for but no CUDA card is visible."""
 
 
+def require_cuda() -> None:
+    """Raise :class:`DeviceUnavailable` unless a CUDA card is visible."""
+    if not torch.cuda.is_available():
+        raise DeviceUnavailable(
+            "--device cuda: torch.cuda.is_available() is False (no "
+            "visible CUDA card, or a CPU-only PyTorch build). Pass "
+            "--device cpu to run the port's plain versions on the CPU")
+
+
 def resolve_device(name: str, local_rank: int = 0) -> torch.device:
     """``"cuda"`` or ``"cpu"`` -> ``torch.device``; sets the TF32 policy.
     On ``cuda`` the device is card ``local_rank`` (this rank's card,
@@ -33,11 +42,7 @@ def resolve_device(name: str, local_rank: int = 0) -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if name == "cuda":
-        if not torch.cuda.is_available():
-            raise DeviceUnavailable(
-                "--device cuda: torch.cuda.is_available() is False (no "
-                "visible CUDA card, or a CPU-only PyTorch build). Pass "
-                "--device cpu to run the port's plain versions on the CPU")
+        require_cuda()
         visible = torch.cuda.device_count()
         if not 0 <= local_rank < visible:
             raise ValueError(f"--device cuda: card {local_rank} requested, "

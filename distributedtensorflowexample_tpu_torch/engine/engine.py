@@ -18,8 +18,11 @@ yet, and then either
   (``Engine.build``), runs the loop with its hooks, and ends with an
   exact eval on the held-out split.
 
-The workloads: config 3 (``mnist_cnn`` on ``mnist``) and the transformer
-LM (``lm_tiny``, ``lm_small``, ``lm_base`` on the ``lm`` token split).
+The workloads: config 1 (``softmax`` on ``mnist``), config 3
+(``mnist_cnn`` on ``mnist``), configs 4 and 5 (``resnet20`` on
+``cifar10``, with the on-device crop and flip: ``RunSpec.augment``) and
+the transformer LM (``lm_tiny``, ``lm_small``, ``lm_base`` on the ``lm``
+token split).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import torch.distributed as dist
 
 from distributedtensorflowexample_tpu_torch import cluster
 from distributedtensorflowexample_tpu_torch.config import RunConfig
+from distributedtensorflowexample_tpu_torch.data.cifar10 import load_cifar10
 from distributedtensorflowexample_tpu_torch.data.device_dataset import (
     DEQUANT_IMPLS, DeviceDataset)
 from distributedtensorflowexample_tpu_torch.data.lm import load_lm
@@ -68,11 +72,13 @@ class RunSpec:
     """What to run: the workload's model and dataset names plus the
     parsed flags (the slice of the JAX package's ``engine/spec.py``
     RunSpec that the ported workloads use).  The ``lm`` dataset is an
-    integer token split; every other one holds images."""
+    integer token split; every other one holds images.  ``augment``: the
+    CIFAR random crop and flip in the train step."""
 
     model: str
     dataset: str
     config: RunConfig
+    augment: bool = False
 
 
 def auto_steps_per_loop(remaining: int, steps_per_epoch: int,
@@ -102,6 +108,9 @@ def _load_dataset(cfg: RunConfig, name: str, split: str):
     source = "synthetic" if cfg.dataset == "synthetic" else "real"
     if name == "mnist":
         return load_mnist(cfg.data_dir, split, seed=cfg.seed, source=source)
+    if name == "cifar10":
+        return load_cifar10(cfg.data_dir, split, seed=cfg.seed,
+                            source=source)
     if name == "lm":
         # Both sources are the synthetic chain (data/lm.py).
         return load_lm(cfg.data_dir, split, seed=cfg.seed, source=source)
@@ -110,7 +119,7 @@ def _load_dataset(cfg: RunConfig, name: str, split: str):
 
 
 def _refuse_unported(cfg: RunConfig, info: cluster.ClusterInfo,
-                     token_data: bool = False) -> None:
+                     token_data: bool = False, model: str = "") -> None:
     """Named refusals for every mode this slice does not run, and the
     JAX package's refusal of the host-fed path for a token split,
     checked before any data is loaded or any rank is started."""
@@ -145,6 +154,11 @@ def _refuse_unported(cfg: RunConfig, info: cluster.ClusterInfo,
         (cfg.checkpoint_every > 0, "--checkpoint_every > 0 (the port has "
          "no checkpoint format yet)"),
         (bool(cfg.profile_dir), "--profile_dir (the profiler hook)"),
+        # torch.utils.checkpoint would run each block's forward twice and
+        # so update its batch-norm running statistics twice.
+        (cfg.remat == "block" and model == "resnet20", "--remat block "
+         "for resnet20 (recomputing a block would update its batch-norm "
+         "running statistics a second time)"),
     ]
     for hit, what in not_yet:
         if hit:
@@ -225,6 +239,15 @@ def _params_digest(state) -> str:
     return hashlib.sha256(flat.tobytes()).hexdigest()[:16]
 
 
+def _stats_digest(state) -> str:
+    """The same of the model's buffers (batch norm's running statistics;
+    the digest of nothing for a model without them)."""
+    h = hashlib.sha256()
+    for _, buf in state.model.named_buffers():
+        h.update(buf.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def _local_rank_run(spec: "RunSpec") -> dict:
     """One local rank (``parallel/launch.spawn``'s child): the run inside
     the group, plus this process's kernel launch counts."""
@@ -236,7 +259,7 @@ def _run_local_ranks(spec: "RunSpec", ranks: int) -> dict:
                     cluster.BACKENDS[spec.config.device], args=(spec,))
     summary = dict(results[0])
     summary["ranks"] = [{k: r[k] for k in ("launches", "all_reduces",
-                                          "params_digest")}
+                                          "params_digest", "stats_digest")}
                         for r in results]
     return summary
 
@@ -263,16 +286,18 @@ class Engine:
         self.token_data = spec.dataset == "lm"
 
     def build(self, mesh: Mesh, unroll: int = 1, data=None,
-              perm_fn=None) -> EngineBuild:
+              perm_fn=None, draws_fn=None) -> EngineBuild:
         """State, resident dataset and train step for this rank of
         ``mesh`` (``Mesh(device)`` is one rank on that device).  ``data``
         ``(images, labels)`` replaces the spec's train split; ``perm_fn``
-        injects an index tape (``DeviceDataset``)."""
+        injects an index tape (``DeviceDataset``) and ``draws_fn`` the
+        augment draws (``parallel/sync.make_device_gather``)."""
         device = mesh.device
         cfg = self.spec.config
         global_batch = _global_batch(cfg, mesh.size)
         model = build_model(self.spec.model, dropout=cfg.dropout,
-                            dtype=_DTYPES[cfg.dtype], remat=cfg.remat)
+                            dtype=_DTYPES[cfg.dtype], remat=cfg.remat,
+                            mesh=mesh)
         x, y = (data if data is not None else
                 _load_dataset(cfg, self.spec.dataset, "train"))
         state = TrainState.create(model, lambda m: build_optimizer(cfg, m),
@@ -288,7 +313,9 @@ class Engine:
             unroll_steps=unroll,
             replicas_to_aggregate=cfg.replicas_to_aggregate,
             num_slots=ds.num_slots, dequant_impl=cfg.dequant_impl,
-            token_data=self.token_data, mesh=mesh)
+            token_data=self.token_data,
+            augment="cifar" if self.spec.augment else "none",
+            seed=cfg.seed, draws_fn=draws_fn, mesh=mesh)
         return EngineBuild(state=state, ds=ds, step=step, unroll=unroll)
 
     def run(self) -> dict:
@@ -299,7 +326,7 @@ class Engine:
         if info.role == "ps":
             print(cluster.PS_NOTICE, flush=True)
             return {"role": "ps", "exited": True}
-        _refuse_unported(cfg, info, self.token_data)
+        _refuse_unported(cfg, info, self.token_data, spec.model)
         if not info.is_distributed and not dist.is_initialized():
             ranks = local_world_size(cfg.num_devices, cfg.device)
             if ranks > 1:
@@ -379,4 +406,5 @@ class Engine:
                 "rank": mesh.rank,
                 "all_reduces": mesh.all_reduces,
                 "params_digest": _params_digest(state),
+                "stats_digest": _stats_digest(state),
                 "loss_tape": metrics_hook.loss_tape}

@@ -4,8 +4,13 @@
 import torch
 
 from distributedtensorflowexample_tpu_torch.models.mnist_cnn import MnistCNN
+from distributedtensorflowexample_tpu_torch.models.resnet import (
+    ResNet20, ResNetCIFAR)
+from distributedtensorflowexample_tpu_torch.models.softmax import (
+    SoftmaxRegression)
 from distributedtensorflowexample_tpu_torch.models.transformer_lm import (
     LM_SIZES, LM_VOCAB, TransformerLM, build_lm)
+from distributedtensorflowexample_tpu_torch.parallel.mesh import ONE_RANK
 
 
 def _lm_entry(size):
@@ -17,16 +22,21 @@ def _lm_entry(size):
 
 
 _REGISTRY = {
+    "softmax": lambda **kw: SoftmaxRegression(num_classes=10),
     "mnist_cnn": lambda **kw: MnistCNN(num_classes=10,
                                        dropout_rate=kw.get("dropout", 0.5),
                                        dtype=kw.get("dtype", torch.bfloat16)),
+    # ``mesh``: the group whose global batch batch norm normalizes over.
+    "resnet20": lambda **kw: ResNet20(num_classes=10,
+                                      dtype=kw.get("dtype", torch.bfloat16),
+                                      mesh=kw.get("mesh", ONE_RANK)),
     **{size: _lm_entry(size) for size in LM_SIZES},
 }
 
 
 def build_model(name: str, **kw):
-    """``build_model(name, dropout=..., dtype=..., remat=...)``; keywords a
-    model does not take are ignored, as in the JAX package."""
+    """``build_model(name, dropout=..., dtype=..., remat=..., mesh=...)``;
+    keywords a model does not take are ignored, as in the JAX package."""
     try:
         entry = _REGISTRY[name]
     except KeyError:
@@ -35,5 +45,5 @@ def build_model(name: str, **kw):
     return entry(**kw)
 
 
-__all__ = ["LM_SIZES", "LM_VOCAB", "MnistCNN", "TransformerLM", "build_lm",
-           "build_model"]
+__all__ = ["LM_SIZES", "LM_VOCAB", "MnistCNN", "ResNet20", "ResNetCIFAR",
+           "SoftmaxRegression", "TransformerLM", "build_lm", "build_model"]

@@ -1,0 +1,223 @@
+"""CIFAR-10 ResNet (the JAX package's ``models/resnet.py``): a 3x3 stem,
+three stages of basic residual blocks at widths 16/32/64 (stride 2 into
+stages 1 and 2), batch norm, a global average pool and a 10-way head.
+ResNet-20 (three blocks per stage) has 272,474 float32 parameters.
+
+As in the flax module with ``dtype=bfloat16``, parameters and batch-norm
+statistics stay float32 and the forward computes in ``dtype``, with the
+reference's roundings kept where they differ from PyTorch's defaults:
+
+- Convolutions are flax's ``padding="SAME"``: at stride 2 on an even
+  input a 3x3 kernel pads (0, 1) (low, high), not the (1, 1) of
+  ``padding=1``, which gives the same shapes and other values.
+- Batch norm is flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``, not
+  ``nn.BatchNorm2d``: statistics in float32 with the fast variance
+  ``max(0, E[x^2] - E[x]^2)``, the normalization in float32 in flax's
+  order ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` and one cast
+  to ``dtype``; the running variance takes the biased batch variance.
+  In training the statistics are those of the GLOBAL batch, as the JAX
+  step computes them under its sharded jit: on a mesh of N ranks each
+  batch-norm layer all-reduces its stacked per-channel ``[mean,
+  mean(x^2)]`` in the forward and their cotangents in the backward
+  (:class:`GlobalMean`, counted by ``Mesh.all_reduces``); one rank
+  issues none.  In eval the running statistics are read, with no
+  collective.
+- The pool is ``jnp.mean`` over H and W: a float32 sum, then the cast to
+  ``dtype``; the head is a ``dtype`` dense layer whose logits return as
+  float32.
+
+Layout: the public input is NHWC ``[B, 32, 32, 3]``; the forward permutes
+it to an NCHW view with channels-last strides, so cuDNN runs NHWC
+convolutions on the card.  Weights are OIHW (``convert.py`` moves flax's
+HWIO kernels), and every name follows the flax tree
+(``stage1_block0.bn_proj.weight`` is ``stage1_block0/bn_proj/scale``,
+its running mean the buffer ``stage1_block0.bn_proj.mean``).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from distributedtensorflowexample_tpu_torch.models.initializers import (
+    lecun_normal_)
+from distributedtensorflowexample_tpu_torch.parallel.mesh import (
+    ONE_RANK, Mesh)
+
+BN_MOMENTUM = 0.9
+BN_EPSILON = 1e-5
+
+
+class GlobalMean(torch.autograd.Function):
+    """Per-rank means ``[k, C]`` -> the means over the global batch: the
+    sum over the ranks divided by N in the forward, and the same of the
+    cotangent in the backward (every rank's loss reads the global means,
+    so each local mean's gradient is the summed cotangent over N).  The
+    ranks hold equal row counts, as the sharded global batch does."""
+
+    @staticmethod
+    def forward(ctx, local: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+        ctx.mesh = mesh
+        return mesh.all_reduce(local.clone()).div_(mesh.size)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        mesh = ctx.mesh
+        return mesh.all_reduce(grad.contiguous().clone()).div_(mesh.size), \
+            None
+
+
+def same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
+    """XLA's ``SAME`` padding (low, high) of one spatial axis: the output
+    has ``ceil(size / stride)`` positions and the extra row goes high."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv_same(x: torch.Tensor, weight: torch.Tensor,
+              stride: int) -> torch.Tensor:
+    """flax ``nn.Conv(padding="SAME", use_bias=False)`` on an NCHW
+    ``x``, square kernels and strides."""
+    k = weight.shape[-1]
+    lo_h, hi_h = same_pads(x.shape[2], k, stride)
+    lo_w, hi_w = same_pads(x.shape[3], k, stride)
+    if lo_h == hi_h and lo_w == hi_w:
+        return F.conv2d(x, weight, stride=stride, padding=(lo_h, lo_w))
+    return F.conv2d(F.pad(x, (lo_w, hi_w, lo_h, hi_h)), weight,
+                    stride=stride)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` over the channel axis of an NCHW input;
+    ``weight`` is flax's ``scale``, and the buffers ``mean`` and ``var``
+    are its ``batch_stats``."""
+
+    def __init__(self, features: int, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    @torch.no_grad()
+    def reset_parameters(self) -> None:
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+        self.mean.zero_()
+        self.var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor, train: bool,
+                mesh: Mesh = ONE_RANK) -> torch.Tensor:
+        xf = x.float()
+        if train:
+            stats = torch.stack([xf.mean(dim=(0, 2, 3)),
+                                 (xf * xf).mean(dim=(0, 2, 3))])
+            if mesh.size > 1:
+                stats = GlobalMean.apply(stats, mesh)
+            mean, mean2 = stats.unbind(0)
+            var = (mean2 - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                self.mean.copy_(BN_MOMENTUM * self.mean
+                                + (1 - BN_MOMENTUM) * mean)
+                self.var.copy_(BN_MOMENTUM * self.var
+                               + (1 - BN_MOMENTUM) * var)
+        else:
+            mean, var = self.mean, self.var
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(var + BN_EPSILON) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y.to(self.dtype)
+
+
+class BasicBlock(nn.Module):
+    """conv-BN-relu, conv-BN, plus the input (through a strided 1x1
+    ``proj`` and ``bn_proj`` when the shape changes), then relu."""
+
+    def __init__(self, in_filters: int, filters: int, stride: int,
+                 dtype: torch.dtype):
+        super().__init__()
+        self.stride = stride
+        self.dtype = dtype
+        self.conv1 = nn.Conv2d(in_filters, filters, 3, bias=False)
+        self.bn1 = BatchNorm(filters, dtype)
+        self.conv2 = nn.Conv2d(filters, filters, 3, bias=False)
+        self.bn2 = BatchNorm(filters, dtype)
+        self.has_proj = stride != 1 or in_filters != filters
+        if self.has_proj:
+            self.proj = nn.Conv2d(in_filters, filters, 1, bias=False)
+            self.bn_proj = BatchNorm(filters, dtype)
+
+    def forward(self, x: torch.Tensor, train: bool,
+                mesh: Mesh) -> torch.Tensor:
+        dt = self.dtype
+        y = conv_same(x, self.conv1.weight.to(dt), self.stride)
+        y = F.relu(self.bn1(y, train, mesh))
+        y = conv_same(y, self.conv2.weight.to(dt), 1)
+        y = self.bn2(y, train, mesh)
+        residual = x
+        if self.has_proj:
+            residual = conv_same(x, self.proj.weight.to(dt), self.stride)
+            residual = self.bn_proj(residual, train, mesh)
+        return F.relu(y + residual)
+
+
+class ResNetCIFAR(nn.Module):
+    """He-style CIFAR ResNet of depth 6n+2, n = ``blocks_per_stage``.
+    ``mesh`` is the data-parallel group whose global batch the
+    batch-norm statistics span (one rank by default)."""
+
+    def __init__(self, blocks_per_stage: int = 3,
+                 widths: tuple[int, ...] = (16, 32, 64),
+                 num_classes: int = 10, dtype: torch.dtype = torch.bfloat16,
+                 mesh: Mesh = ONE_RANK):
+        super().__init__()
+        self.dtype = dtype
+        self.mesh = mesh
+        self.conv_init = nn.Conv2d(3, widths[0], 3, bias=False)
+        self.bn_init = BatchNorm(widths[0], dtype)
+        self.block_names = []
+        filters = widths[0]
+        for stage, width in enumerate(widths):
+            for block in range(blocks_per_stage):
+                stride = 2 if stage > 0 and block == 0 else 1
+                name = f"stage{stage}_block{block}"
+                self.add_module(name, BasicBlock(filters, width, stride,
+                                                 dtype))
+                self.block_names.append(name)
+                filters = width
+        self.logits = nn.Linear(filters, num_classes)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        """flax's defaults: lecun-normal conv and dense kernels, a zero
+        dense bias, batch-norm scale 1 and bias 0, running mean 0 and
+        variance 1."""
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                lecun_normal_(m.weight, m.weight[0].numel(), generator)
+            elif isinstance(m, BatchNorm):
+                m.reset_parameters()
+        lecun_normal_(self.logits.weight, self.logits.in_features, generator)
+        self.logits.bias.zero_()
+        return self
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        dt, mesh = self.dtype, self.mesh
+        x = x.to(dt).permute(0, 3, 1, 2)            # NHWC -> NCHW view
+        x = conv_same(x, self.conv_init.weight.to(dt), 1)
+        x = F.relu(self.bn_init(x, train, mesh))
+        for name in self.block_names:
+            x = getattr(self, name)(x, train, mesh)
+        x = x.float().mean(dim=(2, 3)).to(dt)
+        x = F.linear(x, self.logits.weight.to(dt), self.logits.bias.to(dt))
+        return x.float()
+
+
+def ResNet20(num_classes: int = 10, dtype: torch.dtype = torch.bfloat16,
+             mesh: Mesh = ONE_RANK) -> ResNetCIFAR:
+    return ResNetCIFAR(blocks_per_stage=3, num_classes=num_classes,
+                       dtype=dtype, mesh=mesh)

@@ -16,12 +16,15 @@ collective, once per host read (:meth:`Mesh.sum_metrics`), uncounted.
 A run with no process group is one rank (:data:`ONE_RANK`, or an
 ungrouped ``Mesh(device)``), whose collectives are the identity.
 
-Placement: rank ``r`` runs on ``cuda:<r % device_count>``.  Under NCCL
-that must be a card of its own: a group with more ranks than visible
-cards is refused by name before NCCL fails on it.  A ``gloo`` group may
-put several ranks on one card (it reduces CUDA tensors through host
-memory), which is how two ranks run on a one-card machine; ``num_chips``
-then counts that card once.
+Placement: each rank runs on the card of its index among the ranks on
+ITS OWN host (``host_names`` exchanges the hosts' names before the first
+NCCL collective, which needs the card already set), so two one-card
+hosts each put their rank on ``cuda:0``.  Under NCCL that must be a card
+of its own: a host with more NCCL ranks than visible cards is refused by
+name before NCCL fails on it.  A ``gloo`` group may put several ranks on
+one card (it reduces CUDA tensors through host memory), which is how two
+ranks run on a one-card machine; ``num_chips`` then counts that card
+once.
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ import zlib
 import torch
 import torch.distributed as dist
 
-from distributedtensorflowexample_tpu_torch.device import resolve_device
+from distributedtensorflowexample_tpu_torch.device import (
+    require_cuda, resolve_device)
 from distributedtensorflowexample_tpu_torch.refusal import ModeRefusal
 
 
@@ -103,29 +107,53 @@ ONE_RANK = Mesh(torch.device("cpu"))
 def local_world_size(num_devices: int, device: str) -> int:
     """The ranks ``--num_devices`` starts on this host: on ``cuda`` one
     per card, 0 = every visible card, and asking for more cards than are
-    visible raises the JAX package's ``ValueError``; on ``cpu`` 0 or 1 is
-    one rank and ``N`` is N gloo ranks."""
+    visible raises the JAX package's ``ValueError`` (and a host with no
+    card at all ``DeviceUnavailable``); on ``cpu`` 0 or 1 is one rank and
+    ``N`` is N gloo ranks."""
     if device != "cuda":
         return max(1, num_devices)
     visible = torch.cuda.device_count()
+    if not visible:
+        require_cuda()
     if num_devices > visible:
         raise ValueError(
             f"requested {num_devices} devices, only {visible} visible")
     return num_devices if num_devices > 0 else max(1, visible)
 
 
-def card_of(rank: int, world: int, backend: str) -> int:
-    """The card index of ``rank`` in a ``world``-rank group.  Under NCCL a
-    group larger than the visible cards would put rank ``r`` and rank
-    ``r + visible`` on one card, which NCCL cannot run: refused by name."""
+def host_names(backend: str) -> list[str]:
+    """Every rank's host name, in rank order.  Over the default group when
+    it is ``gloo``; under NCCL, whose collectives need each rank's card
+    set first, over a ``gloo`` side group made for the exchange and
+    destroyed after it."""
+    names: list = [None] * dist.get_world_size()
+    if backend == "gloo":
+        dist.all_gather_object(names, socket.gethostname())
+        return names
+    side = dist.new_group(backend="gloo")
+    try:
+        dist.all_gather_object(names, socket.gethostname(), group=side)
+    finally:
+        dist.destroy_process_group(side)
+    return names
+
+
+def card_of(rank: int, hosts: list[str], backend: str) -> int:
+    """The card index of ``rank``, given every rank's host name: its
+    index among the ranks on its host, modulo the visible cards.  Under
+    NCCL a host with more ranks than visible cards would put two of them
+    on one card, which NCCL cannot run: refused by name."""
     visible = torch.cuda.device_count()
-    if backend == "nccl" and world > visible:
+    host = hosts[rank]
+    local = hosts[:rank].count(host)
+    count = hosts.count(host)
+    if backend == "nccl" and count > visible:
         raise ModeRefusal(
-            f"an NCCL group of {world} ranks on {visible} visible card(s) "
-            f"would place ranks 0 and {visible} on one card (cuda:0), and "
-            f"NCCL runs one rank per card; start at most {visible} NCCL "
-            f"ranks, or join several ranks on one card with a gloo group")
-    return rank % max(1, visible)
+            f"{count} NCCL ranks on host {host!r} with {visible} visible "
+            f"card(s) would place two ranks on one card, and NCCL runs one "
+            f"rank per card; start at most {visible} NCCL ranks per host, "
+            f"or join several ranks on one card with a gloo group")
+    return local % max(1, visible)
 
 
 def make_mesh(device: str) -> Mesh:
@@ -138,7 +166,8 @@ def make_mesh(device: str) -> Mesh:
     rank, world = dist.get_rank(), dist.get_world_size()
     local = 0
     if device == "cuda":
-        local = card_of(rank, world, dist.get_backend())
+        backend = dist.get_backend()
+        local = card_of(rank, host_names(backend), backend)
     mesh = Mesh(resolve_device(device, local), rank=rank, size=world,
                 grouped=True)
     if device == "cuda":

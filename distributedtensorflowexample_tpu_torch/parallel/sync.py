@@ -14,6 +14,13 @@ gradient is the gradient of the mean over the global batch.  With
 iff ``(i - s) mod N < R``, and the loss is ``sum(rows * sel) / (R *
 per)`` (the JAX package's rotating subset).
 
+A model with batch norm (``models/resnet.py``) normalizes over the
+global batch: each of its batch-norm layers adds one all-reduce of its
+statistics in the forward and one of their cotangents in the backward,
+so a ResNet-20 step issues 21 + 21 + 1 = 43 all-reduces per rank at
+N > 1.  Its running statistics are the model's buffers, updated in the
+forward; the eval reads them.
+
 The step's metrics are this rank's shares of the global ones (summing
 over the ranks gives the global loss and accuracy); they stay on the
 device, and the loop sums them once per host read (``Mesh.sum_metrics``).
@@ -21,7 +28,9 @@ device, and the loop sums them once per host read (``Mesh.sum_metrics``).
 With the three kernel flags (``--dequant_impl pallas --pallas_ce
 --fused_optimizer``) one step launches each port kernel once per rank:
 the dequant gather, the cross-entropy forward, its backward, and the SGD
-apply.
+apply.  The CIFAR trainers take weight decay, which the SGD kernel does
+not implement (refused by name, as in the JAX package): there one step
+launches the dequant gather and the cross-entropy pair.
 """
 
 from __future__ import annotations
@@ -33,6 +42,8 @@ import torch
 
 from distributedtensorflowexample_tpu_torch.data.device_dataset import (
     DEQUANT_IMPLS, DeviceDataset, apply_dequant_affine, resolve_dequant_impl)
+from distributedtensorflowexample_tpu_torch.data.augment_device import (
+    crop_flip, crop_flip_dequant, step_draws)
 from distributedtensorflowexample_tpu_torch.data.dequant import (
     make_dequant_affine, try_quantize)
 from distributedtensorflowexample_tpu_torch.ops.kernels import (
@@ -88,7 +99,8 @@ def _resolve_num_slots(unroll_steps: int, steps_per_epoch: int,
 
 def make_device_gather(batch_size: int, steps_per_epoch: int, *,
                        num_slots: int, dequant_impl: str = "auto",
-                       token_data: bool = False,
+                       token_data: bool = False, augment: str = "none",
+                       seed: int = 0, draws_fn: Callable | None = None,
                        mesh: Mesh = ONE_RANK) -> Callable:
     """(step, data) -> batch: the on-device minibatch gather from a
     resident split (``DeviceDataset``), with the JAX package's slot and
@@ -97,33 +109,67 @@ def make_device_gather(batch_size: int, steps_per_epoch: int, *,
     ``dequant_impl="pallas"`` gathers and
     dequantizes in one kernel launch; otherwise the rows are gathered and
     dequantized by the plain affine.  ``token_data=True`` (a token split)
-    passes the gathered ids through: they are not pixels."""
+    passes the gathered ids through: they are not pixels.
+
+    ``augment="cifar"`` adds the random crop and flip
+    (``data/augment_device.py``) in the JAX package's order: after the
+    dequant kernel on its float32 output under ``dequant_impl="pallas"``;
+    otherwise on the gathered uint8 rows, fused with their dequant.  The
+    draws are the global batch's at each step (``step_draws`` from
+    ``seed``), this rank taking its rows; ``draws_fn(step) -> (ys, xs,
+    flips)`` over the global batch replaces them (an injected tape)."""
     if dequant_impl not in DEQUANT_IMPLS:
         raise ValueError(f"unknown dequant_impl {dequant_impl!r} "
                          f"(one of {DEQUANT_IMPLS})")
+    if augment not in ("none", "cifar"):
+        raise ValueError(f"unknown augment {augment!r}")
+    if augment == "cifar" and token_data:
+        raise ValueError("augment='cifar' crops images; a token split "
+                         "has none")
     rank, n = mesh.rank, mesh.size
     if batch_size % n:
         raise ValueError(f"global batch {batch_size} not divisible by {n} "
                          f"replicas")
     per = batch_size // n
+    generators: dict = {}
+
+    def draws(step: int, device: torch.device) -> tuple:
+        if draws_fn is not None:
+            full = [torch.as_tensor(np.asarray(a)) for a in draws_fn(step)]
+        else:
+            gen = generators.get(device)
+            if gen is None:
+                gen = generators[device] = torch.Generator(device=device)
+            full = step_draws(batch_size, seed, step, gen)
+        return tuple(a[rank * per:(rank + 1) * per].to(device)
+                     for a in full)
 
     def gather(step: int, data: dict) -> dict:
         slot = (step // steps_per_epoch) % num_slots
         pos = (step % steps_per_epoch) * batch_size + rank * per
         idx = data["perm"][slot, pos:pos + per]
+        images = data["images"]
+        cut = draws(step, images.device) if augment == "cifar" else None
         if token_data:
-            img = data["images"].index_select(0, idx)
+            img = images.index_select(0, idx)
         elif dequant_impl == "pallas" and "dq_scale" in data:
-            img = fused_gather_dequant(data["images"], idx,
-                                       data["dq_scale"], data["dq_bias"])
+            img = fused_gather_dequant(images, idx, data["dq_scale"],
+                                       data["dq_bias"])
+            if cut is not None:
+                img = crop_flip(img, *cut)
         else:
-            img = data["images"].index_select(0, idx)
+            img = images.index_select(0, idx)
+            if img.dtype == torch.uint8 and "dq_scale" not in data:
+                raise TypeError("gathered batch is uint8 but the data "
+                                "carries no dequant constants")
             if img.dtype == torch.uint8:
-                if "dq_scale" not in data:
-                    raise TypeError("gathered batch is uint8 but the data "
-                                    "carries no dequant constants")
-                img = apply_dequant_affine(img, data["dq_scale"],
-                                           data["dq_bias"])
+                img = (crop_flip_dequant(img, *cut, data["dq_scale"],
+                                         data["dq_bias"])
+                       if cut is not None else
+                       apply_dequant_affine(img, data["dq_scale"],
+                                            data["dq_bias"]))
+            elif cut is not None:
+                img = crop_flip(img, *cut)
         return {"image": img, "label": data["labels"].index_select(0, idx)}
 
     return gather
@@ -134,7 +180,8 @@ def _build_step_fn(label_smoothing: float = 0.0, ce_impl: str = "xla",
                    mesh: Mesh = ONE_RANK) -> Callable:
     """The (state, batch) -> metrics step body on this rank's rows:
     forward, this rank's share of the global loss, backward into the flat
-    gradient buffer, one all-reduce of that buffer, one optimizer apply."""
+    gradient buffer, one all-reduce of that buffer (after the batch-norm
+    layers' own, if any), one optimizer apply."""
     rank, n = mesh.rank, mesh.size
     r = int(replicas_to_aggregate)
     if not 0 <= r <= n:
@@ -174,6 +221,8 @@ def make_indexed_train_step(batch_size: int, steps_per_epoch: int,
                             num_slots: int | None = None,
                             dequant_impl: str = "auto",
                             token_data: bool = False,
+                            augment: str = "none", seed: int = 0,
+                            draws_fn: Callable | None = None,
                             mesh: Mesh = ONE_RANK) -> Callable:
     """Step over a device-resident dataset: ``(state, data) -> (state,
     metrics)``.  ``batch_size`` is the global batch; on a ``mesh`` each
@@ -181,7 +230,8 @@ def make_indexed_train_step(batch_size: int, steps_per_epoch: int,
     updates per call (a Python loop; each sub-step picks its epoch's perm
     slot, so a window may cross epochs) and returns this rank's metric
     shares averaged over the K updates, still on the device.
-    ``token_data=True``: the split holds token ids
+    ``token_data=True``: the split holds token ids; ``augment``,
+    ``seed`` and ``draws_fn``: the crop and flip and their draws
     (:func:`make_device_gather`)."""
     num_slots = _resolve_num_slots(unroll_steps, steps_per_epoch, num_slots)
     inner = _build_step_fn(label_smoothing, ce_impl, replicas_to_aggregate,
@@ -189,7 +239,8 @@ def make_indexed_train_step(batch_size: int, steps_per_epoch: int,
     gather = make_device_gather(batch_size, steps_per_epoch,
                                 num_slots=num_slots,
                                 dequant_impl=dequant_impl,
-                                token_data=token_data, mesh=mesh)
+                                token_data=token_data, augment=augment,
+                                seed=seed, draws_fn=draws_fn, mesh=mesh)
 
     def step(state, data):
         tape = [inner(state, gather(state.step, data))

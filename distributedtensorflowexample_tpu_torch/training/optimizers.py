@@ -15,6 +15,13 @@ gradient buffer, and one apply updates every parameter: the fused kernel
 without the flag, the same recurrence in plain PyTorch.  Either way the
 math is ``optax.sgd``'s: ``m = mu * m + g``, ``p = p - lr * m`` (plain
 ``p = p - lr * g`` when momentum is 0).
+
+``--weight_decay wd`` is ``optax.chain(add_decayed_weights(wd), sgd)``:
+``g = g + wd * p`` in float32 over the whole flat buffer (batch-norm
+scales and biases included), rounded once as XLA's fused multiply-add
+does, before the recurrence above.  The fused kernel implements momentum
+SGD only, so ``--fused_optimizer`` with weight decay is refused, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -108,12 +115,13 @@ class MomentumSGD:
     ``schedule(count)`` and advances ``count``."""
 
     def __init__(self, model: nn.Module, schedule: Callable[[int], float],
-                 momentum: float, fused: bool):
+                 momentum: float, fused: bool, weight_decay: float = 0.0):
         named = [(n, p) for n, p in model.named_parameters()]
         device = named[0][1].device
         total = sum(p.numel() for _, p in named)
         self.schedule = schedule
         self.momentum = float(momentum)
+        self.weight_decay = float(weight_decay)
         self.fused = fused
         self.count = 0
         self.params_flat = torch.empty(total, dtype=torch.float32,
@@ -145,6 +153,12 @@ class MomentumSGD:
     @torch.no_grad()
     def step(self) -> None:
         lr = float(self.schedule(self.count))
+        if self.weight_decay:
+            # add_decayed_weights: one rounding of g + wd * p (the float64
+            # product of two float32 values is exact).
+            g = self.grads_flat
+            g.copy_(g.double().add_(self.params_flat.double(),
+                                    alpha=float(_f32(self.weight_decay))))
         if self.fused:
             fused_sgd_apply(self.params_flat, self.momentum_flat,
                             self.grads_flat, lr, self.momentum)
@@ -173,12 +187,9 @@ def build_optimizer(cfg: RunConfig, model: nn.Module) -> MomentumSGD:
                 "--shard_update shards the update across ranks; the fused "
                 "apply updates one flat buffer per rank — use one or the "
                 "other")
-    if cfg.weight_decay > 0.0:
-        raise ModeRefusal(
-            "--weight_decay (optax.add_decayed_weights) is not ported to "
-            "the PyTorch package yet")
     if cfg.shard_update:
         raise ModeRefusal(
             "--shard_update (ZeRO-1 update sharding) is not ported to the "
             "PyTorch package yet; it comes with the bucketed modes")
-    return MomentumSGD(model, sched, cfg.momentum, fused=cfg.fused_optimizer)
+    return MomentumSGD(model, sched, cfg.momentum, fused=cfg.fused_optimizer,
+                       weight_decay=max(cfg.weight_decay, 0.0))

@@ -8,7 +8,10 @@ advances ``step``, a host int, so reading it never waits on the device.
 On a mesh of N ranks every rank holds a replica: each initializes from
 the same seed and rank 0's flat parameters are broadcast, so the replicas
 start bitwise equal and stay so (every rank applies the same all-reduced
-gradient).  Dropout is drawn per rank, from a generator seeded from
+gradient).  A model's buffers (batch norm's running statistics, outside
+the flat parameter buffer) are broadcast from rank 0 with them, and stay
+equal because every rank updates them from the same global-batch
+statistics (``models/resnet.py``).  Dropout is drawn per rank, from a generator seeded from
 ``(seed, rank)``: each rank masks its own slice of the global batch, as
 the JAX package draws one mask over the whole batch.
 """
@@ -41,7 +44,8 @@ class TrainState:
         init distributions), move it to ``device``, then hand it to
         ``build_opt(model)``, which binds its parameters into the
         optimizer's flat buffers; rank 0 of ``mesh`` (``parallel/mesh.py``)
-        then broadcasts its flat parameters.  Dropout draws from
+        then broadcasts its flat parameters and the model's buffers.
+        Dropout draws from
         a second generator on ``device``, seeded from ``seed`` and the
         rank."""
         init = torch.Generator().manual_seed(int(seed))
@@ -49,6 +53,8 @@ class TrainState:
         model.to(device)
         optimizer = build_opt(model)
         mesh.broadcast(optimizer.params_flat)
+        for buf in model.buffers():
+            mesh.broadcast(buf)
         gen = torch.Generator(device=device)
         gen.manual_seed(_dropout_seed(seed, mesh.rank))
         return cls(step=0, model=model, optimizer=optimizer, generator=gen)

@@ -121,17 +121,20 @@ def floor_device_us() -> float:
     return device_us(lambda i: x.zero_())
 
 
-def dequant_inputs(batch: int, calls: int, gen: torch.Generator):
-    """The main path's resident uint8 split (60,000 MNIST-shaped samples),
-    ``calls`` rows of ``batch`` fresh indices each, and the ``unit``
-    dequant constants."""
+def dequant_inputs(batch: int, calls: int, gen: torch.Generator,
+                   shape: tuple = (28, 28, 1), rows: int = 60000,
+                   spec: str = "unit"):
+    """A resident uint8 split of ``rows`` samples of ``shape`` (config 3's
+    60,000 MNIST-shaped ones by default; config 4's is 50,000 of
+    [32, 32, 3] under the ``cifar`` spec), ``calls`` rows of ``batch``
+    fresh indices each, and the split's dequant constants."""
     from distributedtensorflowexample_tpu_torch.data.dequant import (
         make_dequant_affine)
-    images = torch.randint(0, 256, (60000, 28, 28, 1), dtype=torch.uint8,
+    images = torch.randint(0, 256, (rows, *shape), dtype=torch.uint8,
                            device="cuda", generator=gen)
-    idx = torch.randint(0, 60000, (calls, batch), dtype=torch.int32,
+    idx = torch.randint(0, rows, (calls, batch), dtype=torch.int32,
                         device="cuda", generator=gen)
-    s, b = (torch.from_numpy(a).cuda() for a in make_dequant_affine("unit"))
+    s, b = (torch.from_numpy(a).cuda() for a in make_dequant_affine(spec))
     return images, idx, s, b
 
 
@@ -144,9 +147,10 @@ def ce_inputs(batch: int, classes: int, gen: torch.Generator):
     return logits, labels, g
 
 
-#: Cross-entropy shapes [B, C]: the main path's B=64, the bench's B=256,
-#: and the LM head's 16 x 128 rows over its 250-token vocabulary.
-CE_SHAPES = ((64, 10), (256, 10), (2048, 250))
+#: Cross-entropy shapes [B, C]: the main path's B=64, config 4's B=128,
+#: the bench's B=256, and the LM head's 16 x 128 rows over its 250-token
+#: vocabulary.
+CE_SHAPES = ((64, 10), (128, 10), (256, 10), (2048, 250))
 
 
 def ce_library_backward(logits, labels64, g):

@@ -1,7 +1,7 @@
 """Where a training step's time goes on the card.
 
     python -m distributedtensorflowexample_tpu_torch.utils.profiling \
-        [--model mnist_cnn | lm_base] \
+        [--model mnist_cnn | lm_base | resnet20] \
         [--batch 64 256] [--steps 100] [--warmup 50] [--dequant_impl ...]
 
 Builds the train step with ``Engine.build`` from the trainer's own config
@@ -9,7 +9,10 @@ Builds the train step with ``Engine.build`` from the trainer's own config
 config 3's, synthetic MNIST resident on the card, at B=64 and 256 with
 all three kernel flags; for ``lm_base`` ``trainer_lm``'s, the token split
 resident on the card, at B=16 with ``--pallas_ce`` and
-``--fused_optimizer``.  It warms the step up, then for each batch size
+``--fused_optimizer``; for ``resnet20`` config 4's
+(``trainer_mirrored_cifar``: weight decay, the crop and flip), synthetic
+CIFAR-10 resident on the card, at B=128 with ``--dequant_impl pallas``
+and ``--pallas_ce`` (weight decay rules out the SGD kernel).  It warms the step up, then for each batch size
 prints one JSON line with:
 
 - ``wall_ms_per_step``: host clock around ``--steps`` steps ending in
@@ -43,14 +46,14 @@ from distributedtensorflowexample_tpu_torch.device import resolve_device
 from distributedtensorflowexample_tpu_torch.engine import Engine, RunSpec
 from distributedtensorflowexample_tpu_torch.parallel.mesh import Mesh
 from distributedtensorflowexample_tpu_torch.trainers import (
-    trainer_lm, trainer_sync_mnist)
+    trainer_lm, trainer_mirrored_cifar, trainer_sync_mnist)
 
 #: Substrings of the port kernels' device names.
 PORT_KERNELS = {"dequant": "dequant_gather_kernel", "ce_fwd": "ce_fwd_kernel",
                 "ce_bwd": "ce_bwd_kernel", "sgd": "sgd_momentum_kernel"}
 KERNEL_FLAGS = ["--dequant_impl", "pallas", "--pallas_ce", "true",
                 "--fused_optimizer", "true"]
-MODELS = ("mnist_cnn", "lm_base")
+MODELS = ("mnist_cnn", "lm_base", "resnet20")
 
 
 def workload(model: str, argv: list) -> tuple:
@@ -65,6 +68,11 @@ def workload(model: str, argv: list) -> tuple:
             ["--size", model, "--pallas_ce", "true", "--fused_optimizer",
              "true"] + argv)
         return RunSpec(size, "lm", cfg), [16]
+    if model == "resnet20":
+        cfg = trainer_mirrored_cifar.build_config(
+            ["--dequant_impl", "pallas", "--pallas_ce", "true",
+             "--dataset", "synthetic"] + argv)
+        return RunSpec(model, "cifar10", cfg, augment=True), [128]
     raise ValueError(f"unknown model {model!r} (one of {MODELS})")
 
 

@@ -41,7 +41,7 @@ def _affine(spec, channels, device):
     return s.to(device), b.to(device)
 
 
-@pytest.mark.parametrize("batch", [1, 64, 1000])
+@pytest.mark.parametrize("batch", [1, 64, 128, 1000])
 @pytest.mark.parametrize("spec,shape,offset", [
     ("unit", (28, 28, 1), 0),       # MNIST rows: the 16-byte path
     ("cifar", (32, 32, 3), 0),
@@ -152,6 +152,31 @@ def test_main_path_launches_every_kernel(cuda, tmp_path, monkeypatch):
         "ce_bwd": 40, "sgd": 40}
     losses = [l for _, l in summary["loss_tape"]]
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+def test_config4_launches_dequant_and_ce_not_sgd(cuda, tmp_path,
+                                                 monkeypatch):
+    """A short config-4 run on the card: the dequant kernel once per step
+    and per eval batch, the CE pair once per step, SGD never (weight
+    decay rules it out), and a finite, falling loss."""
+    from distributedtensorflowexample_tpu_torch.data import cifar10
+    from distributedtensorflowexample_tpu_torch.trainers import (
+        trainer_mirrored_cifar)
+    monkeypatch.setattr(cifar10, "_SYNTH_SIZES", {"train": 1024,
+                                                  "test": 512})
+    kernels.reset_launch_counts()
+    summary = trainer_mirrored_cifar.main([
+        "--dataset", "synthetic", "--train_steps", "40", "--batch_size",
+        "32", "--log_every", "20", "--warmup_steps", "5",
+        "--dequant_impl", "pallas", "--pallas_ce", "true",
+        "--log_dir", str(tmp_path)])
+    assert summary["device"].startswith("cuda")
+    assert kernels.launch_counts() == {
+        "dequant": 40 + summary["eval_batches"], "ce_fwd": 40,
+        "ce_bwd": 40, "sgd": 0}
+    losses = [l for _, l in summary["loss_tape"]]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+    assert summary["all_reduces"] == 0 and summary["num_replicas"] == 1
 
 
 @pytest.mark.parametrize("size", ["lm_tiny", "lm_small"])

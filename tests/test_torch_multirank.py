@@ -667,11 +667,11 @@ def test_nccl_placement_refusals(monkeypatch):
     assert local_world_size(1, "cuda") == 1
     assert local_world_size(0, "cpu") == 1 and \
         local_world_size(4, "cpu") == 4
-    assert [card_of(r, 2, "nccl") for r in range(2)] == [0, 1]
+    assert [card_of(r, ["h", "h"], "nccl") for r in range(2)] == [0, 1]
     with pytest.raises(ModeRefusal, match="one card") as err:
-        card_of(2, 3, "nccl")
+        card_of(2, ["h"] * 3, "nccl")
     assert "gloo" in str(err.value)
-    assert card_of(2, 3, "gloo") == 0          # gloo may share a card
+    assert card_of(2, ["h"] * 3, "gloo") == 0  # gloo may share a card
     # The trainer refuses before it starts a rank.
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     from distributedtensorflowexample_tpu_torch.trainers import (

@@ -258,7 +258,8 @@ def test_cli_converges_on_cpu(small_torch_mnist, tmp_path, capsys):
     ["--bucket_grads", "auto", "--num_devices", "2"],
     ["--dequant_impl", "onehot"], ["--dequant_impl", "lut"],
     ["--fused_optimizer", "true", "--momentum", "0"],
-    ["--weight_decay", "0.1"],
+    # weight decay is ported; the fused apply still has no decay term
+    ["--fused_optimizer", "true", "--weight_decay", "0.1"],
     # 2 processes x 2 local devices: refused before any group is joined
     ["--coordinator_address", "localhost:1", "--num_processes", "2",
      "--process_id", "0", "--num_devices", "4"],
