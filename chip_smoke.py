@@ -4,10 +4,12 @@ version, that config 3 (sync-SGD MNIST CNN) trains through all four
 kernels, that the transformer LM (lm_base, 57,289,728 parameters)
 trains through the cross-entropy and SGD kernels, that both train as
 synchronous data parallelism over several ranks: two gloo ranks on the
-one card, and an NCCL group over the visible cards, and that configs 1,
+one card, and an NCCL group over the visible cards, that configs 1,
 4 and 5 (MNIST softmax; CIFAR-10 ResNet-20 with weight decay, the
 on-device crop and flip and global-batch batch norm) train through
-their trainers.
+their trainers, that a run resumes from its checkpoint and stops on
+SIGTERM with a save, and that config 2 (async local SGD) trains on one
+worker and on two.
 
     python3 chip_smoke.py
 
@@ -100,9 +102,34 @@ H. config 5: ``trainer_multiworker_cifar.main`` as one NCCL process,
    inside a one-rank NCCL group, 50 steps: a host-name exchange places
    the rank, one gradient all-reduce a step and none for batch norm (one
    rank), phase E's launches per step;
+K. config 2's main path: ``trainer_ps_mnist.main`` on ``cuda`` at full
+   width (``MnistCNN``, 3,274,634 parameters) with ``--dequant_impl
+   pallas --pallas_ce true``, 600 steps at B=64: dequant once per step
+   and per eval batch, ``ce_fwd`` = ``ce_bwd`` = 600, ``sgd`` never (the
+   fused apply is refused in async mode); a finite, falling loss and a
+   final accuracy of at least 0.9.  In the two gloo ranks of phases A-F
+   last: 296 steps of two workers at ``--async_period 8`` (a multiple of
+   8, so the two workers end bitwise equal), 37 parameter all-reduces
+   and no gradient all-reduce per rank, the same launches per step; then
+   one ``async_path`` JSON line;
+I. checkpoints on the card: config 3 with all four kernels for 200 steps
+   twice, and for 100 steps then resumed to 200 in the same
+   ``--log_dir`` (``--checkpoint_every 100``, cuDNN's deterministic
+   algorithms): the parameters of the final checkpoints compared (the
+   resumed run bitwise equal to the uninterrupted ones if those two are
+   bitwise equal, else within twice their gap), the launches of every
+   run, the save (blocking and background write) and restore wall
+   times; one ``resume_path`` JSON line;
+J. the SIGTERM drill on the card: ``trainer_sync_mnist`` in a process of
+   its own on ``cuda`` with the four kernels, SIGTERM after its first log
+   line: exit code 143 and ``SIGTERM at step N: checkpoint saved``, then
+   a restart in the same ``--log_dir`` resumes from N and ends with code
+   0; then the same for two gloo ranks on the one card started through
+   ``parallel/launch.spawn`` (the launcher ``--num_devices N`` uses),
+   which forwards the signal to both ranks; one ``sigterm_drill`` line;
 7. the ``kernels`` JSON line (each kernel's launches summed over every
-   path and rank, and per path: per rank for the multi-rank paths), then
-   the ``ok`` line last.
+   path and rank, and per path: per rank for the multi-rank paths, per
+   run for phase I), then the ``ok`` line last.
 
 Times come from ``utils/kernel_timing.py``, by CUDA events after a
 warm-up, each launch on fresh indices (dequant) or buffers (SGD) where
@@ -122,8 +149,13 @@ import contextlib
 import importlib
 import io
 import json
+import os
+import re
+import shutil
+import signal
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -163,6 +195,10 @@ CIFAR_BATCH = 128
 CIFAR_MIN_ACCURACY = 0.2
 MR_CIFAR_STEPS = 50
 BN_LAYERS = 21              # ResNet-20's batch-norm layers
+ASYNC_STEPS = 600           # phase K, one worker
+MR_ASYNC_STEPS = 296        # phase K, two workers: a multiple of the period
+ASYNC_PERIOD = 8
+RESUME_STEPS = 200          # phase I: 100 steps, then resumed to 200
 CNN_PARAMS = 3_274_634
 LM_PARAMS = 57_289_728
 SOURCES = {
@@ -469,7 +505,9 @@ def cifar_argv(steps: int, log_dir: str, log_every: int = 100) -> list:
             "--log_dir", str(ROOT / "build" / log_dir)]
 
 
-def cifar_expect(steps: int, evals: int) -> dict:
+def dequant_ce_expect(steps: int, evals: int) -> dict:
+    """The launches of a path with the dequant and CE kernels but no fused
+    SGD (config 4: weight decay; config 2: async mode)."""
     return {"dequant": steps + evals, "ce_fwd": steps, "ce_bwd": steps,
             "sgd": 0}
 
@@ -482,7 +520,7 @@ def run_cifar_main_path(gpu: str) -> tuple[dict, dict]:
     steps, counts = r["steps"], r["launches"]
     require(steps == CIFAR_STEPS, f"config 4: trained {steps} of "
                                   f"{CIFAR_STEPS} steps")
-    expect = cifar_expect(steps, r["eval_batches"])
+    expect = dequant_ce_expect(steps, r["eval_batches"])
     require(counts == expect, f"config 4: launch counts {counts}, expected "
                               f"{expect} (dequant per step and eval batch, "
                               f"the CE pair per step, no fused SGD)")
@@ -635,6 +673,8 @@ def gloo_rank_phases() -> dict:
     out["lm"]["all_reduce_ms"] = all_reduce_ms(LM_PARAMS, 10)
     out["cifar"] = run_trainer("trainer_mirrored_cifar", cifar_argv(
         MR_CIFAR_STEPS, "chip_smoke_gloo_cifar", log_every=10))
+    out["async"] = run_trainer("trainer_ps_mnist", async_argv(
+        MR_ASYNC_STEPS, "chip_smoke_gloo_async", log_every=74))
     return out
 
 
@@ -644,13 +684,14 @@ def nccl_rank(argv: list) -> dict:
 
 
 def check_ranks(ranks: list, what: str, expect: dict, steps: int,
-                reduces_per_step: int = 1) -> None:
+                all_reduces: int | None = None) -> None:
     """Phase A's cross-rank checks: every rank trained ``steps`` steps
-    with ``reduces_per_step`` all-reduces each (the gradient's, and batch
-    norm's), launched ``expect``, and holds the same parameters and
-    buffers bit for bit; only rank 0 printed step lines."""
+    with ``all_reduces`` all-reduces (default one a step: the gradient's;
+    batch norm adds its own, async mode averages once a period), launched
+    ``expect``, and holds the same parameters and buffers bit for bit;
+    only rank 0 printed step lines."""
     for r in ranks:
-        want = steps * reduces_per_step
+        want = steps if all_reduces is None else all_reduces
         require(r["steps"] == steps and r["all_reduces"] == want,
                 f"{what}: rank {r['rank']} trained {r['steps']} steps with "
                 f"{r['all_reduces']} all-reduces, expected {steps} steps "
@@ -744,9 +785,10 @@ def run_gloo_phases(gpu: str) -> dict:
 
     cf = [r["cifar"] for r in ranks]
     print(cf[0]["text"], end="")
-    check_ranks(cf, "phase F", cifar_expect(MR_CIFAR_STEPS,
+    check_ranks(cf, "phase F", dequant_ce_expect(MR_CIFAR_STEPS,
                                             cf[0]["eval_batches"]),
-                MR_CIFAR_STEPS, reduces_per_step=2 * BN_LAYERS + 1)
+                MR_CIFAR_STEPS,
+                all_reduces=MR_CIFAR_STEPS * (2 * BN_LAYERS + 1))
     losses = [l for _, l in cf[0]["loss_tape"]]
     require(all(np.isfinite(losses)), f"phase F: loss tape {losses}")
     cifar_path = {"model": "resnet20", "ranks": MR_RANKS, "backend": "gloo",
@@ -761,9 +803,18 @@ def run_gloo_phases(gpu: str) -> dict:
                   "params_digest": cf[0]["params_digest"],
                   "stats_digest": cf[0]["stats_digest"], "gpu": gpu}
     print(json.dumps({"multirank_cifar_path": cifar_path}), flush=True)
+
+    an = [r["async"] for r in ranks]
+    print(an[0]["text"], end="")
+    check_ranks(an, "phase K", dequant_ce_expect(MR_ASYNC_STEPS,
+                                                 an[0]["eval_batches"]),
+                MR_ASYNC_STEPS, all_reduces=MR_ASYNC_STEPS // ASYNC_PERIOD)
+    check_loss_tape(an[0], an[0]["text"])
     return {"mnist_cnn_gloo2": [r["launches"] for r in mn],
             f"{LM_SIZE}_gloo2": [r["launches"] for r in lm],
-            "resnet20_gloo2": [r["launches"] for r in cf]}
+            "resnet20_gloo2": [r["launches"] for r in cf],
+            "mnist_cnn_async_gloo2": [r["launches"] for r in an],
+            "async_gloo2": an}
 
 
 def run_nccl_phase(gpu: str) -> dict:
@@ -819,7 +870,7 @@ def run_multiworker_phase(gpu: str) -> dict:
                                        "--task_index", "0"]
     (r,) = launch.spawn(multiworker_rank, 1, "nccl", (argv,), timeout_s=600)
     print(r["text"], end="")
-    check_ranks([r], "phase H", cifar_expect(MR_CIFAR_STEPS,
+    check_ranks([r], "phase H", dequant_ce_expect(MR_CIFAR_STEPS,
                                              r["eval_batches"]),
                 MR_CIFAR_STEPS)
     require(r["device"] == "cuda:0", f"phase H: placed on {r['device']}")
@@ -832,6 +883,210 @@ def run_multiworker_phase(gpu: str) -> dict:
         "loss_tape": r["loss_tape"], "launches": r["launches"],
         "gpu": gpu}}), flush=True)
     return {"resnet20_nccl": [r["launches"]]}
+
+
+def async_argv(steps: int, log_dir: str, log_every: int = 100) -> list:
+    """Config 2's trainer flags on the card: its defaults with the dequant
+    and CE kernels (the fused apply is refused in async mode)."""
+    return ["--device", "cuda", "--dataset", "synthetic", "--dequant_impl",
+            "pallas", "--pallas_ce", "true", "--train_steps", str(steps),
+            "--async_period", str(ASYNC_PERIOD), "--log_every",
+            str(log_every), "--resume", "false",
+            "--log_dir", str(ROOT / "build" / log_dir)]
+
+
+def run_async_main_path() -> dict:
+    """Phase K on one worker: config 2 through ``trainer_ps_mnist``."""
+    r = run_trainer("trainer_ps_mnist", async_argv(ASYNC_STEPS,
+                                                   "chip_smoke_async"))
+    print(r["text"], end="")
+    steps, counts = r["steps"], r["launches"]
+    require(steps == ASYNC_STEPS, f"config 2: trained {steps} of "
+                                  f"{ASYNC_STEPS} steps")
+    expect = dequant_ce_expect(steps, r["eval_batches"])
+    require(counts == expect, f"config 2: launch counts {counts}, expected "
+                              f"{expect} (dequant per step and eval batch, "
+                              f"the CE pair per step, no fused SGD)")
+    check_loss_tape(r, r["text"])
+    require(r["final_accuracy"] >= 0.9,
+            f"config 2: final accuracy {r['final_accuracy']}")
+    return r
+
+
+def report_async_path(one: dict, two: list, gpu: str) -> None:
+    row = lambda r, workers: {
+        "workers": workers, "steps": r["steps"],
+        "batch_per_worker": BATCH, "global_batch": r["global_batch"],
+        "async_period": ASYNC_PERIOD, "steps_per_call": r["steps_per_call"],
+        "steps_per_sec": r["steps_per_sec"],
+        "param_all_reduces": r["all_reduces"],
+        "wall_s_incl_setup_and_eval": r["wall_s_incl_setup_and_eval"],
+        "final_accuracy": r["final_accuracy"], "loss_tape": r["loss_tape"]}
+    print(json.dumps({"async_path": {
+        "model": "mnist_cnn", "one_card": dict(row(one, 1),
+                                               launches=one["launches"]),
+        "two_gloo_ranks": dict(row(two[0], 2),
+                               launches_by_rank=[r["launches"] for r in two],
+                               params_digest=two[0]["params_digest"]),
+        "gpu": gpu}}), flush=True)
+
+
+def resume_argv(steps: int, log_dir: str) -> list:
+    """Phase I: config 3 with the four kernels, a checkpoint every 100
+    steps (``--resume`` is the default)."""
+    return ["--device", "cuda", "--dataset", "synthetic", "--dequant_impl",
+            "pallas", "--pallas_ce", "true", "--fused_optimizer", "true",
+            "--train_steps", str(steps), "--batch_size", str(BATCH),
+            "--log_every", "100", "--checkpoint_every", "100",
+            "--log_dir", str(ROOT / "build" / log_dir)]
+
+
+def final_part(log_dir: str, step: int) -> dict:
+    return torch.load(ROOT / "build" / log_dir / "checkpoints" / str(step)
+                      / "rank-0.pt", weights_only=True)
+
+
+def run_resume_phase(gpu: str) -> dict:
+    """Phase I: two uninterrupted runs and one stopped and resumed, from
+    empty log dirs, under cuDNN's deterministic algorithms."""
+    dirs = ("chip_smoke_resume_a", "chip_smoke_resume_b",
+            "chip_smoke_resume_c")
+    for d in dirs:
+        shutil.rmtree(ROOT / "build" / d, ignore_errors=True)
+    half = RESUME_STEPS // 2
+    plan = [(dirs[0], RESUME_STEPS), (dirs[1], RESUME_STEPS),
+            (dirs[2], half), (dirs[2], RESUME_STEPS)]
+    cudnn = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = [run_trainer("trainer_sync_mnist", resume_argv(steps, d))
+                for d, steps in plan]
+    finally:
+        torch.backends.cudnn.deterministic = cudnn
+    resumed = runs[-1]
+    print(resumed["text"], end="")
+    require(resumed["start_step"] == half
+            and f"resumed from checkpoint at step {half}" in resumed["text"],
+            f"phase I: the second run started at {resumed['start_step']}, "
+            f"not at the checkpoint of step {half}")
+    for r, (_, steps) in zip(runs, plan):
+        trained = steps - r["start_step"]
+        expect = {"dequant": trained + r["eval_batches"], "ce_fwd": trained,
+                  "ce_bwd": trained, "sgd": trained}
+        require(r["steps"] == steps and r["launches"] == expect,
+                f"phase I: {r['steps']} steps, launches {r['launches']}, "
+                f"expected {steps} and {expect}")
+    a, b, c = (final_part(d, RESUME_STEPS) for d in dirs)
+    gap = (a["params"] - b["params"]).abs().max().item()
+    off = (c["params"] - a["params"]).abs().max().item()
+    same = torch.equal(a["params"], b["params"])
+    if same:
+        require(torch.equal(c["params"], a["params"])
+                and torch.equal(c["momentum"], a["momentum"])
+                and runs[0]["loss_tape"][-1] == resumed["loss_tape"][-1],
+                f"phase I: the two uninterrupted runs are bitwise equal, the "
+                f"resumed one is {off:.3g} away")
+    else:
+        # Three samples of one non-deterministic run: the resumed one
+        # within twice the gap between the other two.
+        require(off <= 2 * gap, f"phase I: the resumed run is {off:.3g} "
+                                f"away, the uninterrupted ones {gap:.3g}")
+    saves = [r["checkpoint"] for r in runs]
+    result = {
+        "steps": RESUME_STEPS, "resumed_at": half, "batch": BATCH,
+        "uninterrupted_bitwise_equal": same, "uninterrupted_gap": gap,
+        "resumed_max_abs_diff": off, "resumed_bitwise_equal": off == 0.0,
+        "checkpoint_bytes": os.path.getsize(
+            ROOT / "build" / dirs[0] / "checkpoints" / str(RESUME_STEPS)
+            / "rank-0.pt"),
+        "save_blocking_s": [t for st in saves for t in st["save_s"]],
+        "save_write_s": [t for st in saves for t in st["write_s"]],
+        "restore_s": resumed["checkpoint"]["restore_s"],
+        "steps_per_sec": [r["steps_per_sec"] for r in runs],
+        "launches_by_run": [r["launches"] for r in runs], "gpu": gpu}
+    print(json.dumps({"resume_path": result}), flush=True)
+    return {"mnist_cnn_resume": [r["launches"] for r in runs]}
+
+
+def gloo_drill_rank(argv: list) -> dict:
+    """One of phase J's two gloo ranks: the trainer, printing as a user
+    sees it (rank 0's lines)."""
+    from distributedtensorflowexample_tpu_torch.trainers import (
+        trainer_sync_mnist)
+    return trainer_sync_mnist.main(argv)
+
+
+def gloo_drill(argv: list) -> None:
+    """Phase J's second process: two gloo ranks on the one card through
+    ``parallel/launch.spawn``, which forwards a SIGTERM to both."""
+    launch.spawn(gloo_drill_rank, MR_RANKS, "gloo", (argv,), timeout_s=600)
+
+
+def drill(cmd: list) -> dict:
+    """Start ``cmd`` (a trainer with ``--train_steps`` left to add), send
+    SIGTERM after its first log line, then restart it to 20 steps past
+    the step it saved.  Exit codes, the saved step, the output."""
+    p = subprocess.Popen(cmd + ["--train_steps", "1000000"], cwd=ROOT,
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+    lines, first = [], threading.Event()
+
+    def drain():
+        for line in p.stdout:
+            lines.append(line)
+            if line.startswith("step ") and "loss" in line:
+                first.set()
+        first.set()
+
+    reader = threading.Thread(target=drain, daemon=True)
+    reader.start()
+    t0 = time.perf_counter()
+    try:
+        first.wait(timeout=300)
+        alive = p.poll() is None
+        t_signal = time.perf_counter()
+        p.send_signal(signal.SIGTERM)
+        p.wait(timeout=300)
+        t_exit = time.perf_counter()
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        reader.join(timeout=30)
+    text = "".join(lines)
+    m = re.search(r"SIGTERM at step (\d+): checkpoint saved", text)
+    require(alive and p.returncode == 143 and m is not None
+            and "Traceback" not in text,
+            f"phase J: {cmd[2:4]} gave exit code {p.returncode} after "
+            f"SIGTERM (want 143 and the saved line):\n{text[-3000:]}")
+    saved = int(m.group(1))
+    r = subprocess.run(cmd + ["--train_steps", str(saved + 20)], cwd=ROOT,
+                       capture_output=True, text=True, timeout=600)
+    require(r.returncode == 0 and f"resumed from checkpoint at step {saved}"
+            in r.stdout, f"phase J: the restart gave exit code "
+                         f"{r.returncode}:\n{(r.stdout + r.stderr)[-3000:]}")
+    return {"rc": p.returncode, "saved_step": saved,
+            "first_line_s": t_signal - t0, "stop_s": t_exit - t_signal,
+            "restart_rc": r.returncode}
+
+
+def run_drill_phase(gpu: str) -> None:
+    """Phase J: one trainer process, then two gloo ranks."""
+    flags = ["--device", "cuda", "--dataset", "synthetic", "--dequant_impl",
+             "pallas", "--pallas_ce", "true", "--fused_optimizer", "true",
+             "--batch_size", str(BATCH), "--steps_per_loop", "1",
+             "--log_every", "10"]
+    out = {}
+    for name, head in (
+            ("one_process", ["-m", "distributedtensorflowexample_tpu_torch."
+                                   "trainers.trainer_sync_mnist"]),
+            ("two_gloo_ranks", ["-c", "import sys, chip_smoke; "
+                                      "chip_smoke.gloo_drill(sys.argv[1:])"])):
+        log_dir = ROOT / "build" / f"chip_smoke_drill_{name}"
+        shutil.rmtree(log_dir, ignore_errors=True)
+        out[name] = drill([sys.executable, "-u", *head, *flags,
+                           "--log_dir", str(log_dir)])
+    print(json.dumps({"sigterm_drill": dict(out, gpu=gpu)}), flush=True)
 
 
 def main() -> int:
@@ -904,10 +1159,15 @@ def main() -> int:
           f"100-step window, resnet20, B={CIFAR_BATCH}) on {gpu}",
           flush=True)
 
+    async_one = run_async_main_path()
+
     by_path = run_gloo_phases(gpu)
+    report_async_path(async_one, by_path.pop("async_gloo2"), gpu)
     by_path.update(run_nccl_phase(gpu))
     softmax_counts = run_local_mnist(gpu)
     by_path.update(run_multiworker_phase(gpu))
+    by_path.update(run_resume_phase(gpu))
+    run_drill_phase(gpu)
 
     line = []
     for name, (source, replaces) in SOURCES.items():
@@ -915,6 +1175,7 @@ def main() -> int:
         paths = {"mnist_cnn": counts[name], LM_SIZE: lm_counts[name],
                  "resnet20": cifar_counts[name],
                  "softmax": softmax_counts[name],
+                 "mnist_cnn_async": async_one["launches"][name],
                  **{p: [c[name] for c in per_rank]
                     for p, per_rank in by_path.items()}}
         line.append({"name": name, "route": "cuda", "source": source,

@@ -56,9 +56,9 @@ class RunConfig:
     log_every: int = 100
     checkpoint_every: int = 0       # 0 = no periodic checkpoints
     keep_checkpoints: int = 3
-    async_checkpoint: bool = True   # background (async) Orbax saves;
-                                    # false = synchronous saves (the
-                                    # reference Saver's behavior)
+    async_checkpoint: bool = True   # background (async) checkpoint
+                                    # writes; false = synchronous saves
+                                    # (the reference Saver's behavior)
     resume: bool = True             # auto-restore latest checkpoint if present
     profile_dir: str = ""           # "" = no trace; else jax.profiler logdir
     profile_start_step: int = 10    # trace starts after this step completes
@@ -211,11 +211,13 @@ _FLAG_HELP = {
                "bytes never silently substitute)",
     "eval_every": "eval every N steps (0 = only at end)",
     "log_every": "log scalars every N steps",
-    "checkpoint_every": "checkpoint every N steps (0 = none periodic)",
+    "checkpoint_every": "checkpoint every N steps under "
+                        "<log_dir>/checkpoints (0 = none periodic; a run "
+                        "with --resume still saves at its end)",
     "keep_checkpoints": "keep newest N checkpoints",
-    "async_checkpoint": "background Orbax saves (training does not stall "
-                        "on serialization); false = synchronous saves "
-                        "like the reference's Saver",
+    "async_checkpoint": "write checkpoints on a background thread "
+                        "(training does not stall on the disk); false = "
+                        "synchronous saves like the reference's Saver",
     "resume": "auto-restore latest checkpoint in --log_dir",
     "profile_dir": "jax.profiler trace output dir (empty = no trace)",
     "profile_start_step": "trace starts after this step (skips compile)",

@@ -24,6 +24,11 @@ A model with batch norm (``models/resnet.py``) also has flax's
 dotted name (``stage0_block0.bn1.mean``), copied as they are
 (:func:`batch_stats_to_port`, :func:`port_to_batch_stats`).
 
+The JAX package's async state (``parallel/async_ps.make_worker_state``)
+is worker-tiled: every leaf has a leading worker axis W.  The port runs
+worker w as rank w, so :func:`worker_slice` takes worker w's copy of a
+tree, to load into rank w's state.
+
 The momentum comes either as a params-shaped tree (``optax.sgd``'s
 ``TraceState.trace``) or as the Pallas fused optimizer's flat
 ``FusedSgdState.trace``: a ``(rows, 128)`` float32 buffer holding the
@@ -116,6 +121,14 @@ def _flatten_order(tree: dict, prefix=()) -> list[tuple[tuple, np.ndarray]]:
         else:
             out.append((prefix + (k,), np.asarray(v)))
     return out
+
+
+def worker_slice(tree: dict, worker: int) -> dict:
+    """Worker ``worker``'s copy of a worker-tiled tree (every leaf
+    ``[W, ...]``), as numpy copies."""
+    return {k: worker_slice(v, worker) if isinstance(v, dict)
+            else np.array(np.asarray(v)[worker], copy=True)
+            for k, v in tree.items()}
 
 
 def flat_trace_rows(num_params: int) -> int:

@@ -1,5 +1,6 @@
 """The Engine (the JAX package's ``engine/engine.py`` ``Engine.run``), for
-the ``sync_dp`` mode on one rank or on N ranks, one process each.
+the ``sync_dp`` and ``async_ps`` modes on one rank or on N ranks, one
+process each.
 
 ``Engine(spec).run()`` resolves the cluster flags (a ``ps`` role prints
 the notice and exits), refuses by name every mode the port does not run
@@ -18,6 +19,21 @@ yet, and then either
   (``Engine.build``), runs the loop with its hooks, and ends with an
   exact eval on the held-out split.
 
+Checkpoints (``training/checkpoint.py``) go to ``<log_dir>/checkpoints``
+whenever ``--checkpoint_every > 0`` or ``--resume`` (the default), unless
+``--log_dir`` is empty.  A resumed run restores the newest checkpoint
+before the dataset is built, so the epoch slots line up with the
+restored step, and trains the remaining ``train_steps - step`` steps.
+SIGTERM (preemption) sets a flag that the loop polls at call boundaries;
+on N ranks they agree on the stop through an all-gather every
+``max(1, 64 // steps_per_call)`` boundaries.  The run then saves, prints
+``SIGTERM at step N: checkpoint saved, restart auto-resumes; exiting
+143`` and raises ``SystemExit(143)``.
+
+``--sync_mode async`` (config 2) runs local SGD with one worker per rank
+(``parallel/async_ps.py``): its checkpoint holds every rank's own part,
+and its eval runs on the workers' average.
+
 The workloads: config 1 (``softmax`` on ``mnist``), config 3
 (``mnist_cnn`` on ``mnist``), configs 4 and 5 (``resnet20`` on
 ``cifar10``, with the on-device crop and flip: ``RunSpec.augment``) and
@@ -30,6 +46,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import math
+import os
 import zlib
 from typing import Callable
 
@@ -47,22 +64,34 @@ from distributedtensorflowexample_tpu_torch.models import build_model
 from distributedtensorflowexample_tpu_torch.ops.kernels import launch_counts
 from distributedtensorflowexample_tpu_torch.ops.kernels import build as kbuild
 from distributedtensorflowexample_tpu_torch.parallel.launch import spawn
+from distributedtensorflowexample_tpu_torch.parallel.async_ps import (
+    consolidated, make_indexed_async_train_step)
 from distributedtensorflowexample_tpu_torch.parallel.mesh import (
     Mesh, local_world_size, make_mesh)
 from distributedtensorflowexample_tpu_torch.parallel.sync import (
     make_indexed_train_step, make_resident_eval)
 from distributedtensorflowexample_tpu_torch.refusal import ModeRefusal
+from distributedtensorflowexample_tpu_torch.training.checkpoint import (
+    CheckpointManager)
 from distributedtensorflowexample_tpu_torch.training.hooks import (
-    EvalHook, MetricsHook)
+    CheckpointHook, EvalHook, HeartbeatHook, MetricsHook)
 from distributedtensorflowexample_tpu_torch.training.loop import TrainLoop
 from distributedtensorflowexample_tpu_torch.training.metrics import (
     MetricsLogger)
 from distributedtensorflowexample_tpu_torch.training.optimizers import (
     build_optimizer)
 from distributedtensorflowexample_tpu_torch.training.state import TrainState
+from distributedtensorflowexample_tpu_torch.utils.signals import sigterm_flag
 
 # Auto --steps_per_loop unroll ceiling (the JAX package's value).
 _AUTO_UNROLL_CAP = 64
+# Global steps between two stop-consensus polls on N ranks (and between
+# two heartbeat touches): tens of steps of latency are nothing against a
+# preemption's grace period, and a poll per step would tax every step.
+_CONSENSUS_POLL_STEPS = 64
+# Models with batch norm: async would normalize over each worker's rows
+# in JAX (its vmap), across the workers in the port (GlobalMean).
+_BATCH_NORM_MODELS = frozenset({"resnet20"})
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -141,9 +170,13 @@ def _refuse_unported(cfg: RunConfig, info: cluster.ClusterInfo,
     if cfg.dtype not in _DTYPES:
         raise ValueError(f"unknown dtype {cfg.dtype!r} (one of "
                          f"{tuple(_DTYPES)})")
+    if cfg.sync_mode == "async":
+        _refuse_async(cfg, model)
+    if cfg.checkpoint_every > 0 and not cfg.log_dir:
+        raise ModeRefusal(
+            "--checkpoint_every > 0 writes checkpoints under --log_dir, "
+            "which is empty; pass a --log_dir (or --checkpoint_every 0)")
     not_yet = [
-        (cfg.sync_mode == "async", "--sync_mode async (local-SGD "
-         "emulation of parameter-server staleness)"),
         (bool(cfg.bucket_grads), "--bucket_grads (bucketed gradient "
          "all-reduce)"),
         (cfg.shard_update, "--shard_update (ZeRO-1 update sharding)"),
@@ -151,8 +184,6 @@ def _refuse_unported(cfg: RunConfig, info: cluster.ClusterInfo,
         (cfg.data_sharding == "sharded", "--data_sharding sharded"),
         (cfg.device_data == "off", "--device_data off (the host-fed "
          "Batcher path)"),
-        (cfg.checkpoint_every > 0, "--checkpoint_every > 0 (the port has "
-         "no checkpoint format yet)"),
         (bool(cfg.profile_dir), "--profile_dir (the profiler hook)"),
         # torch.utils.checkpoint would run each block's forward twice and
         # so update its batch-norm running statistics twice.
@@ -163,8 +194,8 @@ def _refuse_unported(cfg: RunConfig, info: cluster.ClusterInfo,
     for hit, what in not_yet:
         if hit:
             raise ModeRefusal(f"{what} is not ported to the PyTorch package "
-                              f"yet; this slice runs sync_dp, one rank per "
-                              f"process")
+                              f"yet; this slice runs sync_dp and async_ps, "
+                              f"one rank per process")
     processes = (info.num_processes if info.is_distributed else
                  dist.get_world_size() if dist.is_initialized() else 0)
     if processes and cfg.num_devices not in (0, processes):
@@ -173,6 +204,57 @@ def _refuse_unported(cfg: RunConfig, info: cluster.ClusterInfo,
             f"the PyTorch package runs one rank per process on one device "
             f"(--num_devices 0 or {processes}); the N-process x M-local-"
             f"device layout is not ported to the PyTorch package yet")
+
+
+def _refuse_async(cfg: RunConfig, model: str) -> None:
+    """The JAX package's refusals of async mode's illegal knobs, and the
+    port's own of async for a batch-norm model."""
+    if cfg.fused_optimizer:
+        raise ModeRefusal(
+            "--fused_optimizer is not supported with sync_mode=async")
+    if cfg.replicas_to_aggregate:
+        raise ModeRefusal(
+            "--replicas_to_aggregate is a SyncReplicasOptimizer "
+            "(sync-mode) concept; async mode has no aggregation "
+            "barrier to relax")
+    if model in _BATCH_NORM_MODELS:
+        raise ModeRefusal(
+            f"--sync_mode async for {model} (a batch-norm model) is not "
+            f"ported to the PyTorch package yet: each JAX worker normalizes "
+            f"over its own rows, while the port's batch norm reduces over "
+            f"every rank, which would be another model")
+
+
+def _refuse_incompatible_restore(saved: dict | None, current: dict,
+                                 log_dir: str, is_chief: bool) -> None:
+    """Named refusal of a restore into another state layout (the JAX
+    Engine's, with its messages): another ``sync_mode``, or async state
+    of another worker count.  A sync restore on another mesh size is
+    allowed (the state is replicated), with a note.  ``saved`` is None
+    for a directory with no metadata: the restore proceeds."""
+    if not saved:
+        return
+    if saved.get("sync_mode", current["sync_mode"]) != current["sync_mode"]:
+        raise ModeRefusal(
+            f"checkpoint in {log_dir}/checkpoints was written by a "
+            f"sync_mode={saved['sync_mode']!r} run; restoring it into "
+            f"sync_mode={current['sync_mode']!r} would mismatch the state "
+            f"layout (worker-tiled vs replicated). Use a fresh --log_dir "
+            f"or rerun with --sync_mode={saved['sync_mode']}")
+    if (saved.get("num_workers") is not None
+            and saved["num_workers"] != current["num_workers"]):
+        raise ModeRefusal(
+            f"checkpoint in {log_dir}/checkpoints holds async worker-tiled "
+            f"state for num_workers={saved['num_workers']}; this run has "
+            f"num_workers={current['num_workers']} (mesh size "
+            f"{current['mesh_size']}). The leading worker axis is "
+            f"structural — resume on {saved['num_workers']} devices or "
+            f"start fresh with a new --log_dir")
+    if (is_chief and saved.get("mesh_size") is not None
+            and saved["mesh_size"] != current["mesh_size"]):
+        print(f"note: resuming a mesh_size={saved['mesh_size']} checkpoint "
+              f"on mesh_size={current['mesh_size']} (fine for sync mode: "
+              f"state is replicated)", flush=True)
 
 
 def _global_batch(cfg: RunConfig, replicas: int) -> int:
@@ -278,44 +360,59 @@ class EngineBuild:
 class Engine:
     """Runs a :class:`RunSpec`.  ``run()`` is the trainer surface;
     ``build()`` is the same construction cut down to state + dataset +
-    step, with no hooks and no eval (the profiler and the chip smoke's
-    card-against-CPU check drive it)."""
+    step, with no hooks and no eval (the profiler, the chip smoke's
+    card-against-CPU check and the tests drive it)."""
 
     def __init__(self, spec: RunSpec):
         self.spec = spec
         self.token_data = spec.dataset == "lm"
 
-    def build(self, mesh: Mesh, unroll: int = 1, data=None,
-              perm_fn=None, draws_fn=None) -> EngineBuild:
-        """State, resident dataset and train step for this rank of
-        ``mesh`` (``Mesh(device)`` is one rank on that device).  ``data``
-        ``(images, labels)`` replaces the spec's train split; ``perm_fn``
-        injects an index tape (``DeviceDataset``) and ``draws_fn`` the
-        augment draws (``parallel/sync.make_device_gather``)."""
-        device = mesh.device
+    def create_state(self, mesh: Mesh) -> TrainState:
+        """The model, its optimizer and the state of this rank of ``mesh``
+        (``Mesh(device)`` is one rank on that device), initialized from
+        the seed."""
         cfg = self.spec.config
-        global_batch = _global_batch(cfg, mesh.size)
         model = build_model(self.spec.model, dropout=cfg.dropout,
                             dtype=_DTYPES[cfg.dtype], remat=cfg.remat,
                             mesh=mesh)
+        return TrainState.create(model, lambda m: build_optimizer(cfg, m),
+                                  cfg.seed, mesh.device, mesh=mesh)
+
+    def build(self, mesh: Mesh, unroll: int = 1, data=None,
+              perm_fn=None, draws_fn=None,
+              state: TrainState | None = None) -> EngineBuild:
+        """State, resident dataset and train step (sync, or async's local
+        SGD under ``--sync_mode async``) for this rank of ``mesh``.
+        ``state`` (a restored one) replaces a fresh :meth:`create_state`,
+        and the dataset starts at its step.  ``data`` ``(images,
+        labels)`` replaces the spec's train split; ``perm_fn`` injects an
+        index tape (``DeviceDataset``) and ``draws_fn`` the augment draws
+        (``parallel/sync.make_device_gather``)."""
+        cfg = self.spec.config
+        global_batch = _global_batch(cfg, mesh.size)
         x, y = (data if data is not None else
                 _load_dataset(cfg, self.spec.dataset, "train"))
-        state = TrainState.create(model, lambda m: build_optimizer(cfg, m),
-                                  cfg.seed, device, mesh=mesh)
-        ds = DeviceDataset(x, y, global_batch, device=device,
+        if state is None:
+            state = self.create_state(mesh)
+        ds = DeviceDataset(x, y, global_batch, device=mesh.device,
                            seed=cfg.seed, start_step=state.step,
                            steps_per_next=unroll, quantize=cfg.quantize,
                            dequant_impl=cfg.dequant_impl, perm_fn=perm_fn,
                            token_data=self.token_data)
-        step = make_indexed_train_step(
-            global_batch, ds.steps_per_epoch, cfg.label_smoothing,
-            ce_impl="pallas" if cfg.pallas_ce else "xla",
-            unroll_steps=unroll,
-            replicas_to_aggregate=cfg.replicas_to_aggregate,
-            num_slots=ds.num_slots, dequant_impl=cfg.dequant_impl,
-            token_data=self.token_data,
-            augment="cifar" if self.spec.augment else "none",
-            seed=cfg.seed, draws_fn=draws_fn, mesh=mesh)
+        common = dict(label_smoothing=cfg.label_smoothing,
+                      ce_impl="pallas" if cfg.pallas_ce else "xla",
+                      unroll_steps=unroll, num_slots=ds.num_slots,
+                      dequant_impl=cfg.dequant_impl,
+                      token_data=self.token_data,
+                      augment="cifar" if self.spec.augment else "none",
+                      seed=cfg.seed, draws_fn=draws_fn, mesh=mesh)
+        if cfg.sync_mode == "async":
+            step = make_indexed_async_train_step(
+                cfg.async_period, global_batch, ds.steps_per_epoch, **common)
+        else:
+            step = make_indexed_train_step(
+                global_batch, ds.steps_per_epoch,
+                replicas_to_aggregate=cfg.replicas_to_aggregate, **common)
         return EngineBuild(state=state, ds=ds, step=step, unroll=unroll)
 
     def run(self) -> dict:
@@ -337,22 +434,46 @@ class Engine:
         if mesh.size > 1:
             _check_same_config(cfg, mesh)
         _build_kernels_once(cfg, mesh)
-        if cfg.resume and mesh.is_chief:
-            print("--resume: the PyTorch package has no checkpoint format "
-                  "yet, so there is nothing to resume from (no-op)",
-                  flush=True)
         num_replicas = mesh.size
         global_batch = _global_batch(cfg, num_replicas)
+        is_async = cfg.sync_mode == "async"
 
         train_x, train_y = _load_dataset(cfg, spec.dataset, "train")
         test_x, test_y = _load_dataset(cfg, spec.dataset, "test")
 
-        # A fresh run starts at step 0 (the port has no resume yet).
-        remaining = cfg.train_steps
+        state = self.create_state(mesh)
+        # This run's layout facts, kept beside the checkpoints so that a
+        # later resume into another layout is refused by name: async
+        # state is one part per worker, so the worker count is
+        # structural; sync state is replicated and restores on any mesh.
+        run_meta = {"sync_mode": cfg.sync_mode, "mesh_size": num_replicas,
+                    "num_workers": num_replicas if is_async else None,
+                    "update_layout": "tree"}
+        manager = None
+        start_step = 0
+        if cfg.log_dir and (cfg.checkpoint_every > 0 or cfg.resume):
+            manager = CheckpointManager(
+                os.path.join(cfg.log_dir, "checkpoints"),
+                max_to_keep=cfg.keep_checkpoints,
+                async_save=cfg.async_checkpoint, run_metadata=run_meta,
+                mesh=mesh, per_rank=is_async)
+            if cfg.resume and manager.latest_step() is not None:
+                _refuse_incompatible_restore(manager.saved_run_metadata(),
+                                             run_meta, cfg.log_dir,
+                                             mesh.is_chief)
+                manager.restore(state)
+                start_step = state.step
+                if mesh.is_chief:
+                    print(f"resumed from checkpoint at step {state.step}",
+                          flush=True)
+
+        remaining = cfg.train_steps - state.step
         if cfg.steps_per_loop == 0:
             steps_per_call = (auto_steps_per_loop(
                 remaining, len(train_x) // global_batch,
-                intervals=(cfg.log_every, cfg.eval_every))
+                intervals=(cfg.log_every, cfg.eval_every,
+                           cfg.checkpoint_every),
+                start=state.step)
                 if remaining > 0 else 1)
             if steps_per_call > 1 and mesh.is_chief:
                 print(f"steps_per_loop auto: fusing {steps_per_call} steps "
@@ -363,38 +484,97 @@ class Engine:
             if remaining > 0 and remaining % steps_per_call:
                 raise ModeRefusal(
                     f"remaining steps {remaining} (train_steps "
-                    f"{cfg.train_steps}) must be a multiple of "
-                    f"--steps_per_loop {steps_per_call}")
+                    f"{cfg.train_steps} - resumed step {state.step}) must be "
+                    f"a multiple of --steps_per_loop {steps_per_call}")
+        # Built after the restore: the epoch slots follow the restored step.
         built = self.build(mesh, unroll=steps_per_call,
-                           data=(train_x, train_y))
+                           data=(train_x, train_y), state=state)
 
         logger = MetricsLogger(cfg.log_dir, num_chips=mesh.num_chips,
                                log_every=cfg.log_every, device=device,
                                is_chief=mesh.is_chief)
         hooks = []
+        if manager is not None and cfg.checkpoint_every > 0:
+            hooks.append(CheckpointHook(manager, cfg.checkpoint_every))
         # The JAX Engine's eval batch: one that does not divide across the
         # ranks raises in make_resident_eval.
         eval_batch = max(global_batch, 1000)
-        eval_fn = make_resident_eval(test_x, test_y, device,
-                                     batch_size=eval_batch,
-                                     quantize=cfg.quantize,
-                                     dequant_impl=cfg.dequant_impl,
-                                     token_data=self.token_data, mesh=mesh)
+        evaluate = make_resident_eval(test_x, test_y, device,
+                                      batch_size=eval_batch,
+                                      quantize=cfg.quantize,
+                                      dequant_impl=cfg.dequant_impl,
+                                      token_data=self.token_data, mesh=mesh)
+
+        def eval_fn(s) -> float:
+            if not is_async:
+                return evaluate(s)
+            with consolidated(s, mesh):     # on the workers' average
+                return evaluate(s)
+
         if cfg.eval_every > 0:
             hooks.append(EvalHook(eval_fn, cfg.eval_every, logger))
+        heartbeat = os.environ.get("SUPERVISE_HEARTBEAT", "")
+        if heartbeat:
+            hooks.append(HeartbeatHook(heartbeat,
+                                       every=_CONSENSUS_POLL_STEPS))
         metrics_hook = MetricsHook(every=cfg.log_every)
         hooks.append(metrics_hook)
 
-        loop = TrainLoop(built.step, built.ds, cfg.train_steps, hooks, logger,
-                         steps_per_call=steps_per_call,
-                         reduce_metrics=mesh.sum_metrics)
-        state = loop.run(built.state)
-        final_acc = eval_fn(state)
+        # The stop after a SIGTERM is agreed by every rank at one call
+        # boundary: a rank stopping alone would leave the others waiting
+        # in the next collective, and every rank takes part in the save.
+        preempted = None                # the flag, bound below
+        stop_agreed = []
+        poll_every = max(1, _CONSENSUS_POLL_STEPS // steps_per_call)
+        boundaries = [0]
+
+        def consensus() -> bool:
+            agreed = (max(mesh.all_gather_int(bool(preempted))) > 0
+                      if mesh.size > 1 else bool(preempted))
+            if agreed:
+                stop_agreed.append(True)
+            return agreed
+
+        def should_stop() -> bool:
+            if mesh.size > 1:
+                boundaries[0] += 1
+                if (boundaries[0] - 1) % poll_every:
+                    return False        # the same skips on every rank
+            return consensus()
+
+        with sigterm_flag() as preempted:
+            loop = TrainLoop(built.step, built.ds, cfg.train_steps, hooks,
+                             logger, steps_per_call=steps_per_call,
+                             reduce_metrics=mesh.sum_metrics,
+                             should_stop=should_stop)
+            state = loop.run(built.state)
+            if not stop_agreed:
+                # One more poll, reached by every rank: a signal after the
+                # last boundary's poll still saves before the eval.
+                consensus()
+            if stop_agreed:
+                # CheckpointHook.end has saved; a resume-only run saves here.
+                if manager is not None and cfg.checkpoint_every == 0:
+                    manager.save(state.step, state)
+                    manager.wait()
+                saved = ("checkpoint saved, restart auto-resumes"
+                         if manager is not None else
+                         "NO checkpoint manager (--checkpoint_every 0 "
+                         "--resume false, or no --log_dir) — NOTHING SAVED")
+                logger.note(f"SIGTERM at step {state.step}: {saved}; "
+                            f"exiting 143")
+                logger.close()
+                raise SystemExit(143)
+            final_acc = eval_fn(state)
+        if manager is not None and cfg.checkpoint_every == 0:
+            manager.save(state.step, state)
+            manager.wait()
         logger.scalar(state.step, "final_accuracy", final_acc)
         steps_per_sec = logger.last_steps_per_sec
         logger.close()
         return {"final_accuracy": final_acc,
                 "steps": state.step,
+                "start_step": start_step,
                 "steps_per_sec": steps_per_sec,
                 "steps_per_sec_per_chip": steps_per_sec / mesh.num_chips,
                 "num_replicas": num_replicas,
@@ -407,4 +587,5 @@ class Engine:
                 "all_reduces": mesh.all_reduces,
                 "params_digest": _params_digest(state),
                 "stats_digest": _stats_digest(state),
+                "checkpoint": None if manager is None else manager.stats,
                 "loss_tape": metrics_hook.loss_tape}

@@ -1,0 +1,114 @@
+"""Async parameter-server emulation by local SGD (the JAX package's
+``parallel/async_ps.py``; config 2, BASELINE.json ``configs[1]``).
+
+The reference's workers each pull the variables, step on their own
+minibatch and push updates with no sync between them.  The JAX package
+emulates that with one virtual worker per device: worker-tiled state,
+each worker stepping its own copy on its slice of the global batch, and
+the copies averaged every ``period`` steps.  In the port each rank is one
+worker, as one device is in JAX, so W is the mesh size:
+
+* the worker-tiled state (JAX ``make_worker_state``) is each rank's own
+  ``TrainState``: ``TrainState.create`` broadcasts rank 0's parameters,
+  so the copies start equal, as the tiled ones do, and the momentum
+  (zero) and the dropout generator are the rank's own;
+* each rank gathers its ``G/W`` rows of the global batch
+  (``parallel/sync.make_device_gather``: the dequant kernel under
+  ``--dequant_impl pallas``), differentiates the plain mean loss over
+  them (``make_loss_rows``: the cross-entropy pair under ``--pallas_ce``)
+  and takes a local momentum-SGD step: worker w's gradient is
+  d(loss_w)/d(params_w), with no 1/W and no gradient all-reduce (JAX
+  ``_worker_updates``);
+* when ``(step + 1) % period == 0`` the rank all-reduces its flat float32
+  parameters and divides by W (the shard_map step's ``psum / W``); only
+  the parameters are averaged, the momentum stays each worker's;
+* the metrics are each rank's share, summed by the loop: the loss
+  ``loss_w / W`` (the mean over workers) and the accuracy ``correct_w /
+  G``.
+
+``period=1`` is sync SGD up to float rounding; W=1 is the sync step.
+``--fused_optimizer`` is refused in async mode, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Callable
+
+import torch
+
+from distributedtensorflowexample_tpu_torch.ops.losses import accuracy
+from distributedtensorflowexample_tpu_torch.parallel.mesh import (
+    ONE_RANK, Mesh)
+from distributedtensorflowexample_tpu_torch.parallel.sync import (
+    _resolve_num_slots, indexed_step, make_device_gather, make_loss_rows)
+
+
+def _build_async_step_fn(period: int, label_smoothing: float = 0.0,
+                         ce_impl: str = "xla",
+                         mesh: Mesh = ONE_RANK) -> Callable:
+    """The (state, batch) -> metrics local-SGD body of this rank's
+    worker (JAX ``_build_async_step_fn``, its shard_map form)."""
+    period = max(1, int(period))
+    workers = mesh.size
+    loss_rows = make_loss_rows(label_smoothing, ce_impl)
+
+    def step(state, batch) -> dict:
+        state.optimizer.zero_grad()
+        logits = state.model(batch["image"], train=True,
+                             generator=state.generator)
+        loss = loss_rows(logits, batch["label"]).mean()
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        if state.step % period == 0:
+            flat = state.optimizer.params_flat
+            mesh.all_reduce(flat).div_(workers)
+        return {"loss": loss.detach() / workers,
+                "accuracy": accuracy(logits.detach(),
+                                     batch["label"]) / workers}
+
+    return step
+
+
+def make_indexed_async_train_step(period: int, batch_size: int,
+                                  steps_per_epoch: int,
+                                  label_smoothing: float = 0.0,
+                                  ce_impl: str = "xla",
+                                  unroll_steps: int = 1,
+                                  num_slots: int | None = None,
+                                  dequant_impl: str = "auto",
+                                  token_data: bool = False,
+                                  augment: str = "none", seed: int = 0,
+                                  draws_fn: Callable | None = None,
+                                  mesh: Mesh = ONE_RANK) -> Callable:
+    """Local-SGD step over a device-resident dataset: ``(state, data) ->
+    (state, metrics)``, the async counterpart of
+    ``parallel/sync.make_indexed_train_step`` (same gather, same unrolled
+    windows; the averaging falls on ``(step + 1) % period == 0`` whatever
+    the unroll).  ``batch_size`` is the global batch G."""
+    num_slots = _resolve_num_slots(unroll_steps, steps_per_epoch, num_slots)
+    inner = _build_async_step_fn(period, label_smoothing, ce_impl, mesh)
+    gather = make_device_gather(batch_size, steps_per_epoch,
+                                num_slots=num_slots,
+                                dequant_impl=dequant_impl,
+                                token_data=token_data, augment=augment,
+                                seed=seed, draws_fn=draws_fn, mesh=mesh)
+    return indexed_step(inner, gather, unroll_steps)
+
+
+@contextlib.contextmanager
+def consolidated(state, mesh: Mesh = ONE_RANK):
+    """The workers' average for the enclosed block (JAX ``consolidate``,
+    for the eval): the flat parameters hold the mean over the ranks
+    inside, and each rank's own copy again, bit for bit, after.  The
+    momentum and the rest of the state are not touched."""
+    flat = state.optimizer.params_flat
+    own = flat.clone()
+    with torch.no_grad():
+        mesh.all_reduce(flat, counted=False).div_(mesh.size)
+    try:
+        yield state
+    finally:
+        with torch.no_grad():
+            flat.copy_(own)

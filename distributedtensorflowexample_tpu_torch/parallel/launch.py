@@ -12,11 +12,18 @@ its result on a queue.  A rank that raises puts its exception there too,
 and the caller gets the first one raised, with the rank's traceback
 attached.  ``fn`` and its arguments are pickled, so ``fn`` is a
 module-level function.
+
+Preemption: a SIGTERM to the caller (on its main thread) is forwarded to
+every rank.  A rank whose ``fn`` raises ``SystemExit(143)`` (the engine's
+exit after its preemption save) reports itself preempted and exits
+cleanly, and the caller then raises ``SystemExit(143)`` too, rather than
+a rank failure.
 """
 
 from __future__ import annotations
 
 import os
+import signal
 import tempfile
 import time
 import traceback
@@ -25,6 +32,12 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 from torch.multiprocessing.spawn import ProcessException
+
+from distributedtensorflowexample_tpu_torch.utils.signals import (
+    installed_signal_handler)
+
+#: The exit code of a preempted run (128 + SIGTERM).
+PREEMPTED = 143
 
 
 def _rank_main(rank: int, world: int, backend: str, init_method: str,
@@ -38,6 +51,13 @@ def _rank_main(rank: int, world: int, backend: str, init_method: str,
         # Re-raised in the caller, with this rank's traceback.
         queue.put((rank, False, (exc, traceback.format_exc())))
         raise
+    except SystemExit as exc:
+        if exc.code != PREEMPTED:
+            raise
+        # Saved and stopped: reported, and a clean exit, so that the
+        # caller's join does not take it for a failed rank and kill the
+        # others while they finish their own exit.
+        queue.put((rank, None, PREEMPTED))
     finally:
         dist.destroy_process_group()
 
@@ -50,7 +70,9 @@ def spawn(fn, world: int, backend: str, args: tuple = (),
     # The ranks share this host's cores: an equal part of the caller's
     # intra-op threads each (idle OpenMP threads spin on the others).
     threads = max(1, torch.get_num_threads() // world)
-    results, errors = {}, []
+    results, errors, preempted = {}, [], []
+    procs: list = []
+    terminated = []
 
     def drain() -> None:
         # Read while the ranks run: a rank blocks on a result larger than
@@ -59,14 +81,26 @@ def spawn(fn, world: int, backend: str, args: tuple = (),
             rank, ok, out = queue.get()
             if ok:
                 results[rank] = out
+            elif ok is None:
+                preempted.append(rank)
             else:
                 errors.append((rank, out))
 
+    def forward(signum, frame) -> None:
+        terminated.append(signum)
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+
     deadline = None if timeout_s is None else time.monotonic() + timeout_s
-    with tempfile.TemporaryDirectory(prefix="ranks-") as tmp:
+    with tempfile.TemporaryDirectory(prefix="ranks-") as tmp, \
+            installed_signal_handler(signal.SIGTERM, forward):
         ranks = mp.spawn(_rank_main, nprocs=world, join=False, args=(
             world, backend, "file://" + os.path.join(tmp, "store"), threads,
             fn, args, queue))
+        procs.extend(ranks.processes)
+        if terminated:              # the signal came while they started
+            forward(signal.SIGTERM, None)
         try:
             while not ranks.join(timeout=1):
                 drain()
@@ -78,6 +112,10 @@ def spawn(fn, world: int, backend: str, args: tuple = (),
                                        f"within {timeout_s} s")
         except ProcessException as failed:
             drain()
+            if terminated and not errors:
+                # A rank the forwarded signal ended before its handler
+                # was in place: preempted all the same.
+                raise SystemExit(PREEMPTED) from None
             if not errors:          # a crash or a signal: nothing was sent
                 raise
             # The first exception raised is the cause; the other ranks'
@@ -86,4 +124,6 @@ def spawn(fn, world: int, backend: str, args: tuple = (),
             exc.add_note(f"raised on rank {rank}:\n{tb}")
             raise exc from None
         drain()
+    if preempted:
+        raise SystemExit(PREEMPTED)
     return [results[r] for r in range(world)]

@@ -8,8 +8,9 @@ collectives it needs by hand, on the rank's device:
 * :meth:`Mesh.all_reduce` sums the flat gradient buffer (one call per
   step, counted in ``all_reduces``);
 * :meth:`Mesh.broadcast` sends rank 0's flat parameters to every rank;
-* :meth:`Mesh.all_gather_int` gathers one integer per rank (the config
-  digest).
+* :meth:`Mesh.all_gather` gathers one tensor per rank (the config
+  digest through :meth:`Mesh.all_gather_int`, the dropout generators'
+  states for a checkpoint).
 
 Metrics and the eval's correct count are summed with the same
 collective, once per host read (:meth:`Mesh.sum_metrics`), uncounted.
@@ -77,15 +78,21 @@ class Mesh:
             dist.broadcast(flat, 0)
         return flat
 
-    def all_gather_int(self, value: int) -> list[int]:
-        """Every rank's ``value``, in rank order."""
+    def all_gather(self, t: torch.Tensor) -> list[torch.Tensor]:
+        """Every rank's ``t`` (one shape and dtype on every rank), in rank
+        order, on the host.  The exchange runs on this rank's device,
+        which NCCL needs."""
         if not self.grouped:
-            return [int(value)]
-        mine = torch.tensor([int(value)], dtype=torch.int64,
-                            device=self.device)
+            return [t.cpu()]
+        mine = t.to(self.device)
         out = [torch.empty_like(mine) for _ in range(self.size)]
         dist.all_gather(out, mine)
-        return [int(t.item()) for t in out]
+        return [o.cpu() for o in out]
+
+    def all_gather_int(self, value: int) -> list[int]:
+        """Every rank's ``value``, in rank order."""
+        return [int(t.item()) for t in self.all_gather(
+            torch.tensor([int(value)], dtype=torch.int64))]
 
     def sum_metrics(self, metrics: dict) -> dict:
         """Each rank's share of the step metrics -> the global metrics, in

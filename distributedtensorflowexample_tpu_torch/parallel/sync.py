@@ -242,6 +242,14 @@ def make_indexed_train_step(batch_size: int, steps_per_epoch: int,
                                 token_data=token_data, augment=augment,
                                 seed=seed, draws_fn=draws_fn, mesh=mesh)
 
+    return indexed_step(inner, gather, unroll_steps)
+
+
+def indexed_step(inner: Callable, gather: Callable,
+                 unroll_steps: int) -> Callable:
+    """``(state, data) -> (state, metrics)``: ``unroll_steps`` calls of the
+    step body ``inner(state, batch)``, each on ``gather(state.step,
+    data)``, and the metrics averaged over them (still on the device)."""
     def step(state, data):
         tape = [inner(state, gather(state.step, data))
                 for _ in range(unroll_steps)]

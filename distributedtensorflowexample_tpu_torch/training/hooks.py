@@ -1,5 +1,6 @@
 """Training hooks (from the JAX package's ``training/hooks.py``:
-``StopAtStepHook``, ``EvalHook`` and ``MetricsHook``).
+``StopAtStepHook``, ``CheckpointHook``, ``HeartbeatHook``, ``EvalHook``
+and ``MetricsHook``).
 
 A hook sees the loop at call boundaries; stopping is a return value.
 ``needs_sync(step)`` tells the loop that the hook will wait on the device
@@ -10,6 +11,8 @@ reads the step's metrics, which the loop then sums over the ranks first.
 """
 
 from __future__ import annotations
+
+import os
 
 
 class Hook:
@@ -52,6 +55,66 @@ class _EveryN:
             return False
         self._next = (step // self._every + 1) * self._every
         return True
+
+
+class CheckpointHook(Hook):
+    """Periodic and final checkpoints through a ``CheckpointManager``
+    (``training/checkpoint.py``)."""
+
+    def __init__(self, manager, every: int):
+        self._manager = manager
+        self._every = every
+        self._due = _EveryN(every)
+
+    def begin(self, loop) -> None:
+        self._due = _EveryN(self._every, int(loop.start_step))
+
+    def needs_sync(self, step) -> bool:
+        return self._due.due(step)
+
+    def after_step(self, step, state, metrics) -> bool:
+        if self._due(step):
+            self._manager.save(step, state)
+        return False
+
+    def end(self, state) -> None:
+        self._manager.save(int(state.step), state)
+        self._manager.wait()
+
+
+def touch_heartbeat(path: str) -> None:
+    """Create or refresh the beat file.  Swallows OSError: a full disk
+    must not kill the run the beat protects."""
+    try:
+        with open(path, "a"):
+            pass
+        os.utime(path)
+    except OSError:
+        pass
+
+
+class HeartbeatHook(Hook):
+    """Touch ``path`` at call boundaries, so an external watchdog can tell
+    a slow but live run from a step that never returns: the touches stop.
+    The engine installs it when ``SUPERVISE_HEARTBEAT`` names the
+    file."""
+
+    def __init__(self, path: str, every: int = 1):
+        self._path = path
+        self._every = max(1, every)
+        self._due = _EveryN(self._every)
+
+    def begin(self, loop) -> None:
+        self._due = _EveryN(self._every, int(loop.start_step))
+        touch_heartbeat(self._path)
+
+    def after_step(self, step, state, metrics) -> bool:
+        if self._due(step):
+            touch_heartbeat(self._path)
+        return False
+
+    def end(self, state) -> None:
+        touch_heartbeat(self._path)
 
 
 class EvalHook(Hook):

@@ -21,9 +21,11 @@ class TrainLoop:
     def __init__(self, train_step, batches: Iterator, num_steps: int,
                  hooks: Iterable[Hook] = (),
                  logger: MetricsLogger | None = None,
-                 steps_per_call: int = 1, reduce_metrics=None):
+                 steps_per_call: int = 1, reduce_metrics=None,
+                 should_stop=None):
         """``steps_per_call``: global steps one ``train_step`` call
-        advances (the indexed step's ``unroll_steps``)."""
+        advances (the indexed step's ``unroll_steps``); ``should_stop``:
+        a zero-argument callable polled at each call boundary."""
         self._reduce = reduce_metrics
         self._train_step = train_step
         self._batches = batches
@@ -32,6 +34,7 @@ class TrainLoop:
         self._hooks = list(hooks)
         self._logger = logger or MetricsLogger()
         self._spc = max(1, steps_per_call)
+        self._should_stop = should_stop
         self.start_step = 0
 
     def run(self, state):
@@ -40,24 +43,55 @@ class TrainLoop:
         for h in self._hooks:
             h.begin(self)
         self._logger.start(start)
-        for step in range(start + self._spc, self._num_steps + 1, self._spc):
-            batch = next(self._batches)
-            state, metrics = self._train_step(state, batch)
-            if self._prefetch is not None:
-                self._prefetch()
-            if self._reduce is not None and (
-                    self._logger.due(step)
-                    or any(h.reads_metrics(step) for h in self._hooks)):
-                metrics = self._reduce(metrics)
-            self._logger.maybe_log(step, metrics)
-            if any(h.needs_sync(step) for h in self._hooks):
-                self._logger.sync()
-            t_hooks = time.perf_counter()
-            stops = [h.after_step(step, state, metrics) for h in self._hooks]
-            self._logger.exclude(time.perf_counter() - t_hooks)
-            if any(stops):
-                break
-        self._logger.sync()
+        interrupted = None
+        try:
+            for step in range(start + self._spc, self._num_steps + 1,
+                              self._spc):
+                if self._should_stop is not None and self._should_stop():
+                    break
+                state, stop = self._step(step, state)
+                if stop:
+                    break
+        except KeyboardInterrupt as e:
+            # The end hooks save ``state`` (the step updates it in place,
+            # so an interrupt inside the optimizer's apply leaves that
+            # step half applied; SIGTERM, polled above, never does).  Say
+            # so: the save takes time, and a pause invites a second Ctrl-C.
+            self._logger.note(f"interrupted at step {int(state.step)}: "
+                              f"running the exit hooks (final checkpoint) "
+                              f"before exiting")
+            interrupted = e
+        try:
+            self._logger.sync()
+        except KeyboardInterrupt as e:
+            interrupted = interrupted or e
         for h in self._hooks:
-            h.end(state)
+            try:
+                h.end(state)
+            except KeyboardInterrupt as e:
+                self._logger.note("interrupt during the exit hooks: still "
+                                  "running the remaining ones before "
+                                  "exiting")
+                interrupted = interrupted or e
+        if interrupted is not None:
+            raise interrupted
         return state
+
+    def _step(self, step: int, state) -> tuple:
+        """One call boundary: the train step, the log, the hooks; the
+        state, and True when a hook asks to stop."""
+        batch = next(self._batches)
+        state, metrics = self._train_step(state, batch)
+        if self._prefetch is not None:
+            self._prefetch()
+        if self._reduce is not None and (
+                self._logger.due(step)
+                or any(h.reads_metrics(step) for h in self._hooks)):
+            metrics = self._reduce(metrics)
+        self._logger.maybe_log(step, metrics)
+        if any(h.needs_sync(step) for h in self._hooks):
+            self._logger.sync()
+        t_hooks = time.perf_counter()
+        stops = [h.after_step(step, state, metrics) for h in self._hooks]
+        self._logger.exclude(time.perf_counter() - t_hooks)
+        return state, any(stops)

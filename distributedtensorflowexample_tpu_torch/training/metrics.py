@@ -85,6 +85,11 @@ class MetricsLogger:
         if self._file:
             self._file.write(json.dumps({"step": step, **fetched}) + "\n")
 
+    def note(self, text: str) -> None:
+        """Print a line, on the chief only."""
+        if self._is_chief:
+            print(text, flush=True)
+
     def scalar(self, step: int, name: str, value: float) -> None:
         if not self._is_chief:
             return

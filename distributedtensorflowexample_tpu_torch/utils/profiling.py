@@ -1,7 +1,7 @@
 """Where a training step's time goes on the card.
 
     python -m distributedtensorflowexample_tpu_torch.utils.profiling \
-        [--model mnist_cnn | lm_base | resnet20] \
+        [--model mnist_cnn | mnist_cnn_async | lm_base | resnet20] \
         [--batch 64 256] [--steps 100] [--warmup 50] [--dequant_impl ...]
 
 Builds the train step with ``Engine.build`` from the trainer's own config
@@ -12,7 +12,10 @@ resident on the card, at B=16 with ``--pallas_ce`` and
 ``--fused_optimizer``; for ``resnet20`` config 4's
 (``trainer_mirrored_cifar``: weight decay, the crop and flip), synthetic
 CIFAR-10 resident on the card, at B=128 with ``--dequant_impl pallas``
-and ``--pallas_ce`` (weight decay rules out the SGD kernel).  It warms the step up, then for each batch size
+and ``--pallas_ce`` (weight decay rules out the SGD kernel); for
+``mnist_cnn_async`` config 2's (``trainer_ps_mnist``: async local SGD,
+one worker) at B=64 with the same two flags (the fused apply is refused
+in async mode).  It warms the step up, then for each batch size
 prints one JSON line with:
 
 - ``wall_ms_per_step``: host clock around ``--steps`` steps ending in
@@ -46,14 +49,14 @@ from distributedtensorflowexample_tpu_torch.device import resolve_device
 from distributedtensorflowexample_tpu_torch.engine import Engine, RunSpec
 from distributedtensorflowexample_tpu_torch.parallel.mesh import Mesh
 from distributedtensorflowexample_tpu_torch.trainers import (
-    trainer_lm, trainer_mirrored_cifar, trainer_sync_mnist)
+    trainer_lm, trainer_mirrored_cifar, trainer_ps_mnist, trainer_sync_mnist)
 
 #: Substrings of the port kernels' device names.
 PORT_KERNELS = {"dequant": "dequant_gather_kernel", "ce_fwd": "ce_fwd_kernel",
                 "ce_bwd": "ce_bwd_kernel", "sgd": "sgd_momentum_kernel"}
 KERNEL_FLAGS = ["--dequant_impl", "pallas", "--pallas_ce", "true",
                 "--fused_optimizer", "true"]
-MODELS = ("mnist_cnn", "lm_base", "resnet20")
+MODELS = ("mnist_cnn", "mnist_cnn_async", "lm_base", "resnet20")
 
 
 def workload(model: str, argv: list) -> tuple:
@@ -63,6 +66,11 @@ def workload(model: str, argv: list) -> tuple:
         cfg = trainer_sync_mnist.build_config(
             KERNEL_FLAGS + ["--dataset", "synthetic"] + argv)
         return RunSpec(model, "mnist", cfg), [64, 256]
+    if model == "mnist_cnn_async":
+        cfg = trainer_ps_mnist.build_config(
+            ["--dequant_impl", "pallas", "--pallas_ce", "true",
+             "--dataset", "synthetic"] + argv)
+        return RunSpec("mnist_cnn", "mnist", cfg), [64]
     if model == "lm_base":
         size, cfg = trainer_lm.build_config(
             ["--size", model, "--pallas_ce", "true", "--fused_optimizer",
@@ -148,7 +156,8 @@ def profile_step(spec: RunSpec, steps: int, warmup: int) -> dict:
         port[name] = (sum(_device_us(e) for e in hits) / calls
                       if calls else None)
         port_calls[name] = calls / steps
-    return {"model": spec.model, "batch": cfg.batch_size, "steps": steps,
+    return {"model": spec.model, "sync_mode": cfg.sync_mode,
+            "batch": cfg.batch_size, "steps": steps,
             "wall_ms_per_step": wall_ms,
             "device_busy_ms_per_step": busy_ms,
             "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),

@@ -239,3 +239,67 @@ def test_two_gloo_ranks_on_one_card(cuda, tmp_path):
         assert r["num_chips"] == 1
         assert r["launches"] == {"dequant": 20 + r["eval_batches"],
                                  "ce_fwd": 20, "ce_bwd": 20, "sgd": 20}
+
+
+def test_checkpoint_round_trip_of_state_on_the_card(cuda, tmp_path,
+                                                   monkeypatch):
+    """State that lives on the card (parameters, momentum, the dropout
+    generator of ``cuda:0``) through a checkpoint and back: bitwise, and
+    the restored state's next steps draw the same dropout masks."""
+    from distributedtensorflowexample_tpu_torch.config import parse_flags
+    from distributedtensorflowexample_tpu_torch.data.synthetic import (
+        make_synthetic)
+    from distributedtensorflowexample_tpu_torch.engine import Engine, RunSpec
+    from distributedtensorflowexample_tpu_torch.parallel.mesh import Mesh
+    from distributedtensorflowexample_tpu_torch.training.checkpoint import (
+        CheckpointManager)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    data = make_synthetic(256, (28, 28, 1), 10, seed=0, sample_seed=1)
+    engine = Engine(RunSpec("mnist_cnn", "mnist", parse_flags(
+        ["--device", "cuda", "--momentum", "0.9", "--batch_size", "32",
+         "--fused_optimizer", "true", "--pallas_ce", "true",
+         "--dequant_impl", "pallas"])))
+    mesh = Mesh(cuda)
+    built = engine.build(mesh, data=data)
+    for _ in range(3):
+        built.step(built.state, next(built.ds))
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(built.state.step, built.state)
+    mgr.wait()
+    restored = engine.create_state(mesh)
+    CheckpointManager(str(tmp_path)).restore(restored)
+    states = [built.state, restored]
+    opts = [s.optimizer for s in states]
+    assert restored.step == 3 and opts[1].count == 3
+    assert opts[1].params_flat.device.type == "cuda"
+    for name in ("params_flat", "momentum_flat"):
+        assert torch.equal(getattr(opts[0], name), getattr(opts[1], name))
+    assert torch.equal(built.state.generator.get_state(),
+                       restored.generator.get_state())
+    again = engine.build(mesh, data=data, state=restored)
+    for _ in range(2):
+        built.step(built.state, next(built.ds))
+        again.step(again.state, next(again.ds))
+    assert torch.equal(opts[0].params_flat, opts[1].params_flat)
+
+
+def test_config2_launches_dequant_and_ce_not_sgd(cuda, tmp_path,
+                                                 monkeypatch):
+    """A short config-2 run on the card: the dequant kernel once per step
+    and per eval batch, the CE pair once per step, SGD never (refused in
+    async mode), and a finite, falling loss."""
+    from distributedtensorflowexample_tpu_torch.data import mnist
+    from distributedtensorflowexample_tpu_torch.trainers import (
+        trainer_ps_mnist)
+    monkeypatch.setattr(mnist, "_SYNTH_SIZES", {"train": 2048, "test": 512})
+    kernels.reset_launch_counts()
+    summary = trainer_ps_mnist.main([
+        "--dataset", "synthetic", "--train_steps", "40", "--batch_size",
+        "32", "--log_every", "20", "--dequant_impl", "pallas",
+        "--pallas_ce", "true", "--log_dir", str(tmp_path)])
+    assert summary["device"].startswith("cuda")
+    assert kernels.launch_counts() == {
+        "dequant": 40 + summary["eval_batches"], "ce_fwd": 40,
+        "ce_bwd": 40, "sgd": 0}
+    losses = [l for _, l in summary["loss_tape"]]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]

@@ -251,9 +251,12 @@ def test_cli_converges_on_cpu(small_torch_mnist, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--sync_mode", "async"], ["--bucket_grads", "auto"],
+    # async is ported; the fused apply is refused in it, as in JAX
+    ["--sync_mode", "async", "--fused_optimizer", "true"],
+    ["--bucket_grads", "auto"],
     ["--shard_update", "true"], ["--shard_params", "true"],
     ["--data_sharding", "sharded"], ["--device_data", "off"],
+    # checkpoints are ported; they need a --log_dir (the test's is "")
     ["--checkpoint_every", "10"],
     ["--bucket_grads", "auto", "--num_devices", "2"],
     ["--dequant_impl", "onehot"], ["--dequant_impl", "lut"],
@@ -274,6 +277,15 @@ def test_unported_modes_are_refused_by_name(small_torch_mnist, flags):
                                 + flags)
 
 
+def test_async_is_refused_by_name_for_a_batch_norm_model():
+    from distributedtensorflowexample_tpu_torch.trainers import (
+        trainer_mirrored_cifar)
+    with pytest.raises(ModeRefusal, match="--sync_mode async for resnet20"):
+        trainer_mirrored_cifar.main(["--device", "cpu", "--dataset",
+                                     "synthetic", "--sync_mode", "async",
+                                     "--log_dir", ""])
+
+
 def test_auto_steps_per_loop_matches_the_jax_engine():
     from distributedtensorflowexample_tpu.engine.engine import (
         auto_steps_per_loop as jax_auto)
@@ -284,6 +296,12 @@ def test_auto_steps_per_loop_matches_the_jax_engine():
             for iv in ((100, 0), (20, 30), (7, 0)):
                 assert auto_steps_per_loop(remaining, spe, intervals=iv) == \
                     jax_auto(remaining, spe, intervals=iv)
+            # a resumed run: the checkpoint interval and the start step
+            for iv, start in (((100, 0, 50), 150), ((20, 30, 40), 12),
+                              ((7, 0, 3), 3)):
+                assert auto_steps_per_loop(remaining, spe, intervals=iv,
+                                           start=start) == \
+                    jax_auto(remaining, spe, intervals=iv, start=start)
 
 
 def test_loop_hooks_stop_and_sample_at_their_marks():
