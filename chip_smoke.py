@@ -8,8 +8,10 @@ one card, and an NCCL group over the visible cards, that configs 1,
 4 and 5 (MNIST softmax; CIFAR-10 ResNet-20 with weight decay, the
 on-device crop and flip and global-batch batch norm) train through
 their trainers, that a run resumes from its checkpoint and stops on
-SIGTERM with a save, and that config 2 (async local SGD) trains on one
-worker and on two.
+SIGTERM with a save, that config 2 (async local SGD) trains on one
+worker and on two, and that every replication mode (bucketed all-reduce,
+ZeRO-1, ZeRO-3, and async for a batch-norm model) trains on two ranks
+within its collective budget.
 
     python3 chip_smoke.py
 
@@ -127,6 +129,41 @@ J. the SIGTERM drill on the card: ``trainer_sync_mnist`` in a process of
    0; then the same for two gloo ranks on the one card started through
    ``parallel/launch.spawn`` (the launcher ``--num_devices N`` uses),
    which forwards the signal to both ranks; one ``sigterm_drill`` line;
+L. the replication modes on the two gloo ranks, under cuDNN's
+   deterministic algorithms: config 3 (``trainer_sync_mnist``, B=64 per
+   rank, the dequant and CE kernels, plain momentum SGD: the fused apply
+   is refused with the bucket knobs, as in JAX) for 50 steps in each of
+   ``sync_dp``, ``bucketed`` (``--bucket_grads auto``: B=3), ``zero1``
+   and ``zero3``: per rank the launches of phase E per step and eval
+   batch, the gradient and parameter collectives per step equal to the
+   mode's budget (``engine/spec.MODES``: sync_dp one all-reduce, bucketed
+   B all-reduces, zero1 and zero3 B reduce-scatters and B all-gathers),
+   the replicas bitwise equal, and the four modes' loss tapes and final
+   parameters bitwise equal (two-operand sums commute); then one
+   ``modes_path`` line with steps/s per mode and the host-staged ms per
+   collective of each kind at 3,274,634 float32;
+M. lm_base at full width on the two gloo ranks (B=16 x T=128 per rank,
+   ``--remat block``, lr 0.02, the CE pair), 10 steps in each of
+   ``sync_dp``, ``bucketed`` (auto), ``zero1`` and ``zero3`` with the
+   gathers overlapped and serial: the loss tapes within 1e-5 relative of
+   ``sync_dp``'s, the budgets per step, B per mode, each rank's
+   ``torch.cuda.memory_allocated`` by its state after init (and the
+   state's own tensor bytes) and its peak over the steps
+   (``torch.cuda.max_memory_allocated``, both above what was allocated
+   before the state), against sync_dp's, steps/s over the last 9
+   steps; then one ``lm_modes_path`` line (and the ms per collective at
+   57,289,728 float32);
+N. config 4's ResNet-20 in async mode on the two gloo ranks (B=128 per
+   worker, period 8, the crop and flip, dequant and CE kernels), 40
+   steps: the workers' parameters bitwise equal after each averaging and
+   only then, each worker's batch-norm statistics its own at every step,
+   one all-reduce per period and none for batch norm; one
+   ``async_bn_path`` line;
+I'. resume in ``zero3_rows`` on the two gloo ranks: config 3 under
+   ``--bucket_grads auto --shard_params true`` for 40 steps, and for 20
+   then resumed to 40 (``--checkpoint_every 20``): each rank's final
+   part (its parameter and momentum rows) bitwise equal; one
+   ``zero3_resume_path`` line;
 7. the ``kernels`` JSON line (each kernel's launches summed over every
    path and rank, and per path: per rank for the multi-rank paths, per
    run for phase I), then the ``ok`` line last.
@@ -146,6 +183,7 @@ float32 outside the tensor cores.
 from __future__ import annotations
 
 import contextlib
+import gc
 import importlib
 import io
 import json
@@ -199,6 +237,20 @@ ASYNC_STEPS = 600           # phase K, one worker
 MR_ASYNC_STEPS = 296        # phase K, two workers: a multiple of the period
 ASYNC_PERIOD = 8
 RESUME_STEPS = 200          # phase I: 100 steps, then resumed to 200
+MODE_STEPS = 50             # phase L, each mode
+MODE_LM_STEPS = 10          # phase M, each mode
+ASYNC_BN_STEPS = 40         # phase N
+Z3_RESUME_STEPS = 40        # phase I': 20 steps, then resumed to 40
+#: The replication modes' flags (phase L; lm_base takes --bucket_grads
+#: auto by default, so its sync_dp turns it off).
+MODE_FLAGS = {"sync_dp": [], "bucketed": ["--bucket_grads", "auto"],
+              "zero1": ["--bucket_grads", "auto", "--shard_update", "true"],
+              "zero3": ["--bucket_grads", "auto", "--shard_params", "true"]}
+LM_MODE_FLAGS = {"sync_dp": ["--bucket_grads", ""], "bucketed": [],
+                 "zero1": ["--shard_update", "true"],
+                 "zero3": ["--shard_params", "true"],
+                 "zero3_serial": ["--shard_params", "true",
+                                  "--zero3_overlap", "false"]}
 CNN_PARAMS = 3_274_634
 LM_PARAMS = 57_289_728
 SOURCES = {
@@ -458,7 +510,8 @@ def run_main_path(gpu: str) -> tuple[dict, dict]:
 def run_lm_main_path(gpu: str) -> tuple[dict, dict]:
     from distributedtensorflowexample_tpu_torch.trainers import trainer_lm
     argv = ["--device", "cuda", "--size", LM_SIZE, "--pallas_ce", "true",
-            "--fused_optimizer", "true", "--learning_rate", str(LM_LR),
+            "--fused_optimizer", "true", "--bucket_grads", "",
+            "--learning_rate", str(LM_LR),
             "--train_steps", str(LM_STEPS), "--log_every", "100",
             "--resume", "false",
             "--log_dir", str(ROOT / "build" / "chip_smoke_lm")]
@@ -666,7 +719,8 @@ def gloo_rank_phases() -> dict:
     out["lm_vs_one_rank"] = two_rank_lm_vs_one_rank()
     out["lm"] = run_trainer("trainer_lm", [
         "--device", "cuda", "--size", LM_SIZE, "--pallas_ce", "true",
-        "--fused_optimizer", "true", "--learning_rate", str(LM_LR),
+        "--fused_optimizer", "true", "--bucket_grads", "",
+        "--learning_rate", str(LM_LR),
         "--train_steps", str(MR_LM_STEPS), "--log_every", "10",
         "--resume", "false",
         "--log_dir", str(ROOT / "build" / "chip_smoke_gloo_lm")])
@@ -676,6 +730,357 @@ def gloo_rank_phases() -> dict:
     out["async"] = run_trainer("trainer_ps_mnist", async_argv(
         MR_ASYNC_STEPS, "chip_smoke_gloo_async", log_every=74))
     return out
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    held = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = held
+
+
+def every_kind(budget: dict) -> dict:
+    """A collective budget (``engine/spec.collective_budget``: the
+    resolved mode's, B resolved) over every kind ``Mesh.collectives``
+    counts, 0 where it has none."""
+    from distributedtensorflowexample_tpu_torch.parallel.mesh import (
+        COLLECTIVE_KINDS)
+    return {k: float(budget.get(k, 0)) for k in COLLECTIVE_KINDS}
+
+
+def mode_argv(mode: str, steps: int, log_dir: str, *extra) -> list:
+    """Config 3 on the card with the dequant and CE kernels and plain
+    momentum SGD, in ``mode``."""
+    return ["--device", "cuda", "--dataset", "synthetic", "--dequant_impl",
+            "pallas", "--pallas_ce", "true", "--train_steps", str(steps),
+            "--batch_size", str(BATCH), "--log_every", "10",
+            "--log_dir", str(ROOT / "build" / log_dir), *MODE_FLAGS[mode],
+            *extra]
+
+
+def lm_mode_runs(mesh) -> dict:
+    """Phase M in one rank: lm_base in each mode of ``LM_MODE_FLAGS``
+    through ``Engine.build`` (``trainer_lm``'s config), from one seed and
+    one index tape: the tape, the state's device bytes after init, the
+    peak bytes of the steps (both above what was allocated before the
+    state was made), the collectives per step and the resolved mode's
+    budget, steps/s, the launches."""
+    from distributedtensorflowexample_tpu_torch.engine.spec import (
+        collective_budget)
+    from distributedtensorflowexample_tpu_torch.data.lm import load_lm
+    from distributedtensorflowexample_tpu_torch.engine import Engine, RunSpec
+    from distributedtensorflowexample_tpu_torch.trainers import trainer_lm
+    x, y = load_lm("", "train", num=256)
+    perm = np.random.RandomState(0).permutation(256)
+    out = {}
+    for mode, flags in LM_MODE_FLAGS.items():
+        size, cfg = trainer_lm.build_config([
+            "--size", LM_SIZE, "--device", "cuda", "--pallas_ce", "true",
+            "--learning_rate", str(LM_LR), "--batch_size", str(LM_BATCH),
+            *flags])
+        engine = Engine(RunSpec(size, "lm", cfg))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        state, layout = engine.laid_out_state(mesh)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated() - before
+        built = engine.build(mesh, data=(x, y), state=state,
+                             zero3_layout=layout, perm_fn=lambda e: perm)
+        kernels.reset_launch_counts()
+        counted = dict(mesh.collectives)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tape = []
+        for i in range(MODE_LM_STEPS):
+            if i == 1:              # the first step warms the card up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            metrics = built.step(built.state, next(built.ds))[1]
+            tape.append(float(mesh.sum_metrics(metrics)["loss"]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        opt = state.optimizer
+        buckets = None if built.plan is None else built.plan.num_buckets
+        tensors = [opt.params_flat, opt.grads_flat, opt.momentum_flat,
+                   *(opt.params_rows or ()), *(opt.momentum_rows or ())]
+        out[mode] = {
+            "tape": tape, "state_bytes_after_init": resident,
+            "peak_bytes_in_steps": peak - before,
+            "state_tensor_bytes": sum(t.numel() * t.element_size()
+                                      for t in tensors if t is not None),
+            "steps_per_sec": (MODE_LM_STEPS - 1) / wall,
+            "num_buckets": buckets,
+            "budget": every_kind(collective_budget(cfg, mesh.size, buckets)),
+            "collectives": {k: (mesh.collectives[k] - counted[k])
+                            / MODE_LM_STEPS for k in counted},
+            "launches": kernels.launch_counts(), "mode": built.mode}
+        del state, built, layout, opt, tensors
+    return out
+
+
+def async_bn_run(mesh) -> dict:
+    """Phase N in one rank: config 4 in async mode through
+    ``Engine.build`` (``trainer_mirrored_cifar``'s config): this worker's
+    parameter and statistics digests after every step, the launches and
+    the all-reduces."""
+    import hashlib
+
+    from distributedtensorflowexample_tpu_torch.engine import Engine, RunSpec
+    from distributedtensorflowexample_tpu_torch.trainers import (
+        trainer_mirrored_cifar)
+    cfg = trainer_mirrored_cifar.build_config([
+        "--device", "cuda", "--dataset", "synthetic", "--dequant_impl",
+        "pallas", "--pallas_ce", "true", "--sync_mode", "async",
+        "--async_period", str(ASYNC_PERIOD)])
+    built = Engine(RunSpec("resnet20", "cifar10", cfg, augment=True)).build(
+        mesh)
+    state = built.state
+    digest = lambda ts: hashlib.sha256(b"".join(
+        t.detach().cpu().numpy().tobytes() for t in ts)).hexdigest()[:16]
+    kernels.reset_launch_counts()
+    before = mesh.all_reduces
+    digests, tape, rates = [], [], []
+    t0 = time.perf_counter()
+    for _ in range(ASYNC_BN_STEPS):
+        rates.append(state.optimizer.learning_rate())
+        metrics = built.step(state, next(built.ds))[1]
+        tape.append(float(mesh.sum_metrics(metrics)["loss"]))
+        digests.append((digest([state.optimizer.params_flat]),
+                        digest(list(state.model.buffers()))))
+    torch.cuda.synchronize()
+    return {"digests": digests, "tape": tape, "learning_rates": rates,
+            "steps_per_sec": ASYNC_BN_STEPS / (time.perf_counter() - t0),
+            "launches": kernels.launch_counts(),
+            "all_reduces": mesh.all_reduces - before,
+            "batch_per_worker": cfg.batch_size}
+
+
+def zero3_resume_runs() -> dict:
+    """Phase I' in one rank: config 3 under ZeRO-3, 40 steps straight and
+    20 then resumed to 40; each run's summary and launches, and this
+    rank's final parts."""
+    dirs = ("chip_smoke_z3_straight", "chip_smoke_z3_resumed")
+    half = Z3_RESUME_STEPS // 2
+    runs = []
+    for log_dir, steps in ((dirs[0], Z3_RESUME_STEPS), (dirs[1], half),
+                           (dirs[1], Z3_RESUME_STEPS)):
+        runs.append(run_trainer("trainer_sync_mnist", mode_argv(
+            "zero3", steps, log_dir, "--checkpoint_every", str(half))))
+    rank = dist.get_rank()
+    parts = [torch.load(ROOT / "build" / d / "checkpoints"
+                        / str(Z3_RESUME_STEPS) / f"rank-{rank}.pt",
+                        weights_only=True) for d in dirs]
+    same = all(torch.equal(a, b) for key in ("params_rows", "momentum_rows")
+               for a, b in zip(parts[0][key], parts[1][key]))
+    return {"runs": runs, "bitwise": same,
+            "rows": len(parts[0]["params_rows"]),
+            "part_bytes": os.path.getsize(
+                ROOT / "build" / dirs[0] / "checkpoints"
+                / str(Z3_RESUME_STEPS) / f"rank-{rank}.pt")}
+
+
+def mode_rank_phases(phases: tuple) -> dict:
+    """Phases L, M, N and I' (those in ``phases``) in one of the two gloo
+    ranks on ``cuda:0``, under cuDNN's deterministic algorithms."""
+    from distributedtensorflowexample_tpu_torch.utils.profiling import (
+        collective_ms)
+    out = {}
+    with deterministic_cudnn():
+        if "L" in phases:
+            out["L"] = {mode: run_trainer("trainer_sync_mnist", mode_argv(
+                mode, MODE_STEPS, f"chip_smoke_{mode}", "--resume", "false"))
+                for mode in MODE_FLAGS}
+            out["L_collective_ms"] = collective_ms(make_mesh("cuda"),
+                                                   CNN_PARAMS, 20)
+        if "M" in phases:
+            mesh = make_mesh("cuda")
+            out["M"] = lm_mode_runs(mesh)
+            out["M_collective_ms"] = collective_ms(mesh, LM_PARAMS, 5)
+        if "N" in phases:
+            out["N"] = async_bn_run(make_mesh("cuda"))
+        if "I'" in phases:
+            if dist.get_rank() == 0:
+                for d in ("chip_smoke_z3_straight", "chip_smoke_z3_resumed"):
+                    shutil.rmtree(ROOT / "build" / d, ignore_errors=True)
+            dist.barrier()
+            out["I'"] = zero3_resume_runs()
+    return out
+
+
+def run_mode_phases(gpu: str, phases: tuple) -> dict:
+    """Phases L, M, N and I' on the two gloo ranks: the checks and their
+    JSON lines; the launch counts by path."""
+    ranks = launch.spawn(mode_rank_phases, MR_RANKS, "gloo", (phases,),
+                         timeout_s=900)
+    by_path = {}
+    if "L" in phases:
+        by_path.update(check_mode_phase(ranks, gpu))
+    if "M" in phases:
+        by_path.update(check_lm_mode_phase(ranks, gpu))
+    if "N" in phases:
+        by_path.update(check_async_bn_phase(ranks, gpu))
+    if "I'" in phases:
+        by_path.update(check_zero3_resume_phase(ranks, gpu))
+    return by_path
+
+
+def check_mode_phase(ranks: list, gpu: str) -> dict:
+    runs = {mode: [r["L"][mode] for r in ranks] for mode in MODE_FLAGS}
+    print(runs["zero3"][0]["text"], end="")
+    for mode, rs in runs.items():
+        evals = rs[0]["eval_batches"]
+        for r in rs:
+            require(r["steps"] == MODE_STEPS and r["mode"] == mode,
+                    f"phase L: {mode} ran {r['mode']} for {r['steps']} steps")
+            require(r["launches"] == dequant_ce_expect(MODE_STEPS, evals),
+                    f"phase L: {mode} rank {r['rank']} launch counts "
+                    f"{r['launches']}")
+            per_step = {k: v / MODE_STEPS for k, v in r["collectives"].items()}
+            want = every_kind(r["collective_budget"])
+            require(per_step == want, f"phase L: {mode} rank {r['rank']} "
+                                      f"collectives per step {per_step}, "
+                                      f"budget {want}")
+            losses = [l for _, l in r["loss_tape"]]
+            require(all(np.isfinite(losses)), f"phase L: {mode} {losses}")
+        require(len({r["params_digest"] for r in rs}) == 1,
+                f"phase L: {mode}: the replicas differ")
+    ref = runs["sync_dp"][0]
+    for mode, rs in runs.items():
+        require(rs[0]["loss_tape"] == ref["loss_tape"]
+                and rs[0]["params_digest"] == ref["params_digest"],
+                f"phase L: {mode} is not bitwise sync_dp: tape "
+                f"{rs[0]['loss_tape']} against {ref['loss_tape']}, "
+                f"parameters {rs[0]['params_digest']} against "
+                f"{ref['params_digest']}")
+    print(json.dumps({"modes_path": {
+        "model": "mnist_cnn", "ranks": MR_RANKS, "backend": "gloo",
+        "steps": MODE_STEPS, "batch_per_rank": BATCH,
+        "num_buckets": {m: rs[0]["num_buckets"] for m, rs in runs.items()},
+        "steps_per_sec": {m: rs[0]["steps_per_sec"] for m, rs in
+                          runs.items()},
+        "collectives_per_step": {m: {k: v / MODE_STEPS for k, v in
+                                     rs[0]["collectives"].items()}
+                                 for m, rs in runs.items()},
+        "collective_ms_host_staged": [r["L_collective_ms"] for r in ranks],
+        "collective_numel": CNN_PARAMS,
+        "bitwise_across_modes": True, "loss_tape": ref["loss_tape"],
+        "final_accuracy": ref["final_accuracy"],
+        "params_digest": ref["params_digest"], "gpu": gpu}}), flush=True)
+    return {f"mnist_cnn_{mode}_gloo2": [r["launches"] for r in rs]
+            for mode, rs in runs.items()}
+
+
+def check_lm_mode_phase(ranks: list, gpu: str) -> dict:
+    runs = {mode: [r["M"][mode] for r in ranks] for mode in LM_MODE_FLAGS}
+    ref = np.array(runs["sync_dp"][0]["tape"])
+    rel = {}
+    for mode, rs in runs.items():
+        tape = np.array(rs[0]["tape"])
+        require(all(r["tape"] == rs[0]["tape"] for r in rs)
+                and np.all(np.isfinite(tape)),
+                f"phase M: {mode} tapes {[r['tape'] for r in rs]}")
+        rel[mode] = float(np.max(np.abs(tape - ref) / np.abs(ref)))
+        require(rel[mode] <= 1e-5, f"phase M: {mode}'s tape is {rel[mode]:.3g}"
+                                   f" relative from sync_dp's ({tape} "
+                                   f"against {ref})")
+        decl = "zero3" if mode == "zero3_serial" else mode
+        for r in rs:
+            want = r["budget"]
+            require(r["collectives"] == want and r["mode"] == decl,
+                    f"phase M: {mode} ran {r['mode']}, collectives per step "
+                    f"{r['collectives']}, budget {want}")
+            require(r["launches"] == {"dequant": 0, "ce_fwd": MODE_LM_STEPS,
+                                      "ce_bwd": MODE_LM_STEPS, "sgd": 0},
+                    f"phase M: {mode} launch counts {r['launches']}")
+    print(json.dumps({"lm_modes_path": {
+        "model": LM_SIZE, "params": LM_PARAMS, "ranks": MR_RANKS,
+        "backend": "gloo", "steps": MODE_LM_STEPS,
+        "batch_per_rank": LM_BATCH, "seq_len": 128, "remat": "block",
+        "learning_rate": LM_LR,
+        "num_buckets": {m: rs[0]["num_buckets"] for m, rs in runs.items()},
+        "steps_per_sec": {m: rs[0]["steps_per_sec"] for m, rs in
+                          runs.items()},
+        "state_bytes_after_init_by_rank": {
+            m: [r["state_bytes_after_init"] for r in rs]
+            for m, rs in runs.items()},
+        "state_tensor_bytes": {m: rs[0]["state_tensor_bytes"]
+                               for m, rs in runs.items()},
+        "peak_bytes_in_steps_by_rank": {
+            m: [r["peak_bytes_in_steps"] for r in rs]
+            for m, rs in runs.items()},
+        "collectives_per_step": {m: rs[0]["collectives"] for m, rs in
+                                 runs.items()},
+        "tape_max_rel_to_sync_dp": rel,
+        "bitwise_to_sync_dp": {m: rel[m] == 0.0 for m in rel},
+        "collective_ms_host_staged": [r["M_collective_ms"] for r in ranks],
+        "collective_numel": LM_PARAMS, "tape": runs["sync_dp"][0]["tape"],
+        "gpu": gpu}}), flush=True)
+    return {f"{LM_SIZE}_{mode}_gloo2": [r["launches"] for r in rs]
+            for mode, rs in runs.items()}
+
+
+def check_async_bn_phase(ranks: list, gpu: str) -> dict:
+    rs = [r["N"] for r in ranks]
+    for s in range(ASYNC_BN_STEPS):
+        params = {r["digests"][s][0] for r in rs}
+        stats = {r["digests"][s][1] for r in rs}
+        # the warmup's first step has learning rate 0: nothing moves
+        averaged = ((s + 1) % ASYNC_PERIOD == 0
+                    or not any(rs[0]["learning_rates"][:s + 1]))
+        require(len(params) == (1 if averaged else MR_RANKS),
+                f"phase N: after step {s + 1} the workers' parameters are "
+                f"{'not ' if averaged else ''}equal")
+        require(len(stats) == MR_RANKS,
+                f"phase N: after step {s + 1} the workers share their "
+                f"batch-norm statistics")
+    for r in rs:
+        require(r["launches"] == dequant_ce_expect(ASYNC_BN_STEPS, 0),
+                f"phase N: launch counts {r['launches']}")
+        require(r["all_reduces"] == ASYNC_BN_STEPS // ASYNC_PERIOD,
+                f"phase N: {r['all_reduces']} all-reduces")
+        require(np.all(np.isfinite(r["tape"])), f"phase N: {r['tape']}")
+    print(json.dumps({"async_bn_path": {
+        "model": "resnet20", "workers": MR_RANKS, "backend": "gloo",
+        "steps": ASYNC_BN_STEPS, "batch_per_worker": rs[0]["batch_per_worker"],
+        "async_period": ASYNC_PERIOD, "steps_per_sec": rs[0]["steps_per_sec"],
+        "param_all_reduces": rs[0]["all_reduces"], "loss_tape": rs[0]["tape"],
+        "launches_by_rank": [r["launches"] for r in rs], "gpu": gpu}}),
+        flush=True)
+    return {"resnet20_async_gloo2": [r["launches"] for r in rs]}
+
+
+def check_zero3_resume_phase(ranks: list, gpu: str) -> dict:
+    rs = [r["I'"] for r in ranks]
+    half = Z3_RESUME_STEPS // 2
+    for r in rs:
+        straight, first, resumed = r["runs"]
+        require(resumed["start_step"] == half
+                and resumed["update_layout"] == "zero3_rows",
+                f"phase I': the resumed run started at "
+                f"{resumed['start_step']} in {resumed['update_layout']}")
+        require(r["bitwise"], "phase I': the resumed rows differ from the "
+                              "straight run's")
+        require(straight["params_digest"] == resumed["params_digest"],
+                "phase I': the gathered parameters differ")
+        for run, steps in zip(r["runs"], (Z3_RESUME_STEPS, half, half)):
+            require(run["launches"] == dequant_ce_expect(
+                steps, run["eval_batches"]),
+                f"phase I': launch counts {run['launches']}")
+    print(json.dumps({"zero3_resume_path": {
+        "model": "mnist_cnn", "ranks": MR_RANKS, "steps": Z3_RESUME_STEPS,
+        "resumed_at": half, "bitwise": True, "buckets": rs[0]["rows"],
+        "part_bytes_by_rank": [r["part_bytes"] for r in rs],
+        "steps_per_sec": [run["steps_per_sec"] for run in rs[0]["runs"]],
+        "gpu": gpu}}), flush=True)
+    return {"mnist_cnn_zero3_resume_gloo2": [
+        {k: sum(run["launches"][k] for run in r["runs"])
+         for k in SOURCES} for r in rs]}
 
 
 def nccl_rank(argv: list) -> dict:
@@ -1110,7 +1515,6 @@ def main() -> int:
         print(json.dumps({"ptxas": name,
                           "kernels": kt.ptxas_summary(r["ptxas"])}),
               flush=True)
-
     gen = torch.Generator(device="cuda").manual_seed(0)
     print(json.dumps({"floor_device_us": kt.floor_device_us(), "gpu": gpu}),
           flush=True)
@@ -1168,6 +1572,7 @@ def main() -> int:
     by_path.update(run_multiworker_phase(gpu))
     by_path.update(run_resume_phase(gpu))
     run_drill_phase(gpu)
+    by_path.update(run_mode_phases(gpu, ("L", "M", "N", "I'")))
 
     line = []
     for name, (source, replaces) in SOURCES.items():

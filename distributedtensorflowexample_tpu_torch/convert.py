@@ -29,6 +29,21 @@ is worker-tiled: every leaf has a leading worker axis W.  The port runs
 worker w as rank w, so :func:`worker_slice` takes worker w's copy of a
 tree, to load into rank w's state.
 
+A batch-norm model in async mode keeps one ``batch_stats`` per worker:
+the JAX package tiles it with the parameters, and ``worker_slice`` of
+the tiled tree is rank w's buffers (:func:`load_into_state`'s
+``batch_stats``).
+
+The ZeRO modes keep state as bucket rows (``parallel/bucketing.py``):
+bucket b is a ``[D, W_b]`` layout of its leaves, raveled to ``[D*W_b]``
+in the JAX package (``Zero3Layout.init_rows``, the momentum traces of
+``init_bucketed_opt_state``), and held as row d on rank d in the port.
+The leaves are laid out in each side's own leaf layout (a conv kernel
+HWIO in flax, OIHW in the port), so :func:`jax_rows_to_port` and
+:func:`port_rows_to_jax` cut the rows into leaves, convert each, and lay
+them out again; the plan (bucket membership, widths and padding) is the
+same on both sides.
+
 The momentum comes either as a params-shaped tree (``optax.sgd``'s
 ``TraceState.trace``) or as the Pallas fused optimizer's flat
 ``FusedSgdState.trace``: a ``(rows, 128)`` float32 buffer holding the
@@ -44,6 +59,16 @@ from typing import Collection
 import numpy as np
 
 _LANES = 128
+
+
+def _to_flax(leaf: str, x: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`_to_port` for a leaf whose flax name is known."""
+    x = np.asarray(x)
+    if leaf != "kernel":
+        return x
+    if x.ndim == 4:                                   # OIHW -> HWIO
+        return np.ascontiguousarray(x.transpose(2, 3, 1, 0))
+    return np.ascontiguousarray(x.T)
 
 
 def _to_port(leaf: str, x: np.ndarray) -> tuple[str, np.ndarray]:
@@ -129,6 +154,68 @@ def worker_slice(tree: dict, worker: int) -> dict:
     return {k: worker_slice(v, worker) if isinstance(v, dict)
             else np.array(np.asarray(v)[worker], copy=True)
             for k, v in tree.items()}
+
+
+def _row_plan(params_like: dict, bucket_bytes: int):
+    """``(leaves with their flax paths in JAX order, the bucket plan)``."""
+    from distributedtensorflowexample_tpu_torch.parallel.bucketing import (
+        plan_buckets)
+    leaves = _flatten_order(params_like)
+    return leaves, plan_buckets([x for _, x in leaves], bucket_bytes)
+
+
+def _relayout_rows(full: np.ndarray, leaves, idxs, convert) -> np.ndarray:
+    """A bucket's ``[D, W]`` rows with every leaf passed through
+    ``convert(flax_path, leaf) -> leaf`` (another layout of the same
+    elements) and laid out again."""
+    d = full.shape[0]
+    cols, off = [], 0
+    for i in idxs:
+        path, like = leaves[i]
+        w = -(-like.size // d)
+        piece = full[:, off:off + w].reshape(-1)[:like.size]
+        out = np.asarray(convert(path, piece)).reshape(-1)
+        cols.append(np.pad(out, (0, d * w - out.size)).reshape(d, w))
+        off += w
+    return np.concatenate(cols, axis=1)
+
+
+def jax_rows_to_port(rows, params_like: dict, bucket_bytes: int,
+                     num_devices: int) -> list[list[np.ndarray]]:
+    """The JAX package's bucket rows (one ``[D*W_b]`` array per bucket, of
+    the parameters or of a params-shaped moment) -> the port's,
+    ``[rank][bucket] -> [W_b]``.  ``params_like``: the flax params tree
+    (for the leaves' names and shapes)."""
+    leaves, plan = _row_plan(params_like, bucket_bytes)
+    shapes = {path: x.shape for path, x in leaves}
+
+    def to_port(path, x):
+        return _to_port(path[-1], x.reshape(shapes[path]))[1]
+
+    out = [[None] * len(plan) for _ in range(num_devices)]
+    for b, idxs in enumerate(plan):
+        full = np.asarray(rows[b], np.float32).reshape(num_devices, -1)
+        port = _relayout_rows(full, leaves, idxs, to_port)
+        for d in range(num_devices):
+            out[d][b] = port[d].copy()
+    return out
+
+
+def port_rows_to_jax(rank_rows, params_like: dict,
+                     bucket_bytes: int) -> tuple:
+    """Inverse of :func:`jax_rows_to_port`: every rank's rows
+    (``[rank][bucket]``) -> one ``[D*W_b]`` array per bucket."""
+    leaves, plan = _row_plan(params_like, bucket_bytes)
+    shapes = {path: _to_port(path[-1], x)[1].shape for path, x in leaves}
+
+    def to_flax(path, x):
+        return _to_flax(path[-1], x.reshape(shapes[path]))
+
+    return tuple(
+        _relayout_rows(np.stack([np.asarray(r[b], np.float32)
+                                 for r in rank_rows]),
+                       leaves, idxs, to_flax).reshape(-1)
+        for b, idxs in enumerate(plan))
 
 
 def flat_trace_rows(num_params: int) -> int:

@@ -1,6 +1,7 @@
 """The Engine (the JAX package's ``engine/engine.py`` ``Engine.run``), for
-the ``sync_dp`` and ``async_ps`` modes on one rank or on N ranks, one
-process each.
+every replication mode of ``engine/spec.MODES`` (``sync_dp``,
+``async_ps``, ``bucketed``, ``zero1``, ``zero3``) on one rank or on N
+ranks, one process each.
 
 ``Engine(spec).run()`` resolves the cluster flags (a ``ps`` role prints
 the notice and exits), refuses by name every mode the port does not run
@@ -32,7 +33,19 @@ on N ranks they agree on the stop through an all-gather every
 
 ``--sync_mode async`` (config 2) runs local SGD with one worker per rank
 (``parallel/async_ps.py``): its checkpoint holds every rank's own part,
-and its eval runs on the workers' average.
+and its eval runs on the workers' average (parameters and batch-norm
+statistics).
+
+The mode comes from the flags and the rank count (``_resolve_flags``,
+the JAX package's, with its refusals and messages; ``describe()`` shows
+the resolution without building anything).  ``apply_update_layout``
+lays the fresh state out for it before any restore: the momentum as
+this rank's bucket rows (``bucket_rows``; and the tree form of
+``--shard_update``, whose checkpoint stays ``tree``), or the parameters
+too (``zero3_rows``).  A row layout is one checkpoint part per rank, and
+``run_metadata.json`` records the layout and the bucket cap, so a
+resume into another layout, or a row layout on another mesh size, is
+refused by name.
 
 The workloads: config 1 (``softmax`` on ``mnist``), config 3
 (``mnist_cnn`` on ``mnist``), configs 4 and 5 (``resnet20`` on
@@ -60,16 +73,23 @@ from distributedtensorflowexample_tpu_torch.data.device_dataset import (
     DEQUANT_IMPLS, DeviceDataset)
 from distributedtensorflowexample_tpu_torch.data.lm import load_lm
 from distributedtensorflowexample_tpu_torch.data.mnist import load_mnist
+from distributedtensorflowexample_tpu_torch.engine.spec import (
+    ModeDecl, collective_budget, resolve_contract, resolve_mode,
+    shards_tree_update)
 from distributedtensorflowexample_tpu_torch.models import build_model
 from distributedtensorflowexample_tpu_torch.ops.kernels import launch_counts
 from distributedtensorflowexample_tpu_torch.ops.kernels import build as kbuild
 from distributedtensorflowexample_tpu_torch.parallel.launch import spawn
 from distributedtensorflowexample_tpu_torch.parallel.async_ps import (
     consolidated, make_indexed_async_train_step)
+from distributedtensorflowexample_tpu_torch.parallel.bucketing import (
+    BucketPlan, resolve_bucket_bytes)
 from distributedtensorflowexample_tpu_torch.parallel.mesh import (
-    Mesh, local_world_size, make_mesh)
+    ONE_RANK, Mesh, local_world_size, make_mesh)
 from distributedtensorflowexample_tpu_torch.parallel.sync import (
     make_indexed_train_step, make_resident_eval)
+from distributedtensorflowexample_tpu_torch.parallel.zero3 import (
+    Zero3Layout, materialized)
 from distributedtensorflowexample_tpu_torch.refusal import ModeRefusal
 from distributedtensorflowexample_tpu_torch.training.checkpoint import (
     CheckpointManager)
@@ -89,8 +109,9 @@ _AUTO_UNROLL_CAP = 64
 # two heartbeat touches): tens of steps of latency are nothing against a
 # preemption's grace period, and a poll per step would tax every step.
 _CONSENSUS_POLL_STEPS = 64
-# Models with batch norm: async would normalize over each worker's rows
-# in JAX (its vmap), across the workers in the port (GlobalMean).
+# Models with batch norm: the bucketed and ZeRO steps would normalize
+# over each rank's rows (refused in sync mode, as in JAX); async mode
+# normalizes each worker over its own rows, as the JAX vmap does.
 _BATCH_NORM_MODELS = frozenset({"resnet20"})
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -147,11 +168,18 @@ def _load_dataset(cfg: RunConfig, name: str, split: str):
                       f"package yet")
 
 
-def _refuse_unported(cfg: RunConfig, info: cluster.ClusterInfo,
-                     token_data: bool = False, model: str = "") -> None:
-    """Named refusals for every mode this slice does not run, and the
-    JAX package's refusal of the host-fed path for a token split,
-    checked before any data is loaded or any rank is started."""
+def _resolve_flags(cfg: RunConfig, num_replicas: int,
+                   token_data: bool = False) -> tuple:
+    """The JAX Engine's ``_resolve_flags``: flag validation before any data
+    is loaded, with its refusals and their messages.  Returns
+    ``(bucket_bytes, mode)``: the cap, and the ``engine/spec.MODES`` row
+    the flags resolve to on ``num_replicas`` ranks (on one rank, or in
+    async mode, the bucket knobs fall through to the plain step)."""
+    if cfg.sync_mode == "async" and cfg.fused_optimizer:
+        raise ModeRefusal(
+            "--fused_optimizer is not supported with sync_mode=async")
+    if cfg.device_data not in ("auto", "on", "off"):
+        raise ValueError(f"unknown device_data {cfg.device_data!r}")
     if token_data and cfg.device_data == "off":
         raise ModeRefusal(
             "the lm dataset is an integer token split and runs on the "
@@ -160,27 +188,79 @@ def _refuse_unported(cfg: RunConfig, info: cluster.ClusterInfo,
             "ids into pixels. Drop --device_data off")
     if cfg.sync_mode not in ("sync", "async"):
         raise ValueError(f"unknown sync_mode {cfg.sync_mode!r}")
-    if cfg.device_data not in ("auto", "on", "off"):
-        raise ValueError(f"unknown device_data {cfg.device_data!r}")
     if cfg.data_sharding not in ("replicated", "sharded"):
         raise ValueError(f"unknown data_sharding {cfg.data_sharding!r}")
     if cfg.dequant_impl not in DEQUANT_IMPLS:
         raise ValueError(f"unknown dequant_impl {cfg.dequant_impl!r} "
                          f"(one of {DEQUANT_IMPLS})")
+    if cfg.shard_update and cfg.sync_mode == "async":
+        raise ModeRefusal(
+            "--shard_update shards ONE replicated update across the "
+            "mesh; async mode's state is already worker-tiled (each "
+            "device owns its workers' whole update) — there is no "
+            "cross-replica redundancy to shard away")
+    bucket_bytes = resolve_bucket_bytes(cfg.bucket_grads)
+    if bucket_bytes and cfg.fused_optimizer:
+        raise ModeRefusal(
+            "--bucket_grads restructures the gradient reduction around "
+            "the optimizer apply; the Pallas fused apply is a custom "
+            "call with its own layout contract — use one or the other")
+    if cfg.shard_params and cfg.sync_mode != "sync":
+        raise ModeRefusal(
+            "--shard_params shards the sync data-parallel step's "
+            "params across the mesh; async mode's state is "
+            "worker-tiled (each device already owns its workers' "
+            "whole copy) — there is no cross-replica redundancy to "
+            "shard away")
+    if cfg.shard_params and not bucket_bytes:
+        raise ModeRefusal(
+            "--shard_params lays params out in the knee-sized "
+            "dtype-homogeneous bucket rows; pass --bucket_grads (auto, "
+            "or a byte cap) to size them")
+    return bucket_bytes, resolve_mode(cfg, num_replicas)
+
+
+def _refuse_for_mode(cfg: RunConfig, model: str, bucket_bytes,
+                     update_layout: str, num_replicas: int) -> None:
+    """The JAX Engine's refusals that depend on the model and the rank
+    count, by the model's name before any data is loaded: a batch-norm
+    model under ``--bucket_grads`` in sync mode, and the shard-redundant
+    snapshots of a row layout."""
+    if (bucket_bytes and cfg.sync_mode == "sync" and num_replicas > 1
+            and model in _BATCH_NORM_MODELS):
+        raise ModeRefusal(
+            f"--bucket_grads cannot run {model!r}: its BatchNorm "
+            f"computes global-batch statistics, which the bucketed "
+            f"per-shard gradient region would silently turn into "
+            f"per-shard statistics (a different model, not a "
+            f"different collective schedule). Use the default fused "
+            f"all-reduce for BatchNorm models")
+    if os.environ.get("SNAPSHOT_DIR", "") and update_layout != "tree":
+        raise ModeRefusal(
+            f"SNAPSHOT_DIR (the shard-redundant snapshots of the "
+            f"{update_layout} layout: --bucket_grads with --shard_update "
+            f"or --shard_params) is not ported to the PyTorch package "
+            f"yet; unset SNAPSHOT_DIR (the checkpoints under --log_dir "
+            f"hold the rows)")
+
+
+def _refuse_unported(cfg: RunConfig, info: cluster.ClusterInfo,
+                     model: str = "") -> None:
+    """Named refusals for every mode the port does not run yet, checked
+    before any data is loaded or any rank is started."""
     if cfg.dtype not in _DTYPES:
         raise ValueError(f"unknown dtype {cfg.dtype!r} (one of "
                          f"{tuple(_DTYPES)})")
-    if cfg.sync_mode == "async":
-        _refuse_async(cfg, model)
+    if cfg.sync_mode == "async" and cfg.replicas_to_aggregate:
+        raise ModeRefusal(
+            "--replicas_to_aggregate is a SyncReplicasOptimizer "
+            "(sync-mode) concept; async mode has no aggregation "
+            "barrier to relax")
     if cfg.checkpoint_every > 0 and not cfg.log_dir:
         raise ModeRefusal(
             "--checkpoint_every > 0 writes checkpoints under --log_dir, "
             "which is empty; pass a --log_dir (or --checkpoint_every 0)")
     not_yet = [
-        (bool(cfg.bucket_grads), "--bucket_grads (bucketed gradient "
-         "all-reduce)"),
-        (cfg.shard_update, "--shard_update (ZeRO-1 update sharding)"),
-        (cfg.shard_params, "--shard_params (ZeRO-3)"),
         (cfg.data_sharding == "sharded", "--data_sharding sharded"),
         (cfg.device_data == "off", "--device_data off (the host-fed "
          "Batcher path)"),
@@ -194,8 +274,8 @@ def _refuse_unported(cfg: RunConfig, info: cluster.ClusterInfo,
     for hit, what in not_yet:
         if hit:
             raise ModeRefusal(f"{what} is not ported to the PyTorch package "
-                              f"yet; this slice runs sync_dp and async_ps, "
-                              f"one rank per process")
+                              f"yet; this slice runs every replication "
+                              f"mode, one rank per process")
     processes = (info.num_processes if info.is_distributed else
                  dist.get_world_size() if dist.is_initialized() else 0)
     if processes and cfg.num_devices not in (0, processes):
@@ -206,30 +286,21 @@ def _refuse_unported(cfg: RunConfig, info: cluster.ClusterInfo,
             f"device layout is not ported to the PyTorch package yet")
 
 
-def _refuse_async(cfg: RunConfig, model: str) -> None:
-    """The JAX package's refusals of async mode's illegal knobs, and the
-    port's own of async for a batch-norm model."""
-    if cfg.fused_optimizer:
-        raise ModeRefusal(
-            "--fused_optimizer is not supported with sync_mode=async")
-    if cfg.replicas_to_aggregate:
-        raise ModeRefusal(
-            "--replicas_to_aggregate is a SyncReplicasOptimizer "
-            "(sync-mode) concept; async mode has no aggregation "
-            "barrier to relax")
-    if model in _BATCH_NORM_MODELS:
-        raise ModeRefusal(
-            f"--sync_mode async for {model} (a batch-norm model) is not "
-            f"ported to the PyTorch package yet: each JAX worker normalizes "
-            f"over its own rows, while the port's batch norm reduces over "
-            f"every rank, which would be another model")
+def _expected_ranks(cfg: RunConfig, info: cluster.ClusterInfo) -> int:
+    """The rank count a run will have, before any rank is started."""
+    if info.is_distributed:
+        return info.num_processes
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return local_world_size(cfg.num_devices, cfg.device)
 
 
 def _refuse_incompatible_restore(saved: dict | None, current: dict,
                                  log_dir: str, is_chief: bool) -> None:
     """Named refusal of a restore into another state layout (the JAX
-    Engine's, with its messages): another ``sync_mode``, or async state
-    of another worker count.  A sync restore on another mesh size is
+    Engine's, with its messages): another ``sync_mode``, another
+    ``update_layout``, a row layout on another mesh size, or async state
+    of another worker count.  A ``tree`` restore on another mesh size is
     allowed (the state is replicated), with a note.  ``saved`` is None
     for a directory with no metadata: the restore proceeds."""
     if not saved:
@@ -241,6 +312,27 @@ def _refuse_incompatible_restore(saved: dict | None, current: dict,
             f"sync_mode={current['sync_mode']!r} would mismatch the state "
             f"layout (worker-tiled vs replicated). Use a fresh --log_dir "
             f"or rerun with --sync_mode={saved['sync_mode']}")
+    # A checkpoint with no update_layout key can only hold the tree.
+    saved_layout = saved.get("update_layout", "tree")
+    if saved_layout != current.get("update_layout"):
+        raise ModeRefusal(
+            f"checkpoint in {log_dir}/checkpoints holds "
+            f"{saved_layout!r} optimizer state; this run uses "
+            f"{current['update_layout']!r} (--bucket_grads with "
+            f"--shard_update stores per-bucket flat rows instead of the "
+            f"params-shaped tree; --shard_params stores the PARAMS as "
+            f"rows too — zero3_rows). Resume with the writing run's "
+            f"knobs or start fresh with a new --log_dir")
+    if (saved_layout.endswith("_rows")
+            and saved.get("mesh_size") is not None
+            and saved["mesh_size"] != current["mesh_size"]):
+        raise ModeRefusal(
+            f"checkpoint in {log_dir}/checkpoints holds {saved_layout} "
+            f"state laid out for mesh_size="
+            f"{saved['mesh_size']}; this run has mesh_size="
+            f"{current['mesh_size']} — the 1/D row layout is structural. "
+            f"Resume on {saved['mesh_size']} devices or start fresh "
+            f"with a new --log_dir")
     if (saved.get("num_workers") is not None
             and saved["num_workers"] != current["num_workers"]):
         raise ModeRefusal(
@@ -255,6 +347,55 @@ def _refuse_incompatible_restore(saved: dict | None, current: dict,
         print(f"note: resuming a mesh_size={saved['mesh_size']} checkpoint "
               f"on mesh_size={current['mesh_size']} (fine for sync mode: "
               f"state is replicated)", flush=True)
+
+
+def apply_update_layout(state: TrainState, *, update_layout: str,
+                        bucket_bytes: int | None = None,
+                        mesh: Mesh = ONE_RANK,
+                        shard_update: bool = False):
+    """The one re-layout of a fresh (replicated) state into the mode's
+    working layout (the JAX Engine's): returns ``(state,
+    zero3_layout_or_None)``.
+
+    * ``zero3_rows``: the parameters and the momentum become this rank's
+      bucket rows (``MomentumSGD.shard_params``); the flat buffers go.
+    * ``bucket_rows``: the momentum becomes this rank's bucket rows
+      (ZeRO-1); the parameters stay replicated.
+    * ``tree`` with ``shard_update`` on N > 1 ranks: the momentum as
+      this rank's rows of ONE bucket over every parameter (the tree form
+      of ``--shard_update``; its checkpoint keeps the full tree).
+    """
+    opt = state.optimizer
+    if update_layout == "zero3_rows":
+        layout = Zero3Layout(opt.slices, bucket_bytes, mesh)
+        opt.shard_params(layout, mesh.rank, state.model)
+        return state, layout
+    if update_layout == "bucket_rows":
+        opt.shard_rows(BucketPlan(opt.slices, bucket_bytes, mesh.size),
+                       mesh.rank)
+    elif shard_update and mesh.size > 1:
+        # One bucket of every parameter: a cap no bucket reaches.
+        everything = 4 * sum(shape.numel() for _, shape in
+                             opt.slices.values())
+        opt.shard_rows(BucketPlan(opt.slices, everything, mesh.size),
+                       mesh.rank, layout="tree")
+    return state, None
+
+
+def _step_plan(state: TrainState, mode: ModeDecl, bucket_bytes,
+               mesh: Mesh) -> BucketPlan | None:
+    """The bucket plan a step runs on, made once: the optimizer's, where
+    :func:`apply_update_layout` laid the state out in rows (``zero1``,
+    ``zero3`` and ``--shard_update``'s tree form), else the
+    ``--bucket_grads`` plan of the bucketed all-reduce or of async
+    mode's bucketed average on N > 1 ranks."""
+    opt = state.optimizer
+    if opt.plan is not None:
+        return opt.plan
+    if (bucket_bytes and mesh.size > 1
+            and mode.name in ("bucketed", "async_ps")):
+        return BucketPlan(opt.slices, bucket_bytes, mesh.size)
+    return None
 
 
 def _global_batch(cfg: RunConfig, replicas: int) -> int:
@@ -314,9 +455,14 @@ def _build_kernels_once(cfg: RunConfig, mesh: Mesh) -> None:
         mesh.all_gather_int(0)
 
 
-def _params_digest(state) -> str:
-    """A short sha256 of the flat parameters: replicas that agree bit for
-    bit have one digest."""
+def _params_digest(state, mesh: Mesh = ONE_RANK) -> str:
+    """A short sha256 of the flat parameters (under ZeRO-3 gathered from
+    every rank's rows: a collective): replicas that agree bit for bit
+    have one digest."""
+    if state.optimizer.params_rows is not None:
+        with materialized(state, mesh) as flat:
+            return hashlib.sha256(
+                flat.cpu().numpy().tobytes()).hexdigest()[:16]
     flat = state.optimizer.params_flat.detach().cpu().numpy()
     return hashlib.sha256(flat.tobytes()).hexdigest()[:16]
 
@@ -341,7 +487,8 @@ def _run_local_ranks(spec: "RunSpec", ranks: int) -> dict:
                     cluster.BACKENDS[spec.config.device], args=(spec,))
     summary = dict(results[0])
     summary["ranks"] = [{k: r[k] for k in ("launches", "all_reduces",
-                                          "params_digest", "stats_digest")}
+                                          "collectives", "params_digest",
+                                          "stats_digest")}
                         for r in results]
     return summary
 
@@ -349,12 +496,17 @@ def _run_local_ranks(spec: "RunSpec", ranks: int) -> dict:
 @dataclasses.dataclass
 class EngineBuild:
     """What :meth:`Engine.build` hands a caller: the state, the resident
-    dataset and the indexed train step over it."""
+    dataset, the indexed train step over it, the resolved mode and the
+    bucket plan the step runs on."""
 
     state: TrainState
     ds: DeviceDataset
     step: Callable
     unroll: int
+    mode: str = "sync_dp"
+    bucket_bytes: int | None = None
+    plan: BucketPlan | None = None
+    zero3_layout: Zero3Layout | None = None
 
 
 class Engine:
@@ -367,33 +519,83 @@ class Engine:
         self.spec = spec
         self.token_data = spec.dataset == "lm"
 
+    def describe(self) -> dict:
+        """What this spec resolves to (the JAX Engine's ``describe``):
+        mode, update layout, the mode's collective budget, bucket cap and
+        hook stack, with the same flag refusals, and nothing built.  The
+        rank count is ``--num_devices``, or every visible card on
+        ``cuda`` (one rank on ``cpu``)."""
+        cfg = self.spec.config
+        num_replicas = cfg.num_devices or (
+            torch.cuda.device_count() if cfg.device == "cuda" else 1)
+        bucket_bytes, mode = _resolve_flags(cfg, num_replicas,
+                                            self.token_data)
+        hooks = []
+        if cfg.checkpoint_every > 0:
+            hooks.append("CheckpointHook")
+        if cfg.eval_every > 0:
+            hooks.append("EvalHook")
+        if os.environ.get("SUPERVISE_HEARTBEAT", ""):
+            hooks.append("HeartbeatHook")
+        hooks.append("MetricsHook")
+        return {"entrypoint": f"trainer:{self.spec.model}",
+                "mode": mode.name,
+                "update_layout": mode.update_layout,
+                "contract": resolve_contract(cfg, num_replicas),
+                "bucket_bytes": bucket_bytes,
+                "mesh_size": num_replicas,
+                "token_data": self.token_data,
+                "checkpointing": cfg.checkpoint_every > 0 or cfg.resume,
+                "hooks": hooks}
+
     def create_state(self, mesh: Mesh) -> TrainState:
         """The model, its optimizer and the state of this rank of ``mesh``
         (``Mesh(device)`` is one rank on that device), initialized from
-        the seed."""
+        the seed, in the replicated (``tree``) layout.  In async mode a
+        batch-norm model normalizes over this worker's rows alone (built
+        over ``ONE_RANK``)."""
         cfg = self.spec.config
         model = build_model(self.spec.model, dropout=cfg.dropout,
                             dtype=_DTYPES[cfg.dtype], remat=cfg.remat,
-                            mesh=mesh)
+                            mesh=ONE_RANK if cfg.sync_mode == "async"
+                            else mesh)
         return TrainState.create(model, lambda m: build_optimizer(cfg, m),
                                   cfg.seed, mesh.device, mesh=mesh)
 
+    def laid_out_state(self, mesh: Mesh,
+                       state: TrainState | None = None) -> tuple:
+        """``state`` (a fresh :meth:`create_state` by default) in the
+        resolved mode's layout (:func:`apply_update_layout`): ``(state,
+        zero3_layout or None)``."""
+        cfg = self.spec.config
+        bucket_bytes, mode = _resolve_flags(cfg, mesh.size, self.token_data)
+        return apply_update_layout(
+            self.create_state(mesh) if state is None else state,
+            update_layout=mode.update_layout, bucket_bytes=bucket_bytes,
+            mesh=mesh, shard_update=shards_tree_update(cfg, mesh.size))
+
     def build(self, mesh: Mesh, unroll: int = 1, data=None,
               perm_fn=None, draws_fn=None,
-              state: TrainState | None = None) -> EngineBuild:
-        """State, resident dataset and train step (sync, or async's local
-        SGD under ``--sync_mode async``) for this rank of ``mesh``.
-        ``state`` (a restored one) replaces a fresh :meth:`create_state`,
-        and the dataset starts at its step.  ``data`` ``(images,
-        labels)`` replaces the spec's train split; ``perm_fn`` injects an
-        index tape (``DeviceDataset``) and ``draws_fn`` the augment draws
+              state: TrainState | None = None,
+              zero3_layout: Zero3Layout | None = None) -> EngineBuild:
+        """State, resident dataset and train step (the resolved mode's:
+        ``engine/spec.MODES``) for this rank of ``mesh``.  ``state`` (a
+        restored one, laid out by :meth:`laid_out_state`, with its
+        ``zero3_layout``) replaces a fresh one, and the dataset starts at
+        its step.  ``data`` ``(images, labels)`` replaces the spec's train
+        split; ``perm_fn`` injects an index tape (``DeviceDataset``) and
+        ``draws_fn`` the augment draws
         (``parallel/sync.make_device_gather``)."""
         cfg = self.spec.config
         global_batch = _global_batch(cfg, mesh.size)
+        bucket_bytes, mode = _resolve_flags(cfg, mesh.size, self.token_data)
+        _refuse_for_mode(cfg, self.spec.model, bucket_bytes,
+                         mode.update_layout, mesh.size)
         x, y = (data if data is not None else
                 _load_dataset(cfg, self.spec.dataset, "train"))
         if state is None:
-            state = self.create_state(mesh)
+            state, zero3_layout = self.laid_out_state(mesh)
+        plan = _step_plan(state, mode, bucket_bytes, mesh)
         ds = DeviceDataset(x, y, global_batch, device=mesh.device,
                            seed=cfg.seed, start_step=state.step,
                            steps_per_next=unroll, quantize=cfg.quantize,
@@ -408,12 +610,17 @@ class Engine:
                       seed=cfg.seed, draws_fn=draws_fn, mesh=mesh)
         if cfg.sync_mode == "async":
             step = make_indexed_async_train_step(
-                cfg.async_period, global_batch, ds.steps_per_epoch, **common)
+                cfg.async_period, global_batch, ds.steps_per_epoch,
+                plan=plan, **common)
         else:
             step = make_indexed_train_step(
                 global_batch, ds.steps_per_epoch,
-                replicas_to_aggregate=cfg.replicas_to_aggregate, **common)
-        return EngineBuild(state=state, ds=ds, step=step, unroll=unroll)
+                replicas_to_aggregate=cfg.replicas_to_aggregate,
+                mode=mode.name, plan=plan, zero3_layout=zero3_layout,
+                zero3_overlap=cfg.zero3_overlap, **common)
+        return EngineBuild(state=state, ds=ds, step=step, unroll=unroll,
+                           mode=mode.name, bucket_bytes=bucket_bytes,
+                           plan=plan, zero3_layout=zero3_layout)
 
     def run(self) -> dict:
         """Train per the spec; returns a summary dict."""
@@ -423,11 +630,14 @@ class Engine:
         if info.role == "ps":
             print(cluster.PS_NOTICE, flush=True)
             return {"role": "ps", "exited": True}
-        _refuse_unported(cfg, info, self.token_data, spec.model)
-        if not info.is_distributed and not dist.is_initialized():
-            ranks = local_world_size(cfg.num_devices, cfg.device)
-            if ranks > 1:
-                return _run_local_ranks(spec, ranks)
+        _refuse_unported(cfg, info, spec.model)
+        ranks = _expected_ranks(cfg, info)
+        bucket_bytes, mode = _resolve_flags(cfg, ranks, self.token_data)
+        update_layout = mode.update_layout
+        _refuse_for_mode(cfg, spec.model, bucket_bytes, update_layout, ranks)
+        if (not info.is_distributed and not dist.is_initialized()
+                and ranks > 1):
+            return _run_local_ranks(spec, ranks)
         cluster.maybe_initialize_distributed(info, cfg.device)
         mesh = make_mesh(cfg.device)
         device = mesh.device
@@ -441,14 +651,17 @@ class Engine:
         train_x, train_y = _load_dataset(cfg, spec.dataset, "train")
         test_x, test_y = _load_dataset(cfg, spec.dataset, "test")
 
-        state = self.create_state(mesh)
+        # Laid out before any restore, which fills the layout's tensors.
+        state, zero3_layout = self.laid_out_state(mesh)
         # This run's layout facts, kept beside the checkpoints so that a
         # later resume into another layout is refused by name: async
         # state is one part per worker, so the worker count is
-        # structural; sync state is replicated and restores on any mesh.
+        # structural, and so is the mesh size of a row layout; tree state
+        # is replicated and restores on any mesh.
         run_meta = {"sync_mode": cfg.sync_mode, "mesh_size": num_replicas,
                     "num_workers": num_replicas if is_async else None,
-                    "update_layout": "tree"}
+                    "update_layout": update_layout,
+                    "bucket_bytes": bucket_bytes}
         manager = None
         start_step = 0
         if cfg.log_dir and (cfg.checkpoint_every > 0 or cfg.resume):
@@ -456,7 +669,7 @@ class Engine:
                 os.path.join(cfg.log_dir, "checkpoints"),
                 max_to_keep=cfg.keep_checkpoints,
                 async_save=cfg.async_checkpoint, run_metadata=run_meta,
-                mesh=mesh, per_rank=is_async)
+                mesh=mesh, per_rank=is_async or update_layout != "tree")
             if cfg.resume and manager.latest_step() is not None:
                 _refuse_incompatible_restore(manager.saved_run_metadata(),
                                              run_meta, cfg.log_dir,
@@ -488,7 +701,8 @@ class Engine:
                     f"a multiple of --steps_per_loop {steps_per_call}")
         # Built after the restore: the epoch slots follow the restored step.
         built = self.build(mesh, unroll=steps_per_call,
-                           data=(train_x, train_y), state=state)
+                           data=(train_x, train_y), state=state,
+                           zero3_layout=zero3_layout)
 
         logger = MetricsLogger(cfg.log_dir, num_chips=mesh.num_chips,
                                log_every=cfg.log_every, device=device,
@@ -506,10 +720,13 @@ class Engine:
                                       token_data=self.token_data, mesh=mesh)
 
         def eval_fn(s) -> float:
-            if not is_async:
-                return evaluate(s)
-            with consolidated(s, mesh):     # on the workers' average
-                return evaluate(s)
+            if is_async:
+                with consolidated(s, mesh):     # on the workers' average
+                    return evaluate(s)
+            if zero3_layout is not None:
+                with materialized(s, mesh):     # the rows, gathered
+                    return evaluate(s)
+            return evaluate(s)
 
         if cfg.eval_every > 0:
             hooks.append(EvalHook(eval_fn, cfg.eval_every, logger))
@@ -585,7 +802,16 @@ class Engine:
                 "device": str(device),
                 "rank": mesh.rank,
                 "all_reduces": mesh.all_reduces,
-                "params_digest": _params_digest(state),
+                "collectives": dict(mesh.collectives),
+                "mode": built.mode,
+                "update_layout": update_layout,
+                "bucket_bytes": bucket_bytes,
+                "num_buckets": (None if built.plan is None
+                                else built.plan.num_buckets),
+                "collective_budget": collective_budget(
+                    cfg, num_replicas,
+                    None if built.plan is None else built.plan.num_buckets),
+                "params_digest": _params_digest(state, mesh),
                 "stats_digest": _stats_digest(state),
                 "checkpoint": None if manager is None else manager.stats,
                 "loss_tape": metrics_hook.loss_tape}

@@ -32,7 +32,11 @@ where they differ from PyTorch's defaults:
 (``torch.utils.checkpoint``).  Dropout masks are drawn from the caller's
 generator OUTSIDE the checkpointed function and passed in, so the
 recompute sees the same masks; with dropout 0 remat is bitwise the plain
-forward and backward.
+forward and backward.  The block's parameters, as the block reads them,
+are passed in too, and bound for each run through
+``torch.func.functional_call``: the recompute reads the tensors the
+forward read even where the module no longer holds them when the
+backward runs (ZeRO-3's gathered leaves, ``parallel/zero3.py``).
 
 Parameter names follow the flax tree (``block3.ln1.weight`` is
 ``block3/ln1/scale``), so ``convert.py`` maps the two by name.
@@ -41,10 +45,12 @@ Parameter names follow the flax tree (``block3.ln1.weight`` is
 from __future__ import annotations
 
 import math
+import operator
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from distributedtensorflowexample_tpu_torch.models.initializers import (
@@ -232,13 +238,28 @@ class TransformerLM(nn.Module):
                       _keep_mask(x, self.dropout_rate, generator))
                      if drop else (None, None))
             if remat:
-                x = checkpoint(block, x, *masks, use_reentrant=False,
-                               preserve_rng_state=False)
+                x = _checkpointed(block, x, *masks)
             else:
                 x = block(x, *masks)
         x = self.ln_f(x)
         logits = F.linear(x, self.embed.weight.to(dt)).float()
         return logits + torch.where(oov, float("nan"), 0.0)
+
+
+def _checkpointed(block: DecoderBlock, x: torch.Tensor,
+                  *masks) -> torch.Tensor:
+    """``block(x, *masks)``, recomputed in the backward, with the block's
+    parameters (read as the forward reads them: by attribute) as inputs
+    of the checkpointed call."""
+    names = [name for name, _ in block.named_parameters()]
+    params = [operator.attrgetter(name)(block) for name in names]
+
+    def run(x, keep_att, keep_mlp, *params):
+        return functional_call(block, dict(zip(names, params)),
+                               (x, keep_att, keep_mlp))
+
+    return checkpoint(run, x, *masks, *params, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def build_lm(size: str, vocab_size: int = LM_VOCAB, dropout: float = 0.0,

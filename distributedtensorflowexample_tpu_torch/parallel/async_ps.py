@@ -21,7 +21,14 @@ worker, as one device is in JAX, so W is the mesh size:
   ``_worker_updates``);
 * when ``(step + 1) % period == 0`` the rank all-reduces its flat float32
   parameters and divides by W (the shard_map step's ``psum / W``); only
-  the parameters are averaged, the momentum stays each worker's;
+  the parameters are averaged, the momentum stays each worker's; with
+  ``--bucket_grads`` the average goes out as one all-reduce per bucket
+  of the plan (JAX ``bucketed_tree_psum``), bitwise the same sums;
+* a batch-norm model (ResNet-20) normalizes over the worker's own rows
+  and keeps its own running statistics (the Engine builds it over
+  ``ONE_RANK``, so ``GlobalMean`` is skipped), as each of the JAX
+  package's vmapped workers does; the statistics are not averaged at a
+  period;
 * the metrics are each rank's share, summed by the loop: the loss
   ``loss_w / W`` (the mean over workers) and the accuracy ``correct_w /
   G``.
@@ -38,6 +45,8 @@ from typing import Callable
 import torch
 
 from distributedtensorflowexample_tpu_torch.ops.losses import accuracy
+from distributedtensorflowexample_tpu_torch.parallel.bucketing import (
+    BucketPlan, bucketed_all_reduce)
 from distributedtensorflowexample_tpu_torch.parallel.mesh import (
     ONE_RANK, Mesh)
 from distributedtensorflowexample_tpu_torch.parallel.sync import (
@@ -45,13 +54,21 @@ from distributedtensorflowexample_tpu_torch.parallel.sync import (
 
 
 def _build_async_step_fn(period: int, label_smoothing: float = 0.0,
-                         ce_impl: str = "xla",
-                         mesh: Mesh = ONE_RANK) -> Callable:
+                         ce_impl: str = "xla", mesh: Mesh = ONE_RANK,
+                         plan: BucketPlan | None = None) -> Callable:
     """The (state, batch) -> metrics local-SGD body of this rank's
     worker (JAX ``_build_async_step_fn``, its shard_map form)."""
     period = max(1, int(period))
     workers = mesh.size
     loss_rows = make_loss_rows(label_smoothing, ce_impl)
+
+    def average(opt) -> None:
+        flat = opt.params_flat
+        if plan is not None:
+            bucketed_all_reduce(flat, plan, mesh)
+        else:
+            mesh.all_reduce(flat)
+        flat.div_(workers)
 
     def step(state, batch) -> dict:
         state.optimizer.zero_grad()
@@ -62,8 +79,8 @@ def _build_async_step_fn(period: int, label_smoothing: float = 0.0,
         state.optimizer.step()
         state.step += 1
         if state.step % period == 0:
-            flat = state.optimizer.params_flat
-            mesh.all_reduce(flat).div_(workers)
+            with torch.no_grad():
+                average(state.optimizer)
         return {"loss": loss.detach() / workers,
                 "accuracy": accuracy(logits.detach(),
                                      batch["label"]) / workers}
@@ -81,14 +98,18 @@ def make_indexed_async_train_step(period: int, batch_size: int,
                                   token_data: bool = False,
                                   augment: str = "none", seed: int = 0,
                                   draws_fn: Callable | None = None,
-                                  mesh: Mesh = ONE_RANK) -> Callable:
+                                  mesh: Mesh = ONE_RANK,
+                                  plan: BucketPlan | None = None
+                                  ) -> Callable:
     """Local-SGD step over a device-resident dataset: ``(state, data) ->
     (state, metrics)``, the async counterpart of
     ``parallel/sync.make_indexed_train_step`` (same gather, same unrolled
     windows; the averaging falls on ``(step + 1) % period == 0`` whatever
-    the unroll).  ``batch_size`` is the global batch G."""
+    the unroll).  ``batch_size`` is the global batch G; ``plan`` (the
+    ``--bucket_grads`` plan) buckets the average."""
     num_slots = _resolve_num_slots(unroll_steps, steps_per_epoch, num_slots)
-    inner = _build_async_step_fn(period, label_smoothing, ce_impl, mesh)
+    inner = _build_async_step_fn(period, label_smoothing, ce_impl, mesh,
+                                 plan)
     gather = make_device_gather(batch_size, steps_per_epoch,
                                 num_slots=num_slots,
                                 dequant_impl=dequant_impl,
@@ -100,15 +121,19 @@ def make_indexed_async_train_step(period: int, batch_size: int,
 @contextlib.contextmanager
 def consolidated(state, mesh: Mesh = ONE_RANK):
     """The workers' average for the enclosed block (JAX ``consolidate``,
-    for the eval): the flat parameters hold the mean over the ranks
-    inside, and each rank's own copy again, bit for bit, after.  The
-    momentum and the rest of the state are not touched."""
-    flat = state.optimizer.params_flat
-    own = flat.clone()
+    for the eval): the flat parameters and the model's buffers (batch
+    norm's running statistics) hold the mean over the ranks inside, and
+    each rank's own again, bit for bit, after.  The momentum and the rest
+    of the state are not touched."""
+    held = [state.optimizer.params_flat,
+            *(buf for _, buf in state.model.named_buffers())]
+    own = [t.clone() for t in held]
     with torch.no_grad():
-        mesh.all_reduce(flat, counted=False).div_(mesh.size)
+        for t in held:
+            mesh.all_reduce(t, counted=False).div_(mesh.size)
     try:
         yield state
     finally:
         with torch.no_grad():
-            flat.copy_(own)
+            for t, mine in zip(held, own):
+                t.copy_(mine)

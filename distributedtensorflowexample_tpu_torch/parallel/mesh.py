@@ -2,20 +2,37 @@
 ``parallel/mesh.py``): one rank per process, each on its own device,
 joined by the default ``torch.distributed`` process group.
 
-Where the JAX mesh lets XLA insert the psum, the port calls the three
+Where the JAX mesh lets XLA insert the psum, the port calls the
 collectives it needs by hand, on the rank's device:
 
-* :meth:`Mesh.all_reduce` sums the flat gradient buffer (one call per
-  step, counted in ``all_reduces``);
+* :meth:`Mesh.all_reduce` sums a flat buffer in place (the gradient once
+  a step, or once per bucket under ``--bucket_grads``);
+* :meth:`Mesh.reduce_scatter` sums a flat ``[D*W]`` buffer and hands
+  rank d its row ``[d*W, (d+1)*W)``, and :meth:`Mesh.all_gather_into`
+  concatenates every rank's ``[W]`` row (the ZeRO modes,
+  ``parallel/bucketing.py`` and ``parallel/zero3.py``); with
+  ``async_op=True`` the gather returns a handle whose ``wait()`` gives
+  the result;
 * :meth:`Mesh.broadcast` sends rank 0's flat parameters to every rank;
 * :meth:`Mesh.all_gather` gathers one tensor per rank (the config
   digest through :meth:`Mesh.all_gather_int`, the dropout generators'
   states for a checkpoint).
 
-Metrics and the eval's correct count are summed with the same
-collective, once per host read (:meth:`Mesh.sum_metrics`), uncounted.
-A run with no process group is one rank (:data:`ONE_RANK`, or an
-ungrouped ``Mesh(device)``), whose collectives are the identity.
+``Mesh.collectives`` counts the gradient and parameter collectives by
+kind (``all-reduce``, ``reduce-scatter``, ``all-gather``): the port's
+counterpart of the JAX package's compiled-program contracts, held to
+each mode's budget per step (``engine/spec.MODES``).  ``all_reduces``
+is the first of them.  Metrics, the eval's correct count, checkpoints
+and the eval's parameter gathers pass ``counted=False``.  A run with no
+process group is one rank (:data:`ONE_RANK`, or an ungrouped
+``Mesh(device)``), whose collectives are the identity.
+
+Both backends take the rank's device tensors for every collective: one
+implementation.  NCCL runs them on the card; gloo (two ranks on one
+card, and the CPU) copies CUDA tensors through host memory inside its
+own ops (``reduce_scatter_tensor`` and ``all_gather_into_tensor`` take
+CUDA tensors, synchronously and with ``async_op``: checked on torch
+2.11 on an H100), so its times on a card are host-staged.
 
 Placement: each rank runs on the card of its index among the ranks on
 ITS OWN host (``host_names`` exchanges the hosts' names before the first
@@ -55,11 +72,18 @@ class Mesh:
         self.size = size
         self.grouped = grouped
         self.num_chips = size
-        self.all_reduces = 0
+        self.collectives = dict.fromkeys(COLLECTIVE_KINDS, 0)
 
     @property
     def is_chief(self) -> bool:
         return self.rank == 0
+
+    @property
+    def all_reduces(self) -> int:
+        return self.collectives["all-reduce"]
+
+    def _count(self, kind: str, counted: bool) -> None:
+        self.collectives[kind] += counted
 
     def all_reduce(self, flat: torch.Tensor,
                    counted: bool = True) -> torch.Tensor:
@@ -69,8 +93,33 @@ class Mesh:
         ``counted=False``."""
         if self.grouped:
             dist.all_reduce(flat)
-            self.all_reduces += counted
+            self._count("all-reduce", counted)
         return flat
+
+    def reduce_scatter(self, flat: torch.Tensor,
+                       counted: bool = True) -> torch.Tensor:
+        """This rank's row ``[W]`` of the sum over the ranks of ``flat``
+        (``[D*W]``; the JAX ``psum_scatter``, tiled)."""
+        if not self.grouped:
+            return flat
+        row = flat.new_empty(flat.numel() // self.size)
+        dist.reduce_scatter_tensor(row, flat.contiguous())
+        self._count("reduce-scatter", counted)
+        return row
+
+    def all_gather_into(self, row: torch.Tensor, counted: bool = True,
+                        async_op: bool = False):
+        """Every rank's ``row`` (``[W]``), concatenated in rank order:
+        ``[D*W]`` (the JAX ``all_gather``, tiled).  With ``async_op`` a
+        handle whose ``wait()`` returns it once it has arrived."""
+        if not self.grouped:
+            full, work = row, None
+        else:
+            full = row.new_empty(row.numel() * self.size)
+            work = dist.all_gather_into_tensor(full, row.contiguous(),
+                                               async_op=async_op)
+            self._count("all-gather", counted)
+        return _Pending(full, work) if async_op else full
 
     def broadcast(self, flat: torch.Tensor) -> torch.Tensor:
         """Overwrite ``flat`` with rank 0's, in place."""
@@ -104,6 +153,23 @@ class Mesh:
             [torch.as_tensor(metrics[k], device=self.device).float()
              for k in names]), counted=False)
         return dict(zip(names, stacked.unbind()))
+
+
+#: The kinds ``Mesh.collectives`` counts, in the JAX package's names.
+COLLECTIVE_KINDS = ("all-reduce", "reduce-scatter", "all-gather")
+
+
+class _Pending:
+    """An issued collective: ``wait()`` returns its output."""
+
+    def __init__(self, out: torch.Tensor, work):
+        self._out, self._work = out, work
+
+    def wait(self) -> torch.Tensor:
+        if self._work is not None:
+            self._work.wait()
+            self._work = None
+        return self._out
 
 
 # The mesh of a run with no process group: one rank, whose collectives

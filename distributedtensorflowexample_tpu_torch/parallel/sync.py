@@ -21,6 +21,14 @@ so a ResNet-20 step issues 21 + 21 + 1 = 43 all-reduces per rank at
 N > 1.  Its running statistics are the model's buffers, updated in the
 forward; the eval reads them.
 
+The replication mode (``engine/spec.MODES``) picks what follows the
+backward (:func:`_build_step_fn`): the one all-reduce (``sync_dp``), one
+per bucket (``bucketed``, ``parallel/bucketing.py``), a reduce-scatter,
+row update and all-gather per bucket (``zero1``, and ``--shard_update``'s
+tree form over one bucket), or the ZeRO-3 step, whose forward gathers the
+parameter rows (``parallel/zero3.py``).  The gather, the loss heads and
+the loss shares are the same in every mode.
+
 The step's metrics are this rank's shares of the global ones (summing
 over the ranks gives the global loss and accuracy); they stay on the
 device, and the loop sums them once per host read (``Mesh.sum_metrics``).
@@ -50,9 +58,12 @@ from distributedtensorflowexample_tpu_torch.ops.kernels import (
     fused_gather_dequant, fused_softmax_cross_entropy_rows)
 from distributedtensorflowexample_tpu_torch.ops.losses import (
     accuracy, softmax_cross_entropy_rows)
+from distributedtensorflowexample_tpu_torch.parallel.bucketing import (
+    BucketPlan, bucketed_all_reduce, sharded_update)
 from distributedtensorflowexample_tpu_torch.parallel.mesh import (
     ONE_RANK, Mesh)
-
+from distributedtensorflowexample_tpu_torch.parallel.zero3 import (
+    Zero3Layout, build_zero3_step_fn)
 
 def _per_example_rows(impl: Callable) -> Callable:
     """Let a [rows, C] loss head also take sequence logits [B, T, C] with
@@ -175,28 +186,66 @@ def make_device_gather(batch_size: int, steps_per_epoch: int, *,
     return gather
 
 
-def _build_step_fn(label_smoothing: float = 0.0, ce_impl: str = "xla",
-                   replicas_to_aggregate: int = 0,
-                   mesh: Mesh = ONE_RANK) -> Callable:
-    """The (state, batch) -> metrics step body on this rank's rows:
-    forward, this rank's share of the global loss, backward into the flat
-    gradient buffer, one all-reduce of that buffer (after the batch-norm
-    layers' own, if any), one optimizer apply."""
+def _make_share(replicas_to_aggregate: int, mesh: Mesh) -> Callable:
+    """``step -> weight`` of this rank's mean loss: 1/N, or under partial
+    aggregation (R of N) 1/R when the rotating subset selects it, else 0
+    (its rows still run forward and backward, with a zero gradient)."""
     rank, n = mesh.rank, mesh.size
     r = int(replicas_to_aggregate)
     if not 0 <= r <= n:
         raise ValueError(
             f"replicas_to_aggregate {r} must be in [0, {n}] (0 = all)")
-    partial_agg = 0 < r < n
-    loss_rows = make_loss_rows(label_smoothing, ce_impl)
+    if not 0 < r < n:
+        return lambda step: 1.0 / n
+    return lambda step: 1.0 / r if (rank - step) % n < r else 0.0
 
-    def share(step: int) -> float:
-        # This rank's weight on its mean loss: 1/N, or under partial
-        # aggregation 1/R when the rotating subset selects it, else 0
-        # (its rows still run forward and backward, with a zero gradient).
-        if not partial_agg:
-            return 1.0 / n
-        return 1.0 / r if (rank - step) % n < r else 0.0
+
+def _build_step_fn(label_smoothing: float = 0.0, ce_impl: str = "xla",
+                   replicas_to_aggregate: int = 0,
+                   mesh: Mesh = ONE_RANK, mode: str = "sync_dp",
+                   plan: BucketPlan | None = None,
+                   zero3_layout: Zero3Layout | None = None,
+                   zero3_overlap: bool = True) -> Callable:
+    """The (state, batch) -> metrics step body on this rank's rows, by
+    the resolved ``mode`` (``engine/spec.resolve_mode``): forward, this
+    rank's share of the global loss, backward into the flat gradient
+    buffer, then
+
+    * ``sync_dp``: one all-reduce of that buffer (after the batch-norm
+      layers' own, if any) and one optimizer apply; under
+      ``--shard_update``'s tree form (the optimizer holds its momentum
+      as rows of a one-bucket plan) the ZeRO-1 schedule over that bucket;
+    * ``bucketed``: one all-reduce per bucket of ``plan``, then the apply;
+    * ``zero1``: per bucket of the optimizer's plan reduce-scatter, row
+      update, all-gather (``parallel/bucketing.sharded_update``);
+    * ``zero3``: ``parallel/zero3.build_zero3_step_fn`` over
+      ``zero3_layout``.
+
+    On one rank every knob resolves to ``sync_dp``, as in the JAX
+    package; the Engine refuses the bucketed modes for a batch-norm model
+    by name."""
+    n = mesh.size
+    share = _make_share(replicas_to_aggregate, mesh)
+    loss_rows = make_loss_rows(label_smoothing, ce_impl)
+    if mode == "zero3":
+        return build_zero3_step_fn(loss_rows, share, zero3_layout, mesh,
+                                   zero3_overlap)
+    if mode == "bucketed" and plan is None:
+        raise ValueError("the bucketed step needs the bucket plan")
+
+    def reduce_and_apply(opt) -> None:
+        if opt.plan is not None:
+            sharded_update(opt, mesh)
+        elif mode == "zero1":
+            raise ValueError("the ZeRO-1 step expects the momentum as bucket "
+                             "rows (MomentumSGD.shard_rows); the state was "
+                             "not laid out in bucket rows")
+        elif mode == "bucketed":
+            bucketed_all_reduce(opt.grads_flat, plan, mesh)
+            opt.step()
+        else:
+            mesh.all_reduce(opt.grads_flat)
+            opt.step()
 
     def step(state, batch) -> dict:
         state.optimizer.zero_grad()
@@ -204,8 +253,7 @@ def _build_step_fn(label_smoothing: float = 0.0, ce_impl: str = "xla",
                              generator=state.generator)
         loss = loss_rows(logits, batch["label"]).mean() * share(state.step)
         loss.backward()
-        mesh.all_reduce(state.optimizer.grads_flat)
-        state.optimizer.step()
+        reduce_and_apply(state.optimizer)
         state.step += 1
         return {"loss": loss.detach(),
                 "accuracy": accuracy(logits.detach(), batch["label"]) / n}
@@ -223,7 +271,10 @@ def make_indexed_train_step(batch_size: int, steps_per_epoch: int,
                             token_data: bool = False,
                             augment: str = "none", seed: int = 0,
                             draws_fn: Callable | None = None,
-                            mesh: Mesh = ONE_RANK) -> Callable:
+                            mesh: Mesh = ONE_RANK, mode: str = "sync_dp",
+                            plan: BucketPlan | None = None,
+                            zero3_layout: Zero3Layout | None = None,
+                            zero3_overlap: bool = True) -> Callable:
     """Step over a device-resident dataset: ``(state, data) -> (state,
     metrics)``.  ``batch_size`` is the global batch; on a ``mesh`` each
     rank trains on its slice of it.  ``unroll_steps=K`` runs K consecutive
@@ -232,10 +283,11 @@ def make_indexed_train_step(batch_size: int, steps_per_epoch: int,
     shares averaged over the K updates, still on the device.
     ``token_data=True``: the split holds token ids; ``augment``,
     ``seed`` and ``draws_fn``: the crop and flip and their draws
-    (:func:`make_device_gather`)."""
+    (:func:`make_device_gather`); ``mode``, ``plan``, ``zero3_layout``
+    and ``zero3_overlap``: the replication mode (:func:`_build_step_fn`)."""
     num_slots = _resolve_num_slots(unroll_steps, steps_per_epoch, num_slots)
     inner = _build_step_fn(label_smoothing, ce_impl, replicas_to_aggregate,
-                           mesh)
+                           mesh, mode, plan, zero3_layout, zero3_overlap)
     gather = make_device_gather(batch_size, steps_per_epoch,
                                 num_slots=num_slots,
                                 dequant_impl=dequant_impl,

@@ -2,16 +2,18 @@
 corpus (the JAX package's ``trainers/trainer_lm.py``, same defaults).
 
     python -m distributedtensorflowexample_tpu_torch.trainers.trainer_lm \
-        --size lm_base --pallas_ce true --fused_optimizer true
+        --size lm_base --pallas_ce true
 
 runs on the CUDA card (``--device cpu --size lm_tiny`` for the plain
 versions on the CPU).  ``--size`` picks the rung (lm_tiny | lm_small |
-lm_base, ``models.LM_SIZES``); lm_base defaults to ``--remat block`` as
-in the JAX package.  Multi-rank runs take the flags of
-``trainer_sync_mnist`` (``--num_devices N``, the cluster flags); every
-rank all-reduces the flat 57.29M-element gradient of lm_base once per
-step.  ``--bucket_grads`` is refused by name until the bucketed modes are
-ported.
+lm_base, ``models.LM_SIZES``); lm_base defaults to ``--remat block`` and
+``--bucket_grads auto``, as in the JAX package (explicit flags win: the
+fused SGD apply, ``--fused_optimizer true``, is refused with bucketing,
+as in JAX, so it takes ``--bucket_grads ""`` beside it).  Multi-rank
+runs take the flags of ``trainer_sync_mnist`` (``--num_devices N``, the
+cluster flags) and every replication mode (``--shard_update``,
+``--shard_params``); on one rank the bucket knobs fall through to the
+plain step.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ def build_config(argv=None) -> tuple[str, RunConfig]:
                      momentum=0.9, dataset="lm", dropout=0.0,
                      log_every=100)
     if ns.size == "lm_base":
-        overrides.update(remat="block")
+        overrides.update(remat="block", bucket_grads="auto")
     return ns.size, parse_flags(rest, description=__doc__, **overrides)
 
 

@@ -11,9 +11,11 @@ Layout under ``directory``::
     run_metadata.json       the writing run's facts (sync_mode, ...)
     <step>/rank-<r>.pt      one ``torch.save`` of CPU tensors per part
 
-A replicated state (sync mode) is one part, ``rank-0.pt``, written by rank
-0 and carrying every rank's dropout generator; a per-rank state (async
-mode: one worker per rank) is one part per rank.  The parts go to
+A replicated state (sync mode in the ``tree`` layout) is one part,
+``rank-0.pt``, written by rank 0 and carrying every rank's dropout
+generator; a per-rank state (async mode: one worker per rank, with its
+own batch-norm statistics; the ``bucket_rows`` and ``zero3_rows``
+layouts: this rank's rows) is one part per rank.  The parts go to
 ``.tmp-<step>/`` first, each through a temporary file name; once every
 rank has joined its writer (an all-gather of their outcomes), rank 0
 renames the directory to ``<step>`` and every rank waits for that (a

@@ -22,6 +22,15 @@ scales and biases included), rounded once as XLA's fused multiply-add
 does, before the recurrence above.  The fused kernel implements momentum
 SGD only, so ``--fused_optimizer`` with weight decay is refused, as in
 the JAX package.
+
+The same recurrence, in the same order of roundings, runs on bucket
+rows (:meth:`MomentumSGD.apply` takes any three 1-D buffers): under the
+ZeRO modes the state lives as this rank's rows of a
+``parallel/bucketing.BucketPlan`` — the momentum alone
+(:meth:`MomentumSGD.shard_rows`: ZeRO-1, and ``--shard_update``'s tree
+form) or the parameters too (:meth:`MomentumSGD.shard_params`: ZeRO-3),
+and ``layout`` names the checkpoint layout (``tree``, ``bucket_rows``,
+``zero3_rows``).
 """
 
 from __future__ import annotations
@@ -112,7 +121,11 @@ def build_schedule(cfg: RunConfig) -> Callable[[int], np.float32]:
 class MomentumSGD:
     """Momentum SGD over flat buffers.  ``zero_grad`` clears the gradient
     buffer (one memset); ``step`` applies one update at
-    ``schedule(count)`` and advances ``count``."""
+    ``schedule(count)`` and advances ``count``.
+
+    Row state: ``plan`` (a ``BucketPlan``), ``momentum_rows`` and, under
+    ZeRO-3, ``params_rows`` (this rank's row of each bucket, in plan
+    order); the flat buffers they replace are None."""
 
     def __init__(self, model: nn.Module, schedule: Callable[[int], float],
                  momentum: float, fused: bool, weight_decay: float = 0.0):
@@ -124,6 +137,10 @@ class MomentumSGD:
         self.weight_decay = float(weight_decay)
         self.fused = fused
         self.count = 0
+        self.layout = "tree"
+        self.plan = None
+        self.momentum_rows: list[torch.Tensor] | None = None
+        self.params_rows: list[torch.Tensor] | None = None
         self.params_flat = torch.empty(total, dtype=torch.float32,
                                        device=device)
         self.grads_flat = torch.zeros_like(self.params_flat)
@@ -148,28 +165,64 @@ class MomentumSGD:
                 for name, (off, shape) in self.slices.items()}
 
     def zero_grad(self) -> None:
-        self.grads_flat.zero_()
+        if self.grads_flat is not None:
+            self.grads_flat.zero_()
+        for row in self.params_rows or ():
+            row.grad = None
+
+    def learning_rate(self) -> float:
+        """This step's learning rate, ``schedule(count)``."""
+        return float(self.schedule(self.count))
 
     @torch.no_grad()
-    def step(self) -> None:
-        lr = float(self.schedule(self.count))
+    def apply(self, p: torch.Tensor, m: torch.Tensor | None,
+              g: torch.Tensor, lr: float) -> None:
+        """One update of the 1-D buffers ``p`` and ``m`` from ``g`` at
+        ``lr``, in place (``g`` takes the weight decay): the flat buffers,
+        or matching bucket rows."""
         if self.weight_decay:
             # add_decayed_weights: one rounding of g + wd * p (the float64
             # product of two float32 values is exact).
-            g = self.grads_flat
-            g.copy_(g.double().add_(self.params_flat.double(),
+            g.copy_(g.double().add_(p.double(),
                                     alpha=float(_f32(self.weight_decay))))
         if self.fused:
-            fused_sgd_apply(self.params_flat, self.momentum_flat,
-                            self.grads_flat, lr, self.momentum)
-        elif self.momentum_flat is not None:
-            sgd_plain(self.params_flat, self.momentum_flat, self.grads_flat,
-                      lr, self.momentum)
+            fused_sgd_apply(p, m, g, lr, self.momentum)
+        elif m is not None:
+            sgd_plain(p, m, g, lr, self.momentum)
         else:
-            p = self.params_flat
-            p.copy_(p.double().sub_(self.grads_flat.double()
-                                    .mul_(float(_f32(lr)))))
+            p.copy_(p.double().sub_(g.double().mul_(float(_f32(lr)))))
+
+    def step(self) -> None:
+        self.apply(self.params_flat, self.momentum_flat, self.grads_flat,
+                   self.learning_rate())
         self.count += 1
+
+    @torch.no_grad()
+    def shard_rows(self, plan, rank: int,
+                   layout: str = "bucket_rows") -> None:
+        """Keep the momentum as this rank's rows of ``plan`` only (ZeRO-1;
+        ``layout="tree"`` for ``--shard_update``'s tree form, whose
+        checkpoint gathers the full momentum back)."""
+        self.plan, self.layout = plan, layout
+        if self.momentum_flat is not None:
+            self.momentum_rows = [plan.pack_row(self.momentum_flat, b, rank)
+                                  for b in range(plan.num_buckets)]
+            self.momentum_flat = None
+
+    @torch.no_grad()
+    def shard_params(self, layout, rank: int, model: nn.Module) -> None:
+        """ZeRO-3: the parameters and the momentum as this rank's rows of
+        ``layout`` (a ``parallel/zero3.Zero3Layout``) only; the flat
+        buffers are dropped and the model's parameters become empty
+        placeholders of their shapes (the step feeds it gathered
+        leaves)."""
+        self.shard_rows(layout.plan, rank, layout="zero3_rows")
+        self.params_rows = [row.requires_grad_() for row in
+                            layout.init_rows(self.params_flat, rank)]
+        self.params_flat = self.grads_flat = None
+        for p in model.parameters():
+            p.grad = None
+            p.data = p.data.new_zeros(()).expand(p.shape)
 
 
 def build_optimizer(cfg: RunConfig, model: nn.Module) -> MomentumSGD:
@@ -184,12 +237,8 @@ def build_optimizer(cfg: RunConfig, model: nn.Module) -> MomentumSGD:
                 f"(got {cfg.weight_decay})")
         if cfg.shard_update:
             raise ModeRefusal(
-                "--shard_update shards the update across ranks; the fused "
-                "apply updates one flat buffer per rank — use one or the "
-                "other")
-    if cfg.shard_update:
-        raise ModeRefusal(
-            "--shard_update (ZeRO-1 update sharding) is not ported to the "
-            "PyTorch package yet; it comes with the bucketed modes")
+                "--shard_update shards the update with XLA sharding "
+                "constraints; the Pallas fused apply is a custom call XLA "
+                "cannot re-partition — use one or the other")
     return MomentumSGD(model, sched, cfg.momentum, fused=cfg.fused_optimizer,
                        weight_decay=max(cfg.weight_decay, 0.0))

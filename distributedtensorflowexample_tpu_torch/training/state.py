@@ -21,6 +21,14 @@ definition of what makes a run resumable (the JAX package's
 parameters and momentum, the optimizer's count (the schedule's
 position), the model's buffers, and the dropout generators' states of
 every rank.  ``training/checkpoint.py`` writes and reads it.
+
+Under the ZeRO modes (``MomentumSGD.layout``) the content follows the
+checkpoint layout the run records: ``bucket_rows`` holds the flat
+parameters and this rank's momentum rows, ``zero3_rows`` this rank's
+parameter and momentum rows (one part per rank, as async mode's); the
+tree form of ``--shard_update`` keeps its momentum as rows but saves the
+full flat momentum (gathered from every rank) and takes its own rows
+back on a restore, so its checkpoint is a ``tree`` one.
 """
 
 from __future__ import annotations
@@ -74,6 +82,15 @@ def _dropout_seed(seed: int, rank: int) -> int:
     return (int(seed) + 1 + int(rank) * 0x9E3779B97F4A7C15) % (2 ** 63)
 
 
+def _full_momentum(opt, mesh: Mesh) -> torch.Tensor:
+    """The flat momentum of ``--shard_update``'s tree form, gathered from
+    every rank's rows (a collective, uncounted)."""
+    full = torch.zeros_like(opt.params_flat)
+    for b, row in enumerate(opt.momentum_rows):
+        opt.plan.unpack(mesh.all_gather_into(row, counted=False), full, b)
+    return full
+
+
 def saveable_state_dict(state: TrainState, mesh: Mesh = ONE_RANK,
                         replicated: bool = True) -> dict[str, Any]:
     """This rank's resumable content as host copies (the optimizer updates
@@ -82,17 +99,53 @@ def saveable_state_dict(state: TrainState, mesh: Mesh = ONE_RANK,
     ``replicated``: the state is the same on every rank (sync mode), and
     one rank's copy is the checkpoint's, so the content carries every
     rank's dropout generator state, all-gathered (a collective: every
-    rank calls it); otherwise (async mode, one worker per rank) only this
-    rank's."""
+    rank calls it); otherwise (async mode, one worker per rank, and the
+    row layouts) only this rank's."""
     opt = state.optimizer
     host = lambda t: None if t is None else t.detach().to("cpu", copy=True)
     gen = state.generator.get_state()
     gens = mesh.all_gather(gen) if replicated else {mesh.rank: gen}
-    return {"step": int(state.step), "count": int(opt.count),
-            "params": host(opt.params_flat),
-            "momentum": host(opt.momentum_flat),
-            "buffers": {n: host(b) for n, b in state.model.named_buffers()},
-            "generators": dict(enumerate(gens)) if replicated else gens}
+    content = {"step": int(state.step), "count": int(opt.count),
+               "layout": opt.layout,
+               "buffers": {n: host(b)
+                           for n, b in state.model.named_buffers()},
+               "generators": dict(enumerate(gens)) if replicated else gens}
+    if opt.layout == "zero3_rows":
+        content["params_rows"] = [host(r) for r in opt.params_rows]
+    else:
+        content["params"] = host(opt.params_flat)
+    if opt.layout != "tree":
+        content["momentum_rows"] = (None if opt.momentum_rows is None else
+                                    [host(r) for r in opt.momentum_rows])
+    elif opt.momentum_rows is not None:
+        content["momentum"] = host(_full_momentum(opt, mesh))
+    else:
+        content["momentum"] = host(opt.momentum_flat)
+    return content
+
+
+def _targets(state: TrainState, content: dict) -> tuple[dict, dict]:
+    """This state's tensors and the content's, by the same names."""
+    opt = state.optimizer
+    want = {f"buffer {n}": b for n, b in state.model.named_buffers()}
+    got = {f"buffer {n}": b for n, b in content["buffers"].items()}
+    for key in ("params", "momentum", "params_rows", "momentum_rows"):
+        if key not in content:
+            continue
+        mine = getattr(opt, f"{key}_flat" if key in ("params", "momentum")
+                       else key)
+        if key == "momentum" and opt.momentum_rows is not None:
+            mine = torch.empty_like(opt.params_flat)   # sharded below
+        theirs = content[key]
+        if key.endswith("_rows"):
+            mine = dict(enumerate(mine or ()))
+            theirs = dict(enumerate(theirs or ()))
+            for i in mine.keys() | theirs.keys():
+                want[f"{key}[{i}]"], got[f"{key}[{i}]"] = (mine.get(i),
+                                                           theirs.get(i))
+        else:
+            want[key], got[key] = mine, theirs
+    return want, got
 
 
 def load_state_dict(state: TrainState, content: dict[str, Any],
@@ -100,24 +153,28 @@ def load_state_dict(state: TrainState, content: dict[str, Any],
     """Put ``content`` (:func:`saveable_state_dict`'s, read back) into
     ``state`` in place.  A rank whose generator the content lacks (a
     replicated checkpoint written by fewer ranks) keeps its fresh one.
-    Content of another model or optimizer is refused by name."""
+    Content of another model, optimizer or layout is refused by name."""
     opt = state.optimizer
-    want = {"params": opt.params_flat, "momentum": opt.momentum_flat,
-            **{f"buffer {n}": b for n, b in state.model.named_buffers()}}
-    got = {"params": content["params"], "momentum": content["momentum"],
-           **{f"buffer {n}": b for n, b in content["buffers"].items()}}
+    layout = content.get("layout", "tree")
+    if layout != opt.layout:
+        raise ValueError(f"checkpoint holds {layout!r} state; this run's "
+                         f"layout is {opt.layout!r}")
+    want, got = _targets(state, content)
     for name in want.keys() | got.keys():
         w, g = want.get(name), got.get(name)
         shapes = [None if t is None else tuple(t.shape) for t in (w, g)]
         if shapes[0] != shapes[1]:
             raise ValueError(
                 f"checkpoint {name} has shape {shapes[1]}, this run's is "
-                f"{shapes[0]}: it was written for another model or "
-                f"optimizer")
+                f"{shapes[0]}: it was written for another model, "
+                f"optimizer or mesh size")
     with torch.no_grad():
         for name, w in want.items():
             if w is not None:
                 w.copy_(got[name])
+        if layout == "tree" and opt.momentum_rows is not None:
+            for b, row in enumerate(opt.momentum_rows):
+                row.copy_(opt.plan.pack_row(want["momentum"], b, mesh.rank))
     opt.count = int(content["count"])
     state.step = int(content["step"])
     gen = content["generators"].get(mesh.rank)

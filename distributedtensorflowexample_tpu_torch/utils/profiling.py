@@ -9,7 +9,8 @@ Builds the train step with ``Engine.build`` from the trainer's own config
 config 3's, synthetic MNIST resident on the card, at B=64 and 256 with
 all three kernel flags; for ``lm_base`` ``trainer_lm``'s, the token split
 resident on the card, at B=16 with ``--pallas_ce`` and
-``--fused_optimizer``; for ``resnet20`` config 4's
+``--fused_optimizer`` (and ``--bucket_grads ""``, which the fused apply
+needs); for ``resnet20`` config 4's
 (``trainer_mirrored_cifar``: weight decay, the crop and flip), synthetic
 CIFAR-10 resident on the card, at B=128 with ``--dequant_impl pallas``
 and ``--pallas_ce`` (weight decay rules out the SGD kernel); for
@@ -33,6 +34,10 @@ prints one JSON line with:
 
 Any flag of the trainer CLI (``config.py``) is accepted after the
 script's own.
+
+:func:`collective_ms` times one collective of each kind (all-reduce,
+reduce-scatter, all-gather) on a mesh's ranks (``chip_smoke.py`` calls it
+in its two gloo ranks, for the replication modes).
 """
 
 from __future__ import annotations
@@ -74,7 +79,7 @@ def workload(model: str, argv: list) -> tuple:
     if model == "lm_base":
         size, cfg = trainer_lm.build_config(
             ["--size", model, "--pallas_ce", "true", "--fused_optimizer",
-             "true"] + argv)
+             "true", "--bucket_grads", ""] + argv)
         return RunSpec(size, "lm", cfg), [16]
     if model == "resnet20":
         cfg = trainer_mirrored_cifar.build_config(
@@ -165,6 +170,33 @@ def profile_step(spec: RunSpec, steps: int, warmup: int) -> dict:
             "top": top, "top_host": top_host, "by_kind": by_kind,
             "port_us_per_launch": port,
             "port_launches_per_step": port_calls}
+
+
+def collective_ms(mesh, numel: int, iters: int) -> dict:
+    """Host milliseconds per gradient collective of each kind on this
+    rank's device, back to back and synchronized: an all-reduce of
+    ``numel`` float32, a reduce-scatter of ``numel`` to ``numel / D``,
+    an all-gather of ``numel / D`` to ``numel`` (the sizes a step's
+    buffers give them; uncounted).  Every rank of ``mesh`` calls it."""
+    full = torch.zeros(numel - numel % mesh.size, device=mesh.device)
+    row = full[:full.numel() // mesh.size].clone()
+    calls = {"all-reduce": lambda: mesh.all_reduce(full, counted=False),
+             "reduce-scatter": lambda: mesh.reduce_scatter(full,
+                                                           counted=False),
+             "all-gather": lambda: mesh.all_gather_into(row, counted=False)}
+    sync = (torch.cuda.synchronize if mesh.device.type == "cuda"
+            else lambda: None)
+    out = {}
+    for kind, call in calls.items():
+        for _ in range(2):
+            call()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            call()
+        sync()
+        out[kind] = (time.perf_counter() - t0) * 1e3 / iters
+    return out
 
 
 def main(argv=None) -> int:

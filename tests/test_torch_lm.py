@@ -391,8 +391,12 @@ def test_trainer_lm_drives_on_the_cpu(tmp_path, capsys, monkeypatch):
 
 @pytest.mark.parametrize("flags,message", [
     (["--device_data", "off"], "--device_data off"),
-    (["--bucket_grads", "auto"], "--bucket_grads"),
-    (["--size", "lm_base", "--bucket_grads", "auto"], "--bucket_grads"),
+    # bucketing is ported (one rank falls through to the plain step);
+    # the fused apply is refused with it, as in JAX, and lm_base takes
+    # --bucket_grads auto by default
+    (["--bucket_grads", "auto", "--fused_optimizer", "true"],
+     "--bucket_grads"),
+    (["--size", "lm_base", "--fused_optimizer", "true"], "--bucket_grads"),
     (["--remat", "layer"], "remat"),
 ])
 def test_trainer_lm_refuses_by_name(flags, message):
@@ -426,7 +430,8 @@ def test_profiled_config_is_the_trainers(model):
     if model == "lm_base":
         size, want = trainer_lm.build_config(
             ["--size", "lm_base", "--pallas_ce", "true",
-             "--fused_optimizer", "true", "--steps_per_loop", "1"])
+             "--fused_optimizer", "true", "--bucket_grads", "",
+             "--steps_per_loop", "1"])
         assert (spec.model, spec.dataset, batches) == (size, "lm", [16])
         assert (want.remat, want.learning_rate, want.bucket_grads) == (
             "block", 0.1, "")

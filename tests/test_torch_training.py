@@ -253,12 +253,16 @@ def test_cli_converges_on_cpu(small_torch_mnist, tmp_path, capsys):
 @pytest.mark.parametrize("flags", [
     # async is ported; the fused apply is refused in it, as in JAX
     ["--sync_mode", "async", "--fused_optimizer", "true"],
-    ["--bucket_grads", "auto"],
-    ["--shard_update", "true"], ["--shard_params", "true"],
+    # the replication modes are ported; the fused apply is refused with
+    # each of them, as in JAX
+    ["--bucket_grads", "auto", "--fused_optimizer", "true"],
+    ["--shard_update", "true", "--fused_optimizer", "true"],
+    ["--shard_params", "true"],
     ["--data_sharding", "sharded"], ["--device_data", "off"],
     # checkpoints are ported; they need a --log_dir (the test's is "")
     ["--checkpoint_every", "10"],
-    ["--bucket_grads", "auto", "--num_devices", "2"],
+    # ZeRO-3 lays its rows out by --bucket_grads, as in JAX
+    ["--shard_params", "true", "--num_devices", "2"],
     ["--dequant_impl", "onehot"], ["--dequant_impl", "lut"],
     ["--fused_optimizer", "true", "--momentum", "0"],
     # weight decay is ported; the fused apply still has no decay term
@@ -277,13 +281,29 @@ def test_unported_modes_are_refused_by_name(small_torch_mnist, flags):
                                 + flags)
 
 
-def test_async_is_refused_by_name_for_a_batch_norm_model():
+def test_bucketed_resnet20_is_refused_by_name():
+    """Batch norm over each rank's rows would be another model: the JAX
+    package refuses --bucket_grads for it in sync mode, by name."""
     from distributedtensorflowexample_tpu_torch.trainers import (
         trainer_mirrored_cifar)
-    with pytest.raises(ModeRefusal, match="--sync_mode async for resnet20"):
+    with pytest.raises(ModeRefusal,
+                       match="--bucket_grads cannot run 'resnet20'"):
         trainer_mirrored_cifar.main(["--device", "cpu", "--dataset",
-                                     "synthetic", "--sync_mode", "async",
-                                     "--log_dir", ""])
+                                     "synthetic", "--bucket_grads", "auto",
+                                     "--num_devices", "2", "--log_dir", ""])
+
+
+def test_snapshot_dir_with_a_row_layout_is_refused_by_name(
+        small_torch_mnist, monkeypatch):
+    from distributedtensorflowexample_tpu_torch.trainers import (
+        trainer_sync_mnist)
+    monkeypatch.setenv("SNAPSHOT_DIR", "/nonexistent")
+    for extra in (["--shard_update", "true"], ["--shard_params", "true"]):
+        with pytest.raises(ModeRefusal, match="SNAPSHOT_DIR"):
+            trainer_sync_mnist.main(["--device", "cpu", "--dataset",
+                                     "synthetic", "--bucket_grads", "auto",
+                                     "--num_devices", "2", "--log_dir", ""]
+                                    + extra)
 
 
 def test_auto_steps_per_loop_matches_the_jax_engine():
