@@ -48,7 +48,8 @@ without printing a result:
    after: ``ce_fwd``, ``ce_bwd`` and ``sgd`` once per step, ``dequant``
    never; a finite, falling loss and a per-token ``final_accuracy`` of at
    least 0.5 (the corpus's bigram ceiling is ~0.85; uniform guessing
-   scores 0.004); then one ``lm_main_path`` JSON line;
+   scores 0.004); its final checkpoint (``--checkpoint_every 600``) is
+   what phase S serves; then one ``lm_main_path`` JSON line;
 A. two ranks on the one card over gloo (``parallel/launch.spawn``: two
    processes, a gloo group over a file store in a temporary directory,
    both ranks on ``cuda:0``; gloo reduces the CUDA tensors through host
@@ -164,6 +165,29 @@ I'. resume in ``zero3_rows`` on the two gloo ranks: config 3 under
    then resumed to 40 (``--checkpoint_every 20``): each rank's final
    part (its parameter and momentum rows) bitwise equal; one
    ``zero3_resume_path`` line;
+S. serving lm_base at full width: phase 6's final checkpoint written
+   once through ``resilience/snapshot.SnapshotStore``, promoted
+   (``serving/promote.promote``) and served by ``serve_lm.main`` on
+   ``cuda`` with 8 slots of 128 cache rows (2 x 8 x 8 x 128 x 12 x 64 x
+   2 B = 25,165,824 B of caches), a closed-loop drive of 64 requests
+   from 8 clients, 32 tokens each, counters set to 0 just before and
+   read just after (no kernel of this slice's path: all 0).  Checks, each
+   fatal: (a) all 64 answered with 32 tokens; (b) one teacher-forced
+   training forward per request agrees with the served tokens wherever
+   its top-2 logit gap exceeds ``SERVE_TAU``; (c) a request admitted
+   mid-decode, and a batched prefill of 3, bitwise equal to solo runs;
+   (d) ``DECODE_CONTRACT`` over 100 decode steps (cache storage fixed,
+   ``memory_allocated`` flat); (e) the engine on the card against the
+   engine on the CPU at lm_small, 4 prompts x 8 tokens, logits within
+   3e-2; (f) a self-drafted speculative run (k=4) equals the plain run
+   where the gap exceeds ``SERVE_TAU``; (g) two sampled runs
+   (temperature 0.8, top-k 20) give identical tokens; (h) ``serve_lm``
+   as a subprocess, SIGTERM after its ``--ready_file`` appears: exit 143,
+   every admitted request answered, the queued tail ``drained``.  Then
+   one ``serving_path`` line: tokens/s, p50/p99 latency, prefill ms by
+   bucket, decode ms a step, launches a decode step and the device-busy
+   share over decode steps (``torch.profiler``), cache bytes, load time,
+   the positions inside ``SERVE_TAU``;
 7. the ``kernels`` JSON line (each kernel's launches summed over every
    path and rank, and per path: per rank for the multi-rank paths, per
    run for phase I), then the ``ok`` line last.
@@ -253,6 +277,20 @@ LM_MODE_FLAGS = {"sync_dp": ["--bucket_grads", ""], "bucketed": [],
                                   "--zero3_overlap", "false"]}
 CNN_PARAMS = 3_274_634
 LM_PARAMS = 57_289_728
+SERVE_SLOTS = 8             # phase S: decode slots
+SERVE_CACHE = 128           # phase S: cache rows a slot
+SERVE_REQUESTS = 64
+SERVE_CLIENTS = 8
+SERVE_NEW = 32              # tokens a request
+SERVE_CPU_SIZE = "lm_small"  # phase S (e): the engine on the card vs the CPU
+#: Phase S's top-2 logit gap at or below which a served token may differ
+#: from the teacher-forced forward's argmax: the two run products of other
+#: row counts, which cuBLAS may compute with other kernels and roundings.
+#: A token can differ only where the gap is at most twice the largest
+#: logit difference between the two; on an H100 that difference measured
+#: 0.0625 (one bf16 ulp of a logit in [8, 16), ``max_abs_logit_err`` in
+#: the ``serving_path`` line), and the tolerance doubles that bound.
+SERVE_TAU = 0.25
 SOURCES = {
     "dequant": ("distributedtensorflowexample_tpu_torch/csrc/dequant.cu",
                 "distributedtensorflowexample_tpu/ops/pallas/dequant.py:35"),
@@ -507,14 +545,18 @@ def run_main_path(gpu: str) -> tuple[dict, dict]:
     return result, counts
 
 
+LM_LOG_DIR = ROOT / "build" / "chip_smoke_lm"
+LM_ARGV = ["--device", "cuda", "--size", LM_SIZE, "--pallas_ce", "true",
+           "--fused_optimizer", "true", "--bucket_grads", "",
+           "--learning_rate", str(LM_LR),
+           "--train_steps", str(LM_STEPS), "--log_every", "100",
+           "--checkpoint_every", str(LM_STEPS), "--resume", "false",
+           "--log_dir", str(LM_LOG_DIR)]
+
+
 def run_lm_main_path(gpu: str) -> tuple[dict, dict]:
     from distributedtensorflowexample_tpu_torch.trainers import trainer_lm
-    argv = ["--device", "cuda", "--size", LM_SIZE, "--pallas_ce", "true",
-            "--fused_optimizer", "true", "--bucket_grads", "",
-            "--learning_rate", str(LM_LR),
-            "--train_steps", str(LM_STEPS), "--log_every", "100",
-            "--resume", "false",
-            "--log_dir", str(ROOT / "build" / "chip_smoke_lm")]
+    argv = LM_ARGV
     out = io.StringIO()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1494,6 +1536,376 @@ def run_drill_phase(gpu: str) -> None:
     print(json.dumps({"sigterm_drill": dict(out, gpu=gpu)}), flush=True)
 
 
+# --- phase S: serving lm_base ---------------------------------------------
+
+SERVE_DIR = ROOT / "build" / "chip_smoke_serve"
+SERVE_SNAP = SERVE_DIR / "snapshots"
+
+
+def snapshot_trained_lm() -> dict:
+    """Phase 6's final checkpoint of lm_base, restored into the trainer's
+    state and written once through the port's ``SnapshotStore`` (as the
+    JAX package's ``tools/faultline.py`` writes one)."""
+    from distributedtensorflowexample_tpu_torch.engine import Engine, RunSpec
+    from distributedtensorflowexample_tpu_torch.resilience.snapshot import (
+        SnapshotStore)
+    from distributedtensorflowexample_tpu_torch.trainers import trainer_lm
+    from distributedtensorflowexample_tpu_torch.training.checkpoint import (
+        CheckpointManager)
+    size, cfg = trainer_lm.build_config(LM_ARGV[:])
+    state = Engine(RunSpec(size, "lm", cfg)).create_state(
+        Mesh(torch.device("cuda")))
+    CheckpointManager(str(LM_LOG_DIR / "checkpoints")).restore(state)
+    require(state.step == LM_STEPS, f"phase S: phase 6's checkpoint is at "
+                                    f"step {state.step}, not {LM_STEPS}")
+    store = SnapshotStore(str(SERVE_SNAP))
+    t0 = time.perf_counter()
+    store.save(state, cursor={"seed": cfg.seed, "step": state.step},
+               meta={"model": size, "update_layout": "tree",
+                     "writer": "chip_smoke"})
+    return {"step": state.step, "save_s": time.perf_counter() - t0,
+            "bytes": store.manifest(state.step)["nbytes"]}
+
+
+def serve_argv(name: str, *extra) -> list:
+    return ["--device", "cuda", "--snapshot", str(SERVE_SNAP), "--size",
+            LM_SIZE, "--slots", str(SERVE_SLOTS), "--max_len",
+            str(SERVE_CACHE), "--drive", str(SERVE_REQUESTS), "--clients",
+            str(SERVE_CLIENTS), "--drive_max_new", str(SERVE_NEW),
+            "--stats", str(SERVE_DIR / f"{name}.json"),
+            "--results", str(SERVE_DIR / f"{name}.jsonl"), *extra]
+
+
+def serve_drive(name: str, *extra) -> dict:
+    """``serve_lm.main`` on the card, the launch counters set to 0 just
+    before and read just after; check (a) on its answers."""
+    from distributedtensorflowexample_tpu_torch.serving import serve_lm
+    from distributedtensorflowexample_tpu_torch.serving.loadgen import (
+        DriveFile)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = serve_lm.main(serve_argv(name, *extra))
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    require(rc == 0, f"phase S: serve_lm ({name}) exited {rc}")
+    with open(SERVE_DIR / f"{name}.json") as f:
+        stats = json.load(f)
+    tokens = DriveFile(str(SERVE_DIR / f"{name}.jsonl")).done_ids()
+    require(stats["completed"] == SERVE_REQUESTS
+            and sorted(tokens) == list(range(SERVE_REQUESTS))
+            and all(len(t) == SERVE_NEW for t in tokens.values()),
+            f"phase S (a): {name} answered {stats['completed']} of "
+            f"{SERVE_REQUESTS} requests, token counts "
+            f"{sorted(set(len(t) for t in tokens.values()))}")
+    return {"stats": stats, "tokens": tokens, "launches": counts,
+            "wall_s": wall}
+
+
+def check_against_forward(model, tokens: dict, what: str) -> dict:
+    """One teacher-forced training forward per request over its prompt
+    and served tokens: every served token must be the forward's argmax
+    wherever the forward's top-2 logit gap exceeds ``SERVE_TAU``."""
+    from distributedtensorflowexample_tpu_torch.serving.loadgen import (
+        make_prompt)
+    inside = differ = 0
+    widest = 0.0                # the widest gap where a token differs
+    with torch.inference_mode():
+        for rid, toks in sorted(tokens.items()):
+            prompt = [int(t) for t in make_prompt(rid, model.vocab_size)]
+            seq = torch.tensor([prompt + toks[:-1]], device="cuda")
+            logits = model(seq)[0, len(prompt) - 1:]
+            top2 = logits.topk(2, dim=-1).values
+            gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+            want = logits.argmax(-1).cpu().numpy()
+            bad = [j for j in range(SERVE_NEW)
+                   if want[j] != toks[j] and gap[j] > SERVE_TAU]
+            require(not bad, f"phase S ({what}): request {rid} differs "
+                             f"from the teacher-forced forward at "
+                             f"{bad} with top-2 gaps "
+                             f"{[float(gap[j]) for j in bad]} > "
+                             f"{SERVE_TAU}")
+            inside += int((gap <= SERVE_TAU).sum())
+            for j in range(SERVE_NEW):
+                if want[j] != toks[j]:
+                    differ += 1
+                    widest = max(widest, float(gap[j]))
+    return {"positions": len(tokens) * SERVE_NEW, "inside_tau": inside,
+            "differ": differ, "widest_gap_differing": widest,
+            "tau": SERVE_TAU}
+
+
+def logit_err_vs_forward(engine, model, tokens: dict) -> float:
+    """The largest |logit| difference between the engine (prefill, then
+    decode steps fed the served tokens) and the teacher-forced training
+    forward, over the first ``engine.slots`` requests: a served token can
+    differ from the forward's argmax only where the forward's top-2 gap
+    is at most twice this."""
+    from distributedtensorflowexample_tpu_torch.serving.loadgen import (
+        make_prompt)
+    rids = sorted(tokens)[:engine.slots]
+    prompts = {s: [int(t) for t in make_prompt(rid, model.vocab_size)]
+               for s, rid in enumerate(rids)}
+    out = engine.prefill_many([(s, p, SERVE_NEW)
+                               for s, p in prompts.items()])
+    got = {s: [out[s][1]] for s in prompts}
+    for j in range(SERVE_NEW - 1):
+        for s, rid in enumerate(rids):
+            engine.set_slot(s, tokens[rid][j], int(engine.positions[s]))
+        logits = engine.decode_logits(busy=list(prompts))
+        for s in prompts:
+            got[s].append(logits[s])
+    err = 0.0
+    with torch.inference_mode():
+        for s, rid in enumerate(rids):
+            seq = torch.tensor([prompts[s] + tokens[rid][:-1]],
+                               device="cuda")
+            want = model(seq)[0, len(prompts[s]) - 1:].cpu().numpy()
+            err = max(err, float(np.abs(np.stack(got[s]) - want).max()))
+    for s in range(engine.slots):
+        engine.set_slot(s, 0, 0)
+    return err
+
+
+def engine_greedy(engine, slot: int, prompt, n: int) -> list:
+    toks = [engine.prefill(slot, prompt, max_new=n)]
+    while len(toks) < n:
+        toks.append(int(engine.decode(busy=[slot])[slot]))
+    return toks
+
+
+def admission_bitwise(engine) -> dict:
+    """(c): a request admitted while another is mid-decode, and three
+    prompts prefilled in one batch, bitwise their solo runs."""
+    from distributedtensorflowexample_tpu_torch.serving.loadgen import (
+        make_prompt)
+    from distributedtensorflowexample_tpu_torch.serving.queue import (
+        ContinuousBatcher, RequestQueue)
+    prompt_a, prompt_b = make_prompt(100, 250), make_prompt(101, 250)
+    solo_b = engine_greedy(engine, 1, prompt_b, 16)
+    engine.set_slot(1, 0, 0)
+    queue = RequestQueue(engine.vocab)
+    batcher = ContinuousBatcher(engine, queue, slo_ms=0.0)
+    ra = queue.submit(prompt_a, 48, rid="A")
+    batcher.step()
+    batcher.step()
+    rb = queue.submit(prompt_b, 16, rid="B")
+    batcher.step()
+    require(not ra.done.is_set() and rb.admit_t is not None,
+            "phase S (c): B was not admitted while A was decoding")
+    while not (ra.done.is_set() and rb.done.is_set()):
+        batcher.step()
+    require(rb.tokens == solo_b, f"phase S (c): B admitted mid-decode "
+                                 f"{rb.tokens} != solo {solo_b}")
+    prompts = [make_prompt(i, 250) for i in (102, 103, 104)]
+    solo = []
+    for p in prompts:
+        solo.append(engine_greedy(engine, 0, p, 8))
+        engine.set_slot(0, 0, 0)
+    out = engine.prefill_many([(s, p, 8) for s, p in enumerate(prompts)])
+    got = [[out[s][0]] for s in range(3)]
+    for _ in range(7):
+        step = engine.decode(busy=[0, 1, 2])
+        for s in range(3):
+            got[s].append(int(step[s]))
+    require(got == solo, f"phase S (c): batched prefill {got} != solo "
+                         f"{solo}")
+    for s in range(engine.slots):
+        engine.set_slot(s, 0, 0)
+    return {"mid_decode_admission": "bitwise", "batched_prefill_3":
+            "bitwise"}
+
+
+def serving_timings(engine) -> dict:
+    """Prefill ms by bucket (one prompt, 5 calls after a warm-up), decode
+    ms a step with every slot busy (50 steps), and under
+    ``torch.profiler`` over 20 decode steps the launches a step and the
+    device-busy share (``utils/profiling.py``'s counting)."""
+    from distributedtensorflowexample_tpu_torch.utils import profiling
+    prefill_ms = {}
+    for bucket in engine.buckets:
+        job = [(0, np.arange(bucket, dtype=np.int32) % 250,
+                SERVE_CACHE - bucket)]
+        engine.prefill_many(job)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            engine.prefill_many(job)
+        prefill_ms[bucket] = (time.perf_counter() - t0) * 1e3 / 5
+    for s in range(engine.slots):
+        engine.set_slot(s, s + 1, 16)
+    engine.decode()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        engine.decode()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / 50
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(20):
+            engine.decode()
+    events = [e for e in prof.key_averages() if profiling._on_device(e)]
+    busy_ms = sum(profiling._device_us(e) for e in events) / 1e3 / 20
+    for s in range(engine.slots):
+        engine.set_slot(s, 0, 0)
+    return {"prefill_ms_by_bucket": prefill_ms, "decode_ms_per_step":
+            decode_ms, "device_busy_ms_per_decode_step": busy_ms,
+            "decode_idle_share": max(0.0, 1.0 - busy_ms / decode_ms),
+            "launches_per_decode_step": sum(e.count for e in events) / 20}
+
+
+def card_vs_cpu_engine() -> dict:
+    """(e): the engine on the card against the engine on the CPU at
+    lm_small, one seeded init, 4 prompts x 8 tokens, every step fed the
+    CPU's greedy token: logits within 3e-2 (``tests/test_torch_lm.py``'s
+    bf16 bound)."""
+    import copy
+
+    from distributedtensorflowexample_tpu_torch.models import build_model
+    from distributedtensorflowexample_tpu_torch.serving.engine import (
+        DecodeEngine)
+    from distributedtensorflowexample_tpu_torch.serving.loadgen import (
+        make_prompt)
+    cpu = build_model(SERVE_CPU_SIZE).reset_parameters(
+        torch.Generator().manual_seed(0)).requires_grad_(False)
+    engines = {"cpu": DecodeEngine(cpu, slots=4, cache_len=32),
+               "cuda": DecodeEngine(copy.deepcopy(cpu).to("cuda"), slots=4,
+                                    cache_len=32)}
+    prompts = [(s, make_prompt(s, 250, seed=1), 8) for s in range(4)]
+    outs = {d: e.prefill_many(prompts) for d, e in engines.items()}
+    err = max(float(np.abs(outs["cpu"][s][1] - outs["cuda"][s][1]).max())
+              for s in range(4))
+    toks = [outs["cpu"][s][0] for s in range(4)]
+    for _ in range(7):
+        for e in engines.values():
+            for s in range(4):
+                e.set_slot(s, toks[s], int(e.positions[s]))
+        logits = {d: e.decode_logits(busy=[0, 1, 2, 3])
+                  for d, e in engines.items()}
+        err = max(err, float(np.abs(logits["cpu"] - logits["cuda"]).max()))
+        toks = [int(t) for t in logits["cpu"].argmax(-1)]
+    require(err <= 3e-2, f"phase S (e): {SERVE_CPU_SIZE} logits on the card "
+                         f"differ from the CPU's by {err:.3g} > 3e-2")
+    return {"model": SERVE_CPU_SIZE, "max_abs_err": err}
+
+
+def serve_sigterm_drill() -> dict:
+    """(h): ``serve_lm`` in a process of its own, SIGTERM once its
+    ``--ready_file`` exists and requests are in flight: exit 143, every
+    admitted request answered, the queued tail ``drained``."""
+    ready, stats_path = SERVE_DIR / "ready", SERVE_DIR / "term.json"
+    cmd = [sys.executable, "-u", "-m",
+           "distributedtensorflowexample_tpu_torch.serving.serve_lm",
+           "--device", "cuda", "--snapshot", str(SERVE_SNAP), "--size",
+           LM_SIZE, "--slots", str(SERVE_SLOTS), "--max_len",
+           str(SERVE_CACHE), "--drive", "100000", "--clients",
+           str(2 * SERVE_SLOTS), "--drive_max_new", str(SERVE_NEW),
+           "--ready_file", str(ready), "--stats", str(stats_path)]
+    p = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+    lines: list = []
+    reader = threading.Thread(target=lambda: lines.extend(p.stdout),
+                              daemon=True)
+    reader.start()
+    t0 = time.perf_counter()
+    try:
+        while not ready.exists() and p.poll() is None \
+                and time.perf_counter() - t0 < 300:
+            time.sleep(0.05)
+        t_ready = time.perf_counter()
+        time.sleep(2.0)             # requests in flight and queued
+        alive = p.poll() is None
+        p.send_signal(signal.SIGTERM)
+        t_signal = time.perf_counter()
+        p.wait(timeout=120)
+        t_exit = time.perf_counter()
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        reader.join(timeout=30)
+    text = "".join(lines)
+    require(alive and p.returncode == 143 and "Traceback" not in text,
+            f"phase S (h): serve_lm gave exit code {p.returncode} after "
+            f"SIGTERM (want 143):\n{text[-3000:]}")
+    with open(stats_path) as f:
+        stats = json.load(f)
+    require(stats["preempted"] and stats["admitted"] == stats["completed"]
+            and stats["rejected"]["drained"] >= 1,
+            f"phase S (h): after SIGTERM admitted {stats['admitted']}, "
+            f"completed {stats['completed']}, drained "
+            f"{stats['rejected']['drained']}")
+    return {"rc": p.returncode, "ready_s": t_ready - t0,
+            "stop_s": t_exit - t_signal, "admitted": stats["admitted"],
+            "completed": stats["completed"],
+            "drained": stats["rejected"]["drained"]}
+
+
+def run_serving_phase(gpu: str) -> dict:
+    """Phase S; returns the kernels' launches on the serving path."""
+    from distributedtensorflowexample_tpu_torch.serving.engine import (
+        DecodeEngine, check_decode_contract)
+    from distributedtensorflowexample_tpu_torch.serving.promote import promote
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    snap = snapshot_trained_lm()
+    gc.collect()
+    t0 = time.perf_counter()
+    pm = promote(str(SERVE_SNAP), LM_SIZE, device=torch.device("cuda"))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    runs = {"plain": serve_drive("plain")}
+    greedy = check_against_forward(pm.model, runs["plain"]["tokens"], "b")
+    engine = DecodeEngine(pm.model, slots=SERVE_SLOTS, cache_len=SERVE_CACHE)
+    greedy["max_abs_logit_err"] = logit_err_vs_forward(
+        engine, pm.model, runs["plain"]["tokens"])
+    bitwise = admission_bitwise(engine)
+    found = check_decode_contract(engine, steps=100)
+    require(found == [], f"phase S (d): DECODE_CONTRACT broken: {found}")
+    timings = serving_timings(engine)
+    card_cpu = card_vs_cpu_engine()
+    runs["spec"] = serve_drive("spec", "--spec_draft", LM_SIZE,
+                               "--spec_k", "4")
+    spec = check_against_forward(pm.model, runs["spec"]["tokens"], "f")
+    spec["requests_equal_plain"] = sum(
+        runs["spec"]["tokens"][i] == runs["plain"]["tokens"][i]
+        for i in range(SERVE_REQUESTS))
+    sampled = ["--sample_temp", "0.8", "--sample_top_k", "20"]
+    runs["sampled"] = serve_drive("sampled", *sampled)
+    runs["sampled_again"] = serve_drive("sampled_again", *sampled)
+    require(runs["sampled"]["tokens"] == runs["sampled_again"]["tokens"],
+            "phase S (g): two sampled runs answered different tokens")
+    drill_result = serve_sigterm_drill()
+    counts = runs["plain"]["launches"]
+    for name, r in runs.items():
+        require(not any(r["launches"].values()),
+                f"phase S: serving ({name}) launched {r['launches']}: no "
+                f"kernel of this slice is on the serving path")
+    plain = runs["plain"]["stats"]
+    result = {
+        "model": LM_SIZE, "slots": SERVE_SLOTS, "cache_rows": SERVE_CACHE,
+        "cache_bytes": engine.cache_bytes, "snapshot": snap,
+        "load_s": load_s, "requests": SERVE_REQUESTS,
+        "clients": SERVE_CLIENTS, "tokens_per_request": SERVE_NEW,
+        "tokens_per_sec": plain["tokens_per_sec"],
+        "p50_ms": plain["p50_ms"], "p99_ms": plain["p99_ms"],
+        "ttft_p50_ms": plain["ttft_p50_ms"],
+        "ttft_p99_ms": plain["ttft_p99_ms"],
+        "decode_steps": plain["decode_steps"], **timings,
+        "greedy_vs_forward": greedy, "admission": bitwise,
+        "decode_contract": "holds over 100 steps",
+        "card_vs_cpu": card_cpu, "spec_vs_forward": spec,
+        "spec": runs["spec"]["stats"]["spec"],
+        "spec_tokens_per_sec": runs["spec"]["stats"]["tokens_per_sec"],
+        "sampled_tokens_per_sec": runs["sampled"]["stats"]["tokens_per_sec"],
+        "drive_wall_s": {n: r["wall_s"] for n, r in runs.items()},
+        "sigterm": drill_result, "launches": counts, "gpu": gpu}
+    print(json.dumps({"serving_path": result}), flush=True)
+    print(f"serving: {plain['tokens_per_sec']} tokens/s, p50 "
+          f"{plain['p50_ms']} ms, p99 {plain['p99_ms']} ms, decode "
+          f"{timings['decode_ms_per_step']:.3f} ms a step ({LM_SIZE}, "
+          f"{SERVE_SLOTS} slots) on {gpu}", flush=True)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1573,6 +1985,7 @@ def main() -> int:
     by_path.update(run_resume_phase(gpu))
     run_drill_phase(gpu)
     by_path.update(run_mode_phases(gpu, ("L", "M", "N", "I'")))
+    serving_counts = run_serving_phase(gpu)
 
     line = []
     for name, (source, replaces) in SOURCES.items():
@@ -1581,6 +1994,7 @@ def main() -> int:
                  "resnet20": cifar_counts[name],
                  "softmax": softmax_counts[name],
                  "mnist_cnn_async": async_one["launches"][name],
+                 "serving": serving_counts[name],
                  **{p: [c[name] for c in per_rank]
                     for p, per_rank in by_path.items()}}
         line.append({"name": name, "route": "cuda", "source": source,

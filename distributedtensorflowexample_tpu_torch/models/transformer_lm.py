@@ -149,27 +149,42 @@ class DecoderBlock(nn.Module):
         self.mlp_in = nn.Linear(d_model, d_ff)
         self.mlp_out = nn.Linear(d_ff, d_model)
 
+    def qkv_heads(self, x: torch.Tensor) -> tuple:
+        """x [B, T, d] -> (q, k, v), each [B, T, H, Dh]."""
+        b, t, _ = x.shape
+        qkv = _dense(self.ln1(x), self.qkv, self.dtype).view(
+            b, t, 3, self.n_heads, -1)
+        return qkv.unbind(2)
+
+    def attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               live: torch.Tensor) -> torch.Tensor:
+        """Queries q [B, T, H, Dh] over keys and values [B, S, H, Dh],
+        where ``live`` (bool, broadcast to [B, H, T, S]) is True; -> the
+        attention output through ``attn_out``, [B, T, d]."""
+        dt = self.dtype
+        scores = torch.einsum("bthd,bshd->bhts", q, k) / self.scale
+        scores = torch.where(live, scores, -1e9)          # dt(-1e9)
+        probs = torch.softmax(scores.float(), dim=-1).to(dt)
+        att = torch.einsum("bhts,bshd->bthd", probs, v).flatten(2)
+        return _dense(att, self.attn_out, dt)
+
+    def mlp(self, x: torch.Tensor,
+            keep_mlp: torch.Tensor | None = None) -> torch.Tensor:
+        """The second residual half: x + MLP(LN(x))."""
+        dt = self.dtype
+        h = gelu_tanh(_dense(self.ln2(x), self.mlp_in, dt))
+        return x + _dropout(_dense(h, self.mlp_out, dt), keep_mlp,
+                            self.dropout_rate)
+
     def forward(self, x: torch.Tensor, keep_att: torch.Tensor | None = None,
                 keep_mlp: torch.Tensor | None = None) -> torch.Tensor:
         """``keep_att``/``keep_mlp``: the two dropout keep-masks
         (``[B, T, d_model]`` bool), or None for no dropout."""
-        dt = self.dtype
-        b, t, d = x.shape
-        h = self.ln1(x)
-        qkv = _dense(h, self.qkv, dt).view(b, t, 3, self.n_heads, -1)
-        q, k, v = qkv.unbind(2)
-        scores = torch.einsum("bthd,bshd->bhts", q, k) / self.scale
-        pos = torch.arange(t, device=x.device)
-        causal = pos[:, None] >= pos[None, :]
-        scores = torch.where(causal, scores, -1e9)        # dt(-1e9)
-        probs = torch.softmax(scores.float(), dim=-1).to(dt)
-        att = torch.einsum("bhts,bshd->bthd", probs, v).reshape(b, t, d)
-        att = _dropout(_dense(att, self.attn_out, dt), keep_att,
-                       self.dropout_rate)
-        x = x + att
-        h = gelu_tanh(_dense(self.ln2(x), self.mlp_in, dt))
-        h = _dropout(_dense(h, self.mlp_out, dt), keep_mlp, self.dropout_rate)
-        return x + h
+        q, k, v = self.qkv_heads(x)
+        pos = torch.arange(x.shape[1], device=x.device)
+        att = self.attend(q, k, v, pos[:, None] >= pos[None, :])
+        x = x + _dropout(att, keep_att, self.dropout_rate)
+        return self.mlp(x, keep_mlp)
 
 
 class TransformerLM(nn.Module):
@@ -241,9 +256,12 @@ class TransformerLM(nn.Module):
                 x = _checkpointed(block, x, *masks)
             else:
                 x = block(x, *masks)
-        x = self.ln_f(x)
-        logits = F.linear(x, self.embed.weight.to(dt)).float()
-        return logits + torch.where(oov, float("nan"), 0.0)
+        return self.head(x) + torch.where(oov, float("nan"), 0.0)
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """The final LayerNorm and the tied head: x [..., d] in ``dtype``
+        -> float32 logits [..., vocab]."""
+        return F.linear(self.ln_f(x), self.embed.weight.to(self.dtype)).float()
 
 
 def _checkpointed(block: DecoderBlock, x: torch.Tensor,
