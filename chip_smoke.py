@@ -9,9 +9,12 @@ one card, and an NCCL group over the visible cards, that configs 1,
 on-device crop and flip and global-batch batch norm) train through
 their trainers, that a run resumes from its checkpoint and stops on
 SIGTERM with a save, that config 2 (async local SGD) trains on one
-worker and on two, and that every replication mode (bucketed all-reduce,
+worker and on two, that every replication mode (bucketed all-reduce,
 ZeRO-1, ZeRO-3, and async for a batch-norm model) trains on two ranks
-within its collective budget.
+within its collective budget, that a ZeRO-3 lm_base run writes
+shard-redundant snapshots that survive a lost or corrupt rank directory
+and restore onto another width, and that lm_base serves with its
+parameters left sharded over two ranks.
 
     python3 chip_smoke.py
 
@@ -188,6 +191,45 @@ S. serving lm_base at full width: phase 6's final checkpoint written
    bucket, decode ms a step, launches a decode step and the device-busy
    share over decode steps (``torch.profiler``), cache bytes, load time,
    the positions inside ``SERVE_TAU``;
+O. (after I', before S) shard-redundant snapshots at lm_base, full
+   width, on the two gloo ranks: ``trainer_lm`` under ``--bucket_grads
+   auto --shard_params true`` (B=66 buckets), B=16 x T=128 a rank,
+   ``--remat block``, lr 0.02, the CE pair, with ``SNAPSHOT_DIR``, a set
+   (and a checkpoint) every 5 steps to step 10, keep 2; twice, and a copy
+   of the first run's step-5 set resumed to step 10.  Checks, each fatal:
+   (a) both sets quorum-valid, each rank directory holding ``own``, one
+   mirror and ``repl``; (b) rank 1's directory dropped: the restore at
+   D=2 reconstructs shard 1 and is bitwise the intact restore (sha256 of
+   the gathered parameters and momentum); (c) one byte of rank 0's
+   ``own.npz`` flipped: refused by sha256, rebuilt from its mirror,
+   bitwise; (d) shard 0's own copy and its mirror dropped: ``ModeRefusal``
+   naming "exceeds redundancy R=2"; (e) the D=2 set restored on four gloo
+   ranks, saved there as a D=4 set, and that restored on two (after S,
+   in phase P's group): bitwise; (f) the resumed step-10 shards bitwise the straight
+   run's if the two straight runs are bitwise equal, else within twice
+   their gap; (g) the collectives a step the zero3 budget with the hook
+   on; (h) ``ce_fwd`` = ``ce_bwd`` = 1 launch a step on each rank,
+   ``dequant`` = ``sgd`` = 0.  One ``shard_snapshot_path`` line: save
+   blocking ms, bytes a rank, restore ms at the same width and elastic,
+   the reconstructions (host-staged gloo numbers);
+P. params-stay-sharded serving at lm_base, full width: phase S's tree
+   snapshot promoted into 1/2 rows a rank (``promote_sharded``) and
+   served by ``serve_lm --sharded_mesh 2`` (two gloo ranks on the card)
+   with 8 slots of 128 rows (4 a rank), 16 requests of 4-12-token prompts
+   from 4 closed-loop clients, 16 tokens each.  Checks, each fatal: (a)
+   all 16 answered; (b) each request's tokens bitwise a replicated engine
+   of 4 slots fed its prompt; (c) equal to an 8-slot engine up to the
+   first position whose top-2 gap is at most ``SERVE_TAU``; (d)
+   ``params_residency`` 1/2 a rank (114,579,456 of 229,158,912 bytes plus
+   padding) and ``memory_allocated`` after promotion below the full
+   float32 tree plus the caches; (e) ``SHARDED_DECODE_CONTRACT`` over 20
+   decode steps (B all-gathers, one command broadcast and one token
+   gather a step, storage fixed, memory flat); (f) ``--slots 7``,
+   sampling and speculation refused by name; (g) SIGTERM to the sharded
+   ``serve_lm``: 143, both ranks report 143, every admitted request
+   answered.  Launch counters 0 in both ranks.  One
+   ``sharded_serving_path`` line: tokens/s, p50/p99, decode ms a step,
+   bytes gathered a step, ms an all-gather, residency a rank;
 7. the ``kernels`` JSON line (each kernel's launches summed over every
    path and rank, and per path: per rank for the multi-rank paths, per
    run for phase I), then the ``ok`` line last.
@@ -1906,6 +1948,617 @@ def run_serving_phase(gpu: str) -> dict:
     return counts
 
 
+# --- phase O: shard-redundant snapshots of lm_base -------------------------
+
+SHARD_STEPS = 10            # phase O: ZeRO-3 lm_base, a shard set every 5
+SHARD_EVERY = 5
+SHARD_KEEP = 2
+SHARD_ROOT = ROOT / "build" / "chip_smoke_shards"
+ELASTIC_RANKS = 4           # phase O (e): the D=2 set restored on 4 ranks
+
+
+def shard_argv(steps: int, log_dir: str) -> list:
+    """lm_base under ZeRO-3 with the CE pair (``trainer_lm``), a shard set
+    (and a checkpoint) every ``SHARD_EVERY`` steps, keep 2."""
+    return ["--device", "cuda", "--size", LM_SIZE, "--pallas_ce", "true",
+            "--learning_rate", str(LM_LR), "--batch_size", str(LM_BATCH),
+            "--bucket_grads", "auto", "--shard_params", "true",
+            "--train_steps", str(steps), "--log_every", str(SHARD_EVERY),
+            "--checkpoint_every", str(SHARD_EVERY), "--keep_checkpoints",
+            str(SHARD_KEEP), "--log_dir", str(SHARD_ROOT / "logs" / log_dir)]
+
+
+def shard_run(snap: Path, steps: int, log_dir: str) -> dict:
+    """``trainer_lm`` with ``SNAPSHOT_DIR=snap`` (``run_trainer``)."""
+    os.environ["SNAPSHOT_DIR"] = str(snap)
+    try:
+        return run_trainer("trainer_lm", shard_argv(steps, log_dir))
+    finally:
+        del os.environ["SNAPSHOT_DIR"]
+
+
+def shard_engine():
+    from distributedtensorflowexample_tpu_torch.engine import Engine, RunSpec
+    from distributedtensorflowexample_tpu_torch.trainers import trainer_lm
+    size, cfg = trainer_lm.build_config(shard_argv(SHARD_STEPS, "x"))
+    return Engine(RunSpec(size, "lm", cfg))
+
+
+def full_state_digest(state, mesh) -> str:
+    """sha256 of the full parameters and momentum in the port's flat
+    order, gathered from every rank's rows (uncounted): equal for one
+    state at any mesh width."""
+    import hashlib
+
+    from distributedtensorflowexample_tpu_torch.parallel.zero3 import (
+        materialized)
+    opt = state.optimizer
+    h = hashlib.sha256()
+    with materialized(state, mesh) as flat:
+        h.update(flat.cpu().numpy().tobytes())
+        momentum = torch.zeros_like(flat)
+    for b, row in enumerate(opt.momentum_rows):
+        opt.plan.unpack(mesh.all_gather_into(row, counted=False), momentum, b)
+    h.update(momentum.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def shard_restore(snap: Path, mesh, same_width: bool = False,
+                  step: int | None = None) -> tuple:
+    """(state, facts) of a restore of ``snap`` onto ``mesh``: elastic
+    (``restore_elastic`` into a fresh tree state) or at the same width
+    (``restore`` into a laid-out state); the restore's ms (the fresh
+    state's creation excluded), its reconstructions, the full digest."""
+    from distributedtensorflowexample_tpu_torch.resilience.shardstore import (
+        ShardStore)
+    engine = shard_engine()
+    state = engine.create_state(mesh)
+    store = ShardStore(str(snap))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if same_width:
+        state, _ = engine.laid_out_state(mesh, state)
+        store.restore(state, mesh, step=step)
+        aux = store.last_restore
+    else:
+        state, aux = store.restore_elastic(state, mesh=mesh, step=step)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return state, {"ms": ms, "step": aux["step"],
+                   "reconstructed": aux["reconstructed"],
+                   "digest": full_state_digest(state, mesh)}
+
+
+def shard_copy(src: Path, name: str, mesh, step: int = SHARD_STEPS) -> Path:
+    """A shard directory holding a copy of ``src``'s set at ``step``
+    alone, made by rank 0."""
+    dst = SHARD_ROOT / name
+    if mesh.rank == 0:
+        shutil.rmtree(dst, ignore_errors=True)
+        shutil.copytree(src / f"shards_{step:08d}", dst / f"shards_{step:08d}")
+    dist.barrier()
+    return dst
+
+
+def shard_rank_phase() -> dict:
+    """Phase O (a)-(d) and (f)-(h) in one of the two gloo ranks: two
+    straight 10-step runs, a resume of the first run's step-5 set, and
+    the restores of the first run's step-10 set, intact, with rank 1's
+    directory lost (elastic and at the same width), with a byte of rank
+    0's shard flipped, and with shard 0's every copy lost (both ways)."""
+    from distributedtensorflowexample_tpu_torch.obs import metrics as obs_m
+    from distributedtensorflowexample_tpu_torch.refusal import ModeRefusal
+    from distributedtensorflowexample_tpu_torch.resilience.shardstore import (
+        ShardStore)
+    mesh = make_mesh("cuda")
+    if mesh.rank == 0:
+        shutil.rmtree(SHARD_ROOT, ignore_errors=True)
+    dist.barrier()
+    snap = {k: SHARD_ROOT / k for k in ("a", "b", "resumed")}
+    out = {"rank": mesh.rank,
+           "runs": {"a": shard_run(snap["a"], SHARD_STEPS, "a"),
+                    "b": shard_run(snap["b"], SHARD_STEPS, "b")}}
+    store = ShardStore(str(snap["a"]))
+    out["steps_a"] = store.steps()
+    out["quorum_a"] = store.quorum_steps()
+    rdir = snap["a"] / f"shards_{SHARD_STEPS:08d}" / f"rank_{mesh.rank:05d}"
+    out["files"] = {f.name: f.stat().st_size for f in sorted(rdir.iterdir())}
+    # (f) the step-5 set alone, resumed to step 10
+    resumed = shard_copy(snap["a"], "resumed", mesh, SHARD_EVERY)
+    out["runs"]["resumed"] = shard_run(resumed, SHARD_STEPS, "resumed")
+    out["digests"] = {k: ShardStore(str(d)).manifest(SHARD_STEPS)["digests"]
+                      for k, d in (("a", snap["a"]), ("b", snap["b"]),
+                                   ("resumed", resumed))}
+    if out["digests"]["a"] != out["digests"]["b"]:
+        # Not bitwise: the resumed rows within twice the straight runs' gap.
+        rows = {k: ShardStore(str(d))._load(SHARD_STEPS, report=False)[1]
+                for k, d in (("a", snap["a"]), ("b", snap["b"]),
+                             ("resumed", resumed))}
+        gap = lambda x, y: max(float(np.abs(p - q).max())
+                               for f in ("params", "opt_state")
+                               for p, q in zip(rows[x][f], rows[y][f]))
+        out["gap_ab"], out["gap_resumed"] = gap("a", "b"), gap("a", "resumed")
+    # (b)-(d) the restores of run a's step-10 set
+    _, out["intact"] = shard_restore(snap["a"], mesh)
+    _, out["same_width"] = shard_restore(snap["a"], mesh, same_width=True)
+    lost = shard_copy(snap["a"], "lost_rank1", mesh)
+    if mesh.rank == 0:
+        ShardStore(str(lost)).drop_rank_dir(1, SHARD_STEPS)
+    dist.barrier()
+    _, out["lost_rank1"] = shard_restore(lost, mesh)
+    _, out["lost_rank1_same_width"] = shard_restore(lost, mesh,
+                                                    same_width=True)
+    flipped = shard_copy(snap["a"], "bitflip", mesh)
+    if mesh.rank == 0:
+        ShardStore(str(flipped)).flip_payload_byte(0, SHARD_STEPS)
+    dist.barrier()
+    refused = obs_m.counter("ckpt_digest_mismatches_total").value
+    _, out["bitflip"] = shard_restore(flipped, mesh)
+    out["bitflip"]["digest_mismatches"] = (
+        obs_m.counter("ckpt_digest_mismatches_total").value - refused)
+    past = shard_copy(snap["a"], "past_redundancy", mesh)
+    if mesh.rank == 0:
+        step_dir = past / f"shards_{SHARD_STEPS:08d}"
+        os.remove(step_dir / "rank_00000" / "own.npz")
+        os.remove(step_dir / "rank_00001" / "mirror_00000.npz")
+    dist.barrier()
+    for key, same_width in (("past_redundancy", False),
+                            ("past_redundancy_same_width", True)):
+        try:
+            shard_restore(past, mesh, same_width, step=SHARD_STEPS)
+            out[key] = None
+        except ModeRefusal as e:
+            out[key] = str(e)
+    return out
+
+
+def elastic_rank(src: Path, dst: Path) -> dict:
+    """Phase O (e) in one of the four gloo ranks: the D=2 set restored
+    here, then saved again as a D=4 set."""
+    from distributedtensorflowexample_tpu_torch.resilience.shardstore import (
+        ShardLayout, ShardStore)
+    mesh = make_mesh("cuda")
+    state, out = shard_restore(src, mesh)
+    layout = ShardLayout.for_params(
+        "zero3_rows", ShardStore(str(src)).manifest(out["step"])[
+            "bucket_bytes"], dict(state.model.named_parameters()), mesh.size)
+    store = ShardStore(str(dst), layout=layout, keep=1)
+    store.save(state, mesh)
+    out["save_s"] = store.last_save["seconds"]
+    out["own_bytes"] = store.last_save["own_bytes"]
+    return out
+
+
+def check_shard_phase(ranks: list, four: list, back: list, gpu: str) -> dict:
+    """Phase O's checks and its ``shard_snapshot_path`` line; the launch
+    counts of its runs, per rank."""
+    from distributedtensorflowexample_tpu_torch.engine.spec import (
+        collective_budget)
+    from distributedtensorflowexample_tpu_torch.trainers import trainer_lm
+    r0 = ranks[0]
+    require(r0["steps_a"] == [SHARD_EVERY, SHARD_STEPS]
+            and r0["quorum_a"] == r0["steps_a"],
+            f"phase O (a): sets {r0['steps_a']}, quorum-valid "
+            f"{r0['quorum_a']} (want [{SHARD_EVERY}, {SHARD_STEPS}])")
+    for r in ranks:
+        want = {"own.npz", f"mirror_{1 - r['rank']:05d}.npz", "repl.npz"}
+        require(set(r["files"]) == want,
+                f"phase O (a): rank {r['rank']} holds {sorted(r['files'])}")
+    half = 2 * LM_PARAMS * 4 // MR_RANKS
+    intact = r0["intact"]["digest"]
+    require(all(r["runs"]["a"]["params_digest"]
+                == r0["runs"]["a"]["params_digest"] for r in ranks),
+            "phase O: the ranks' gathered parameters differ")
+    for key in ("intact", "same_width", "lost_rank1",
+                "lost_rank1_same_width", "bitflip"):
+        require(all(r[key]["digest"] == intact for r in ranks),
+                f"phase O: the {key} restore differs from the intact one "
+                f"{[r[key]['digest'] for r in ranks]}")
+    require(all(r[key]["reconstructed"] == [1] for r in ranks
+                for key in ("lost_rank1", "lost_rank1_same_width")),
+            "phase O (b): reconstructed " + str(
+                [[r[k]["reconstructed"] for k in ("lost_rank1",
+                                                  "lost_rank1_same_width")]
+                 for r in ranks]))
+    require(r0["bitflip"]["reconstructed"] == [0]
+            and r0["bitflip"]["digest_mismatches"] >= 1,
+            f"phase O (c): reconstructed {r0['bitflip']['reconstructed']}, "
+            f"{r0['bitflip']['digest_mismatches']} copies refused by sha256")
+    past = [r[k] for r in ranks
+            for k in ("past_redundancy", "past_redundancy_same_width")]
+    require(all(m is not None and "exceeds redundancy R=2" in m
+                for m in past), f"phase O (d): {past}")
+    require(all(r["digest"] == intact for r in four + back),
+            f"phase O (e): D=2 -> {ELASTIC_RANKS} -> 2 digests "
+            f"{[r['digest'] for r in four]}, {[r['digest'] for r in back]} "
+            f"against {intact}")
+    if "gap_ab" in r0:
+        for r in ranks:
+            require(r["gap_resumed"] <= 2 * r["gap_ab"],
+                    f"phase O (f): the resumed rows differ by "
+                    f"{r['gap_resumed']} > twice the straight runs' gap "
+                    f"{r['gap_ab']}")
+        resume = "within twice the straight runs' gap"
+    else:
+        require(r0["digests"]["resumed"] == r0["digests"]["a"],
+                f"phase O (f): the resumed step-{SHARD_STEPS} shards differ "
+                f"from the straight run's: {r0['digests']}")
+        resume = "bitwise"
+    _, cfg = trainer_lm.build_config(shard_argv(SHARD_STEPS, "x"))
+    counts = []
+    for r in ranks:
+        per_rank = {k: 0 for k in SOURCES}
+        for name, run in r["runs"].items():
+            steps = run["steps"] - run["start_step"]
+            require(run["steps"] == SHARD_STEPS
+                    and run["update_layout"] == "zero3_rows",
+                    f"phase O: run {name} ended at {run['steps']} in "
+                    f"{run['update_layout']}")
+            want_start = SHARD_EVERY if name == "resumed" else 0
+            require(run["start_step"] == want_start
+                    and (name != "resumed" or
+                         "resumed from shard set at step" in run["text"]
+                         or r["rank"] != 0),
+                    f"phase O (f): run {name} started at "
+                    f"{run['start_step']}")
+            budget = every_kind(collective_budget(cfg, MR_RANKS,
+                                                  run["num_buckets"]))
+            got = {k: v / steps for k, v in run["collectives"].items()}
+            require(got == budget, f"phase O (g): run {name} rank "
+                                   f"{r['rank']} collectives per step {got}, "
+                                   f"budget {budget}")
+            want = {"dequant": 0, "ce_fwd": steps, "ce_bwd": steps, "sgd": 0}
+            require(run["launches"] == want,
+                    f"phase O (h): run {name} rank {r['rank']} launches "
+                    f"{run['launches']}, expected {want}")
+            for k in SOURCES:
+                per_rank[k] += run["launches"][k]
+        counts.append(per_rank)
+    run_a = r0["runs"]["a"]["shard_snapshots"]
+    result = {
+        "model": LM_SIZE, "params": LM_PARAMS, "ranks": MR_RANKS,
+        "steps": SHARD_STEPS, "every": SHARD_EVERY, "keep": SHARD_KEEP,
+        "redundancy": 2, "buckets": r0["runs"]["a"]["num_buckets"],
+        "save_blocking_ms_by_rank": [
+            [s * 1e3 for s in r["runs"]["a"]["shard_snapshots"]["saves"]]
+            for r in ranks],
+        "files_bytes_by_rank": [r["files"] for r in ranks],
+        "half_params_plus_momentum_bytes": half,
+        "restore_ms_same_width": [r["same_width"]["ms"] for r in ranks],
+        "restore_ms_elastic_2_to_2": [r["intact"]["ms"] for r in ranks],
+        f"restore_ms_elastic_2_to_{ELASTIC_RANKS}": [r["ms"] for r in four],
+        f"restore_ms_elastic_{ELASTIC_RANKS}_to_2": [r["ms"] for r in back],
+        f"save_s_at_{ELASTIC_RANKS}": [r["save_s"] for r in four],
+        "restore_ms_same_width_lost_rank1": [
+            r["lost_rank1_same_width"]["ms"] for r in ranks],
+        "reconstructed": {"lost_rank1": r0["lost_rank1"]["reconstructed"],
+                          "bitflip": r0["bitflip"]["reconstructed"]},
+        "past_redundancy": "refused", "resume": resume,
+        "collectives_per_step": "the zero3 budget",
+        "steps_per_sec": {k: v["steps_per_sec"]
+                          for k, v in r0["runs"].items()},
+        "last_save": run_a["last"], "digest": intact,
+        "launches_by_rank": counts, "gpu": gpu}
+    print(json.dumps({"shard_snapshot_path": result}), flush=True)
+    print(f"shard snapshots: save {result['save_blocking_ms_by_rank'][0]} ms "
+          f"(rank 0), restore {result['restore_ms_same_width'][0]:.1f} ms "
+          f"same width, {result['restore_ms_elastic_2_to_2'][0]:.1f} ms "
+          f"elastic ({LM_SIZE}, 2 gloo ranks, host-staged) on {gpu}",
+          flush=True)
+    return {f"{LM_SIZE}_shard_snapshots_gloo2": counts}
+
+
+# --- phase P: params-stay-sharded serving of lm_base -----------------------
+
+SHARDED_SLOTS = 8           # 4 a rank
+SHARDED_REQUESTS = 16
+SHARDED_CLIENTS = 4
+SHARDED_NEW = 16
+SHARDED_CONTRACT_STEPS = 20
+
+
+def sharded_argv(name: str, *extra) -> list:
+    return ["--device", "cuda", "--snapshot", str(SERVE_SNAP), "--size",
+            LM_SIZE, "--sharded_mesh", str(MR_RANKS), "--slots",
+            str(SHARDED_SLOTS), "--max_len", str(SERVE_CACHE), *extra]
+
+
+def sharded_rank_phase(snap4: Path) -> dict:
+    """Phase O (e)'s way back, then phase P's engine checks in one of the
+    two gloo ranks: promotion into 1/D rows, the engine's bytes, its
+    refusals, the contract over 20 decode steps, its timings."""
+    from distributedtensorflowexample_tpu_torch.refusal import ModeRefusal
+    from distributedtensorflowexample_tpu_torch.serving.promote import (
+        promote_sharded)
+    from distributedtensorflowexample_tpu_torch.serving.queue import (
+        ContinuousBatcher, RequestQueue)
+    from distributedtensorflowexample_tpu_torch.serving.sampling import (
+        Sampler)
+    from distributedtensorflowexample_tpu_torch.serving.sharded import (
+        ShardedDecodeEngine, check_sharded_decode_contract)
+    from distributedtensorflowexample_tpu_torch.serving.spec import (
+        SpecDecoder)
+    mesh = make_mesh("cuda")
+    state, back = shard_restore(snap4, mesh)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    pm = promote_sharded(str(SERVE_SNAP), LM_SIZE, mesh=mesh,
+                         mesh_size=MR_RANKS)
+    engine = ShardedDecodeEngine(pm.model, pm.rows, pm.layout, mesh=mesh,
+                                 slots=SHARDED_SLOTS, cache_len=SERVE_CACHE)
+    torch.cuda.synchronize()
+    out = {"rank": mesh.rank, "elastic_back": back,
+           "load_s": time.perf_counter() - t0,
+           "allocated_after_promotion": torch.cuda.memory_allocated()
+           - before, "residency": engine.params_residency(),
+           "local_cache_bytes": engine.local_cache_bytes}
+    if mesh.rank != 0:
+        out["followed_steps"] = engine.follow()
+    else:
+        try:
+            refusals = {}
+            for name, make in (
+                    ("sampling", lambda: ContinuousBatcher(
+                        engine, RequestQueue(engine.vocab),
+                        sampler=Sampler(temperature=0.8, top_k=20))),
+                    ("speculation", lambda: SpecDecoder(engine, engine)),):
+                try:
+                    make()
+                    refusals[name] = None
+                except ModeRefusal as e:
+                    refusals[name] = str(e)
+            out["refusals"] = refusals
+            out["contract"] = check_sharded_decode_contract(
+                engine, steps=SHARDED_CONTRACT_STEPS)
+            for s in range(engine.slots):
+                engine.set_slot(s, s + 1, 16)
+            engine.decode()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                engine.decode()
+            torch.cuda.synchronize()
+            out["decode_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / 10
+            for s in range(engine.slots):
+                engine.set_slot(s, 0, 0)
+        finally:
+            engine.stop_followers()
+    # Every bucket's all-gather, timed alone (uncounted, both ranks).
+    mesh.all_gather_int(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        for row in engine.rows:
+            mesh.all_gather_into(row, counted=False)
+    torch.cuda.synchronize()
+    out["gathers_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / 3
+    return out
+
+
+
+def run_shard_phase() -> tuple:
+    """Phase O's groups: the two gloo ranks, then the D=2 set restored on
+    four and saved again (the way back runs with phase P)."""
+    ranks = launch.spawn(shard_rank_phase, MR_RANKS, "gloo", timeout_s=900)
+    four = launch.spawn(elastic_rank, ELASTIC_RANKS, "gloo",
+                        (SHARD_ROOT / "a", SHARD_ROOT / "d4"),
+                        timeout_s=600)
+    return ranks, four
+
+
+def greedy_with_gaps(engine, prompt, n: int) -> tuple:
+    """A replicated engine's greedy tokens for ``prompt`` in slot 0 and
+    each position's top-2 logit gap."""
+    (tok, logits), = engine.prefill_many([(0, prompt, n)]).values()
+    toks, gaps = [tok], []
+    while True:
+        top = np.sort(logits)[-2:]
+        gaps.append(float(top[1] - top[0]))
+        if len(toks) == n:
+            break
+        engine.set_slot(0, toks[-1], int(engine.positions[0]))
+        logits = engine.decode_logits(busy=[0])[0]
+        toks.append(int(logits.argmax()))
+    engine.set_slot(0, 0, 0)
+    return toks, gaps
+
+
+def check_sharded_tokens(tokens: dict) -> dict:
+    """(b) each served request bitwise a replicated engine of S/D slots
+    fed its prompt; (c) equal to an S-slot engine up to the first
+    position whose top-2 gap is at most ``SERVE_TAU``."""
+    from distributedtensorflowexample_tpu_torch.serving.engine import (
+        DecodeEngine)
+    from distributedtensorflowexample_tpu_torch.serving.loadgen import (
+        make_prompt)
+    from distributedtensorflowexample_tpu_torch.serving.promote import promote
+    pm = promote(str(SERVE_SNAP), LM_SIZE, device=torch.device("cuda"))
+    local = DecodeEngine(pm.model, slots=SHARDED_SLOTS // MR_RANKS,
+                         cache_len=SERVE_CACHE)
+    full = DecodeEngine(pm.model, slots=SHARDED_SLOTS, cache_len=SERVE_CACHE)
+    inside = differ = 0
+    for rid, toks in sorted(tokens.items()):
+        prompt = make_prompt(rid, pm.model.vocab_size)
+        want = engine_greedy(local, 0, prompt, SHARDED_NEW)
+        local.set_slot(0, 0, 0)
+        require(toks == want, f"phase P (b): request {rid} served {toks}; "
+                              f"the {SHARDED_SLOTS // MR_RANKS}-slot "
+                              f"replicated engine gives {want}")
+        ref, gaps = greedy_with_gaps(full, prompt, SHARDED_NEW)
+        inside += sum(g <= SERVE_TAU for g in gaps)
+        for j in range(SHARDED_NEW):
+            if toks[j] != ref[j]:
+                differ += 1
+                require(gaps[j] <= SERVE_TAU,
+                        f"phase P (c): request {rid} differs from the "
+                        f"{SHARDED_SLOTS}-slot engine at {j}, top-2 gap "
+                        f"{gaps[j]} > {SERVE_TAU}")
+                break
+    return {"bitwise_vs_local_slots": "all", "requests_diverging_from_S":
+            differ, "positions_inside_tau": inside, "tau": SERVE_TAU}
+
+
+def sharded_serve(name: str, *extra, timeout: float = 600) -> tuple:
+    """``serve_lm --sharded_mesh 2`` in a process of its own: (rc, output,
+    stats)."""
+    stats = SERVE_DIR / f"sharded_{name}.json"
+    p = subprocess.run(
+        [sys.executable, "-u", "-m",
+         "distributedtensorflowexample_tpu_torch.serving.serve_lm",
+         *sharded_argv(name, "--stats", str(stats), *extra)],
+        cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    text = p.stdout + p.stderr
+    loaded = json.loads(stats.read_text()) if stats.exists() else None
+    return p.returncode, text, loaded
+
+
+def sharded_sigterm_drill() -> dict:
+    """(g): the sharded ``serve_lm`` SIGTERMed once its ``--ready_file``
+    appears: 143 from the launcher, both ranks report their exit 143,
+    every admitted request answered."""
+    ready, stats_path = SERVE_DIR / "sharded_ready", \
+        SERVE_DIR / "sharded_term.json"
+    ready.unlink(missing_ok=True)
+    cmd = [sys.executable, "-u", "-m",
+           "distributedtensorflowexample_tpu_torch.serving.serve_lm",
+           *sharded_argv("term", "--drive", "100000", "--clients",
+                         str(2 * SHARDED_SLOTS), "--drive_max_new",
+                         str(SHARDED_NEW), "--ready_file", str(ready),
+                         "--stats", str(stats_path))]
+    p = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+    lines: list = []
+    reader = threading.Thread(target=lambda: lines.extend(p.stdout),
+                              daemon=True)
+    reader.start()
+    t0 = time.perf_counter()
+    try:
+        while not ready.exists() and p.poll() is None \
+                and time.perf_counter() - t0 < 300:
+            time.sleep(0.05)
+        t_ready = time.perf_counter()
+        time.sleep(3.0)             # requests in flight and queued
+        alive = p.poll() is None
+        p.send_signal(signal.SIGTERM)
+        t_signal = time.perf_counter()
+        p.wait(timeout=180)
+        t_exit = time.perf_counter()
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        reader.join(timeout=30)
+    text = "".join(lines)
+    require(alive and p.returncode == 143 and "Traceback" not in text
+            and all(f"rank {r}: TERM — exit 143" in text
+                    for r in range(MR_RANKS)),
+            f"phase P (g): sharded serve_lm gave exit code {p.returncode} "
+            f"after SIGTERM (want 143 on every rank):\n{text[-3000:]}")
+    stats = json.loads(stats_path.read_text())
+    require(stats["preempted"] and stats["admitted"] == stats["completed"],
+            f"phase P (g): after SIGTERM admitted {stats['admitted']}, "
+            f"completed {stats['completed']}")
+    return {"rc": p.returncode, "ready_s": t_ready - t0,
+            "stop_s": t_exit - t_signal, "admitted": stats["admitted"],
+            "completed": stats["completed"],
+            "drained": stats["rejected"]["drained"]}
+
+
+def run_sharded_phase(gpu: str, shard_ranks: list, four: list) -> dict:
+    """Phase O's way back and its checks, then phase P; the launch counts
+    by path."""
+    from distributedtensorflowexample_tpu_torch.serving import serve_lm
+    from distributedtensorflowexample_tpu_torch.serving.loadgen import (
+        DriveFile)
+    ranks = launch.spawn(sharded_rank_phase, MR_RANKS, "gloo",
+                         (SHARD_ROOT / "d4",), timeout_s=600)
+    by_path = check_shard_phase(shard_ranks, four,
+                                [r["elastic_back"] for r in ranks], gpu)
+    results = SERVE_DIR / "sharded_drive.jsonl"
+    results.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    rc, text, stats = sharded_serve(
+        "drive", "--drive", str(SHARDED_REQUESTS), "--clients",
+        str(SHARDED_CLIENTS), "--drive_max_new", str(SHARDED_NEW),
+        "--results", str(results))
+    wall = time.perf_counter() - t0
+    require(rc == 0, f"phase P: sharded serve_lm exited {rc}:\n"
+                     f"{text[-3000:]}")
+    tokens = DriveFile(str(results)).done_ids()
+    require(stats["completed"] == SHARDED_REQUESTS
+            and sorted(tokens) == list(range(SHARDED_REQUESTS))
+            and all(len(t) == SHARDED_NEW for t in tokens.values()),
+            f"phase P (a): answered {stats['completed']} of "
+            f"{SHARDED_REQUESTS}")
+    agree = check_sharded_tokens(tokens)
+    r0 = ranks[0]
+    full_bytes = LM_PARAMS * 4
+    for r in ranks:
+        res = r["residency"]
+        require(res["frac_per_device"] == 1 / MR_RANKS
+                and res["params_bytes_per_device"] * MR_RANKS
+                == res["params_bytes_total"]
+                and res["params_bytes_total"] - res["padding_bytes"]
+                == full_bytes,
+                f"phase P (d): rank {r['rank']} residency {res}")
+        require(r["allocated_after_promotion"]
+                < full_bytes + MR_RANKS * r["local_cache_bytes"],
+                f"phase P (d): rank {r['rank']} holds "
+                f"{r['allocated_after_promotion']} bytes after promotion")
+    # The launches of the drive's own ranks, each counted from 0 where
+    # the rank starts (serve_lm's stats).
+    launches = stats["launches_by_rank"]
+    require(len(launches) == MR_RANKS
+            and all(set(c) == set(SOURCES) and not any(c.values())
+                    for c in launches),
+            f"phase P: the serving ranks launched {launches}")
+    require(r0["contract"] == [], f"phase P (e): SHARDED_DECODE_CONTRACT "
+                                  f"broken: {r0['contract']}")
+    require(all(v is not None and "--sharded_mesh" in v
+                for v in r0["refusals"].values()),
+            f"phase P (f): {r0['refusals']}")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc7 = serve_lm.main(sharded_argv("seven", "--slots", "7",
+                                         "--drive", "1"))
+    require(rc7 == 2 and "--slots 7" in err.getvalue(),
+            f"phase P (f): --slots 7 gave {rc7}: {err.getvalue()}")
+    drill_result = sharded_sigterm_drill()
+    B = r0["residency"]["num_buckets"]
+    result = {
+        "model": LM_SIZE, "ranks": MR_RANKS, "backend": "gloo",
+        "slots": SHARDED_SLOTS, "cache_rows": SERVE_CACHE,
+        "requests": SHARDED_REQUESTS, "clients": SHARDED_CLIENTS,
+        "tokens_per_request": SHARDED_NEW,
+        "tokens_per_sec": stats["tokens_per_sec"], "p50_ms": stats["p50_ms"],
+        "p99_ms": stats["p99_ms"], "ttft_p50_ms": stats["ttft_p50_ms"],
+        "decode_steps": stats["decode_steps"], "drive_wall_s": wall,
+        "decode_ms_per_step": r0["decode_ms_per_step"],
+        "buckets": B, "gathered_bytes_per_step":
+            r0["residency"]["params_bytes_total"],
+        "gathers_ms_per_step": [r["gathers_ms_per_step"] for r in ranks],
+        "ms_per_all_gather": [r["gathers_ms_per_step"] / B for r in ranks],
+        "residency_by_rank": [r["residency"] for r in ranks],
+        "allocated_after_promotion_by_rank": [
+            r["allocated_after_promotion"] for r in ranks],
+        "load_s": [r["load_s"] for r in ranks],
+        "contract": f"holds over {SHARDED_CONTRACT_STEPS} steps",
+        "agreement": agree, "refused": ["--slots 7", *r0["refusals"]],
+        "sigterm": drill_result,
+        "launches_by_rank": launches, "gpu": gpu}
+    print(json.dumps({"sharded_serving_path": result}), flush=True)
+    print(f"sharded serving: {stats['tokens_per_sec']} tokens/s, decode "
+          f"{r0['decode_ms_per_step']:.1f} ms a step, {B} all-gathers a step "
+          f"({LM_SIZE}, 2 gloo ranks on one card: host-staged) on {gpu}",
+          flush=True)
+    by_path[f"{LM_SIZE}_sharded_serving_gloo2"] = launches
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1985,7 +2638,9 @@ def main() -> int:
     by_path.update(run_resume_phase(gpu))
     run_drill_phase(gpu)
     by_path.update(run_mode_phases(gpu, ("L", "M", "N", "I'")))
+    shard_ranks, four = run_shard_phase()
     serving_counts = run_serving_phase(gpu)
+    by_path.update(run_sharded_phase(gpu, shard_ranks, four))
 
     line = []
     for name, (source, replaces) in SOURCES.items():

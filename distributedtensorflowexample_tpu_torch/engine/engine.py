@@ -45,7 +45,14 @@ this rank's bucket rows (``bucket_rows``; and the tree form of
 too (``zero3_rows``).  A row layout is one checkpoint part per rank, and
 ``run_metadata.json`` records the layout and the bucket cap, so a
 resume into another layout, or a row layout on another mesh size, is
-refused by name.
+refused by name.  With ``SNAPSHOT_DIR`` set, a row-layout run also
+writes shard-redundant snapshots there every ``--checkpoint_every`` steps
+(``resilience/shardstore.py``: per-rank shards, ring mirrors, a quorum
+manifest), and a resume restores the newest quorum-valid set first,
+written at any mesh width (``ShardStore.restore_elastic``), ahead of the
+checkpoints.  The flight recorder (``OBS_FLIGHT``), the run ledger
+(``OBS_LEDGER``) and the live scrape (``OBS_HTTP_PORT``) arm as in the JAX
+Engine.
 
 The workloads: config 1 (``softmax`` on ``mnist``), config 3
 (``mnist_cnn`` on ``mnist``), configs 4 and 5 (``resnet20`` on
@@ -77,6 +84,9 @@ from distributedtensorflowexample_tpu_torch.engine.spec import (
     ModeDecl, collective_budget, resolve_contract, resolve_mode,
     shards_tree_update)
 from distributedtensorflowexample_tpu_torch.models import build_model
+from distributedtensorflowexample_tpu_torch.obs import ledger as obs_ledger
+from distributedtensorflowexample_tpu_torch.obs import recorder as obs_recorder
+from distributedtensorflowexample_tpu_torch.obs import serve as obs_serve
 from distributedtensorflowexample_tpu_torch.ops.kernels import launch_counts
 from distributedtensorflowexample_tpu_torch.ops.kernels import build as kbuild
 from distributedtensorflowexample_tpu_torch.parallel.launch import spawn
@@ -91,6 +101,8 @@ from distributedtensorflowexample_tpu_torch.parallel.sync import (
 from distributedtensorflowexample_tpu_torch.parallel.zero3 import (
     Zero3Layout, materialized)
 from distributedtensorflowexample_tpu_torch.refusal import ModeRefusal
+from distributedtensorflowexample_tpu_torch.resilience.shardstore import (
+    ShardLayout, ShardSnapshotHook, ShardStore)
 from distributedtensorflowexample_tpu_torch.training.checkpoint import (
     CheckpointManager)
 from distributedtensorflowexample_tpu_torch.training.hooks import (
@@ -221,11 +233,10 @@ def _resolve_flags(cfg: RunConfig, num_replicas: int,
 
 
 def _refuse_for_mode(cfg: RunConfig, model: str, bucket_bytes,
-                     update_layout: str, num_replicas: int) -> None:
-    """The JAX Engine's refusals that depend on the model and the rank
+                     num_replicas: int) -> None:
+    """The JAX Engine's refusal that depends on the model and the rank
     count, by the model's name before any data is loaded: a batch-norm
-    model under ``--bucket_grads`` in sync mode, and the shard-redundant
-    snapshots of a row layout."""
+    model under ``--bucket_grads`` in sync mode."""
     if (bucket_bytes and cfg.sync_mode == "sync" and num_replicas > 1
             and model in _BATCH_NORM_MODELS):
         raise ModeRefusal(
@@ -235,13 +246,6 @@ def _refuse_for_mode(cfg: RunConfig, model: str, bucket_bytes,
             f"per-shard statistics (a different model, not a "
             f"different collective schedule). Use the default fused "
             f"all-reduce for BatchNorm models")
-    if os.environ.get("SNAPSHOT_DIR", "") and update_layout != "tree":
-        raise ModeRefusal(
-            f"SNAPSHOT_DIR (the shard-redundant snapshots of the "
-            f"{update_layout} layout: --bucket_grads with --shard_update "
-            f"or --shard_params) is not ported to the PyTorch package "
-            f"yet; unset SNAPSHOT_DIR (the checkpoints under --log_dir "
-            f"hold the rows)")
 
 
 def _refuse_unported(cfg: RunConfig, info: cluster.ClusterInfo,
@@ -533,6 +537,9 @@ class Engine:
         hooks = []
         if cfg.checkpoint_every > 0:
             hooks.append("CheckpointHook")
+        if os.environ.get("SNAPSHOT_DIR", "") \
+                and mode.update_layout != "tree":
+            hooks.append("ShardSnapshotHook")
         if cfg.eval_every > 0:
             hooks.append("EvalHook")
         if os.environ.get("SUPERVISE_HEARTBEAT", ""):
@@ -589,8 +596,7 @@ class Engine:
         cfg = self.spec.config
         global_batch = _global_batch(cfg, mesh.size)
         bucket_bytes, mode = _resolve_flags(cfg, mesh.size, self.token_data)
-        _refuse_for_mode(cfg, self.spec.model, bucket_bytes,
-                         mode.update_layout, mesh.size)
+        _refuse_for_mode(cfg, self.spec.model, bucket_bytes, mesh.size)
         x, y = (data if data is not None else
                 _load_dataset(cfg, self.spec.dataset, "train"))
         if state is None:
@@ -634,7 +640,7 @@ class Engine:
         ranks = _expected_ranks(cfg, info)
         bucket_bytes, mode = _resolve_flags(cfg, ranks, self.token_data)
         update_layout = mode.update_layout
-        _refuse_for_mode(cfg, spec.model, bucket_bytes, update_layout, ranks)
+        _refuse_for_mode(cfg, spec.model, bucket_bytes, ranks)
         if (not info.is_distributed and not dist.is_initialized()
                 and ranks > 1):
             return _run_local_ranks(spec, ranks)
@@ -652,7 +658,35 @@ class Engine:
         test_x, test_y = _load_dataset(cfg, spec.dataset, "test")
 
         # Laid out before any restore, which fills the layout's tensors.
-        state, zero3_layout = self.laid_out_state(mesh)
+        # With SNAPSHOT_DIR a row layout also writes shard-redundant
+        # snapshots (resilience/shardstore.py), whose layout facts come
+        # from the tree-form parameters, and a resume restores the newest
+        # quorum-valid set, written at any mesh width, through the same
+        # re-layout pass.
+        state = self.create_state(mesh)
+        shard_store = None
+        if os.environ.get("SNAPSHOT_DIR", "") and update_layout != "tree":
+            shard_store = ShardStore(
+                os.environ["SNAPSHOT_DIR"],
+                layout=ShardLayout.for_params(
+                    update_layout, bucket_bytes,
+                    dict(state.model.named_parameters()), num_replicas),
+                keep=cfg.keep_checkpoints)
+        shard_aux = None
+        if shard_store is not None and cfg.resume:
+            state, shard_aux = shard_store.restore_elastic(
+                state, mesh=mesh, update_layout=update_layout,
+                required=False)
+        shard_step = None if shard_aux is None else shard_aux["step"]
+        if shard_aux is not None:
+            zero3_layout = shard_aux["zero3_layout"]
+            if mesh.is_chief:
+                print(f"resumed from shard set at step {shard_aux['step']} "
+                      f"(written at D={shard_aux['from_ranks']}, this mesh "
+                      f"is D={num_replicas})", flush=True)
+        else:
+            state, zero3_layout = self.laid_out_state(mesh, state)
+        start_step = state.step
         # This run's layout facts, kept beside the checkpoints so that a
         # later resume into another layout is refused by name: async
         # state is one part per worker, so the worker count is
@@ -663,14 +697,14 @@ class Engine:
                     "update_layout": update_layout,
                     "bucket_bytes": bucket_bytes}
         manager = None
-        start_step = 0
         if cfg.log_dir and (cfg.checkpoint_every > 0 or cfg.resume):
             manager = CheckpointManager(
                 os.path.join(cfg.log_dir, "checkpoints"),
                 max_to_keep=cfg.keep_checkpoints,
                 async_save=cfg.async_checkpoint, run_metadata=run_meta,
                 mesh=mesh, per_rank=is_async or update_layout != "tree")
-            if cfg.resume and manager.latest_step() is not None:
+            if cfg.resume and shard_step is None \
+                    and manager.latest_step() is not None:
                 _refuse_incompatible_restore(manager.saved_run_metadata(),
                                              run_meta, cfg.log_dir,
                                              mesh.is_chief)
@@ -710,6 +744,13 @@ class Engine:
         hooks = []
         if manager is not None and cfg.checkpoint_every > 0:
             hooks.append(CheckpointHook(manager, cfg.checkpoint_every))
+        if shard_store is not None:
+            # Beside (not instead of) the checkpoints: the shard sets are
+            # what an elastic resume reads.
+            shard_hook = ShardSnapshotHook(
+                shard_store, mesh, every=max(1, cfg.checkpoint_every),
+                cursor={"seed": cfg.seed})
+            hooks.append(shard_hook)
         # The JAX Engine's eval batch: one that does not divide across the
         # ranks raises in make_resident_eval.
         eval_batch = max(global_batch, 1000)
@@ -736,6 +777,22 @@ class Engine:
                                        every=_CONSENSUS_POLL_STEPS))
         metrics_hook = MetricsHook(every=cfg.log_every)
         hooks.append(metrics_hook)
+        # Telemetry (obs/): the flight recorder arms under a supervisor or
+        # OBS_FLIGHT=1, the run ledger under OBS_LEDGER, the live scrape
+        # under OBS_HTTP_PORT; ranks of a group stamp OBS_RANK so their
+        # flights and ledger rows stay apart.
+        if mesh.size > 1:
+            os.environ.setdefault("OBS_RANK", str(mesh.rank))
+        rec = obs_recorder.maybe_install()
+        if rec is not None:
+            rec.note(trainer=spec.model, dataset=spec.dataset,
+                     sync_mode=cfg.sync_mode, log_dir=cfg.log_dir)
+        obs_ledger.maybe_begin(
+            entrypoint=f"trainer:{spec.model}",
+            config=dataclasses.asdict(cfg), platform=device.type,
+            mesh_size=num_replicas, num_processes=mesh.size,
+            dataset=spec.dataset)
+        obs_serve.maybe_start()
 
         # The stop after a SIGTERM is agreed by every rank at one call
         # boundary: a rank stopping alone would leave the others waiting
@@ -781,6 +838,8 @@ class Engine:
                 logger.note(f"SIGTERM at step {state.step}: {saved}; "
                             f"exiting 143")
                 logger.close()
+                obs_recorder.dump_global("preempted")
+                obs_ledger.end_global(rc=143, final_step=state.step)
                 raise SystemExit(143)
             final_acc = eval_fn(state)
         if manager is not None and cfg.checkpoint_every == 0:
@@ -789,6 +848,8 @@ class Engine:
         logger.scalar(state.step, "final_accuracy", final_acc)
         steps_per_sec = logger.last_steps_per_sec
         logger.close()
+        obs_ledger.end_global(rc=0, final_step=state.step,
+                              final_accuracy=round(float(final_acc), 6))
         return {"final_accuracy": final_acc,
                 "steps": state.step,
                 "start_step": start_step,
@@ -814,4 +875,10 @@ class Engine:
                 "params_digest": _params_digest(state, mesh),
                 "stats_digest": _stats_digest(state),
                 "checkpoint": None if manager is None else manager.stats,
+                "shard_snapshots": None if shard_store is None else {
+                    "saves": shard_hook.save_seconds,
+                    "last": shard_store.last_save,
+                    "resumed_from": {k: shard_aux[k] for k in (
+                        "step", "from_ranks", "reconstructed")}
+                    if shard_step is not None else None},
                 "loss_tape": metrics_hook.loss_tape}

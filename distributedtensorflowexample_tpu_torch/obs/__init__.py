@@ -1,10 +1,11 @@
-"""obs/ — the telemetry the serving path reports through: the metrics
-registry (counters, gauges, histograms) and trace spans, copies of the
-JAX package's stdlib-only ``obs/metrics.py`` and ``obs/trace.py``.
-
-The JAX package's flight recorder, run ledger and live scrape server
-(``obs/recorder.py``, ``ledger.py``, ``serve.py``) are not ported yet;
-``serving/serve_lm.py`` refuses their environment variables by name.
+"""obs/ — the telemetry the port reports through, copies of the JAX
+package's stdlib-only ``obs/`` modules: the metrics registry (counters,
+gauges, histograms: ``metrics.py``), trace spans (``trace.py``), the
+flight recorder (``recorder.py``: ``OBS_FLIGHT``), the run ledger
+(``ledger.py``: ``OBS_LEDGER``) and the live scrape server
+(``serve.py``: ``OBS_HTTP_PORT``).  The trainers (``engine/engine.py``,
+``training/hooks.MetricsHook``) and ``serving/serve_lm.py`` arm them where
+the JAX package's entry points do.
 """
 
 from distributedtensorflowexample_tpu_torch.obs.metrics import (  # noqa: F401

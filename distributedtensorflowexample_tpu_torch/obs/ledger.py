@@ -1,0 +1,443 @@
+"""Append-only run ledger — every run on the box leaves queryable rows (a
+copy of the JAX package's stdlib-only ``obs/ledger.py``; the port's
+trainers, ``serving/serve_lm.py`` and the shard store's ``ckpt_*`` events
+write it, and its rows follow the JAX package's schema field for field).
+
+Until round 12 the repo's cross-run record was a pile of files: 20+
+``BENCH_*``/``SCALING_*`` JSONs, per-run flight dumps, per-run journals.
+Each is a fine *per-run* postmortem, but nothing answered "what ran on
+this box, with which config, and how did it end" without a shell glob
+and a human.  The ledger is that missing layer: one ``RUNS.jsonl``
+(``OBS_LEDGER=<path>`` opts a process in; the fleet supervisor exports
+it to every rank by default) accumulating three row kinds per run plus
+fleet-level annotations:
+
+- ``run_start`` — run id, entrypoint, the resolved config (and a crc32
+  digest of it, so two runs are config-comparable without a field-by-
+  field diff), platform/mesh shape, OBS_RANK / SUPERVISE_ATTEMPT;
+- ``sample`` — periodic, **bounded-resolution** metric samples: the
+  registry's ``delta()`` between this sample's snapshot and the last
+  one, rate-limited to one row per ``OBS_LEDGER_SAMPLE_S`` (default
+  30 s) no matter how hot the hook cadence is — a week-long run costs
+  kilobytes, not a log-per-step flood;
+- ``run_end`` — rc, final step, the loss-tail digest (cheap cross-run
+  "did these two runs follow the same tape" handle), which anomaly
+  flags fired, the flight path, and the final cumulative counters
+  (what ``tools/obs_query.py diff`` subtracts).
+
+Crash tolerance is the supervisor journal's, shared by construction:
+appends heal a torn tail first (a record that died mid-line must not
+merge with the next live one), each row is ONE write+fsync, and readers
+skip unparseable lines instead of failing — a SIGKILLed run costs its
+own last row, never the file.  Rotation is size-bounded
+(``OBS_LEDGER_MAX_BYTES``, default 8 MiB): the full file rotates to
+``<path>.1`` and readers transparently read both, so the ledger can sit
+on a box for months without anyone babysitting it.
+
+Stdlib-only like the rest of ``obs/`` (``tests/test_torch_obs.py``
+checks it): importing the ledger pulls neither torch nor jax.
+"""
+
+from __future__ import annotations
+
+import atexit
+import hashlib
+import json
+import os
+import sys
+import zlib
+
+from distributedtensorflowexample_tpu_torch.obs import metrics as _metrics
+
+LEDGER_VERSION = 1
+
+# Default bounds — env-overridable so a drill (or a test) can tighten
+# them without plumbing knobs through every CLI.
+DEFAULT_SAMPLE_S = 30.0
+DEFAULT_MAX_BYTES = 8 * 2**20
+
+
+def _env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, ""))
+    except ValueError:
+        return default
+
+
+def ledger_path() -> str:
+    """The opt-in: ``OBS_LEDGER=<path>`` — empty means no ledger (the
+    one obs surface that accumulates ACROSS runs must be somewhere the
+    operator chose, never a surprise file in the repo root)."""
+    return os.environ.get("OBS_LEDGER", "")
+
+
+def config_digest(config: dict | None) -> str | None:
+    """crc32 over the canonical repr — the same cheap digest the
+    multi-host config-agreement check uses (trainers/common.py), so
+    "same digest" means the same thing everywhere: equal resolved
+    configs, not equal argv strings."""
+    if not config:
+        return None
+    blob = repr(sorted((str(k), str(v)) for k, v in config.items()))
+    return f"{zlib.crc32(blob.encode()):08x}"
+
+
+def _rotate(path: str, max_bytes: int) -> None:
+    """Rotate under an exclusive sidecar lock, re-checking the size
+    INSIDE it: a fleet drill has N+1 processes appending to one ledger
+    by design, and two writers both observing an over-budget size would
+    otherwise both run the rename — the second one renaming the
+    freshly-started live file over the ``.1`` the first just rotated,
+    silently unlinking the whole rotated history."""
+    try:
+        import fcntl
+    except ImportError:         # non-POSIX: accept the (rarer) race
+        os.replace(path, path + ".1")
+        return
+    with open(path + ".lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            # The size this writer decided on is stale the instant
+            # another writer rotated; only a re-read under the lock may
+            # authorize the rename.
+            if os.path.getsize(path) > max_bytes:
+                os.replace(path, path + ".1")
+        except OSError:
+            pass
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def append_row(path: str, row: dict) -> None:
+    """One ledger append: heal a torn tail, rotate when over budget,
+    write the row as ONE line + fsync.  Never raises — the ledger must
+    not kill the run it records (the same contract as the beat and the
+    health file)."""
+    try:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        try:
+            size = os.path.getsize(path)
+        except OSError:
+            size = 0
+        max_bytes = int(_env_float("OBS_LEDGER_MAX_BYTES",
+                                   DEFAULT_MAX_BYTES))
+        if max_bytes > 0 and size > max_bytes:
+            # Whole-file rotation (one level): readers read .1 + live,
+            # so a query spanning the rotation edge still sees both
+            # halves of a run.
+            _rotate(path, max_bytes)
+            size = 0
+        heal = False
+        if size:
+            # Torn-tail healing BEFORE appending (the supervisor
+            # journal's rule): a row that died mid-line left no
+            # trailing newline, and appending straight onto the
+            # fragment would merge it with THIS row into one
+            # unparseable line — losing a live record, not just the
+            # dead fragment.  Inner try: a CONCURRENT writer may have
+            # rotated the file away between the stat and this read —
+            # that must read as "fresh file, nothing to heal", not
+            # bubble to the outer swallow and silently drop THIS row.
+            try:
+                with open(path, "rb") as f:
+                    f.seek(-1, os.SEEK_END)
+                    heal = f.read(1) != b"\n"
+            except OSError:
+                heal = False
+        line = json.dumps(_metrics.json_safe(row), sort_keys=True,
+                          allow_nan=False, default=str) + "\n"
+        with open(path, "a") as f:
+            if heal:
+                f.write("\n")
+            f.write(line)
+            f.flush()
+            os.fsync(f.fileno())
+    except Exception:
+        pass
+
+
+def log_event(event: str, path: str | None = None, **fields) -> None:
+    """Append one loose annotation row (the fleet's ``resume_agreement``,
+    the supervisor's per-attempt rows) — no-op when no ledger is
+    configured."""
+    path = path or ledger_path()
+    if not path:
+        return
+    append_row(path, {"v": LEDGER_VERSION,
+                      "ts": round(_metrics._wall(), 3),
+                      "event": event, **fields})
+
+
+class RunLedger:
+    """One process's writer: a ``run_start`` at :meth:`start`, bounded
+    ``sample`` rows, one ``run_end`` at :meth:`end` (or, failing that,
+    at atexit with ``rc=None`` — a crash should still close its row)."""
+
+    def __init__(self, path: str, run_id: str | None = None,
+                 sample_min_s: float | None = None,
+                 registry: _metrics.MetricsRegistry | None = None):
+        self.path = path
+        rank = os.environ.get("OBS_RANK", "")
+        attempt = os.environ.get("SUPERVISE_ATTEMPT", "")
+        # Readable and collision-free across ranks/attempts/restarts:
+        # wall-ms + pid disambiguate two runs of the same entrypoint,
+        # rank/attempt make a fleet drill's rows self-describing.
+        self.run_id = run_id or "-".join(
+            [f"{int(_metrics._wall() * 1000):x}", str(os.getpid())]
+            + ([f"r{rank}"] if rank else [])
+            + ([f"a{attempt}"] if attempt else []))
+        self.sample_min_s = (
+            _env_float("OBS_LEDGER_SAMPLE_S", DEFAULT_SAMPLE_S)
+            if sample_min_s is None else sample_min_s)
+        self._registry = registry or _metrics.registry()
+        self._prev_snap: dict | None = None
+        self._last_sample_t: float | None = None
+        self.samples = 0
+        self.ended = False
+
+    def _row(self, event: str, **fields) -> dict:
+        return {"v": LEDGER_VERSION, "ts": round(_metrics._wall(), 3),
+                "event": event, "run": self.run_id, **fields}
+
+    def start(self, entrypoint: str, config: dict | None = None,
+              **fields) -> None:
+        def _as_int(v):
+            try:
+                return int(v)
+            except (TypeError, ValueError):
+                return v or None
+        append_row(self.path, self._row(
+            "run_start", entrypoint=entrypoint,
+            config=config, config_digest=config_digest(config),
+            pid=os.getpid(), argv=list(sys.argv),
+            rank=_as_int(os.environ.get("OBS_RANK")),
+            attempt=_as_int(os.environ.get("SUPERVISE_ATTEMPT")),
+            phase=os.environ.get("OBS_PHASE"), **fields))
+        self._prev_snap = self._registry.snapshot()
+
+    def sample(self, step: int | None = None, force: bool = False) -> bool:
+        """One bounded-resolution sample row; returns whether a row was
+        written.  The bound is TIME, not call count: callers feed this
+        from whatever hook cadence they already have (MetricsHook's
+        log-boundary marks) and the ledger stays kilobytes regardless."""
+        now = _metrics._now()
+        if (not force and self._last_sample_t is not None
+                and now - self._last_sample_t < self.sample_min_s):
+            return False
+        self._last_sample_t = now
+        snap = self._registry.snapshot()
+        delta = _metrics.MetricsRegistry.delta(self._prev_snap, snap)
+        self._prev_snap = snap
+        self.samples += 1
+        append_row(self.path, self._row("sample", step=step, delta=delta))
+        return True
+
+    def loss_tail_digest(self) -> dict | None:
+        """Digest of the flight recorder's loss ring, when one is
+        installed: last (step, loss) plus a sha256 over the whole tail —
+        the cheap "same trajectory?" handle ``obs_query diff`` compares
+        without shipping the tape itself into every run_end row."""
+        from distributedtensorflowexample_tpu_torch.obs import (
+            recorder as _recorder)
+        rec = _recorder.get()
+        if rec is None or not rec._loss:
+            return None
+        tail = list(rec._loss)
+        blob = json.dumps(_metrics.json_safe(tail), sort_keys=True,
+                          default=str).encode()
+        return {"n": len(tail), "last": tail[-1],
+                "sha256": hashlib.sha256(blob).hexdigest()[:16]}
+
+    def end(self, rc: int | None = None, final_step: int | None = None,
+            **fields) -> None:
+        """Terminal row (idempotent): rc, final step, loss-tail digest,
+        the anomaly flags that fired, the flight path (when a recorder
+        is installed), and the final cumulative counters."""
+        if self.ended:
+            return
+        self.ended = True
+        snap = self._registry.snapshot()
+        flags = {k: v for k, v in snap["counters"].items()
+                 if k.startswith("anomaly_flags_total") and v}
+        from distributedtensorflowexample_tpu_torch.obs import (
+            recorder as _recorder)
+        flight = (_recorder.flight_path()
+                  if _recorder.get() is not None else None)
+        append_row(self.path, self._row(
+            "run_end", rc=rc, final_step=final_step,
+            loss_tail=self.loss_tail_digest(),
+            anomaly_flags=flags or None, flight=flight,
+            counters=snap["counters"], samples=self.samples, **fields))
+
+
+_GLOBAL: RunLedger | None = None
+
+
+def get() -> RunLedger | None:
+    return _GLOBAL
+
+
+def maybe_begin(entrypoint: str, config: dict | None = None,
+                **fields) -> RunLedger | None:
+    """Open this process's ledger run iff ``OBS_LEDGER`` names a path —
+    THE one arming predicate (the recorder's ``maybe_install`` shape),
+    consulted by every entrypoint so the rule can't drift.  Idempotent:
+    a second call returns the already-open run.  Arms an atexit
+    ``run_end`` so a crash still closes the row (``rc=None`` marks "the
+    process never reported" — distinguishable from a real rc)."""
+    global _GLOBAL
+    if _GLOBAL is not None:
+        return _GLOBAL
+    path = ledger_path()
+    if not path:
+        return None
+    led = _GLOBAL = RunLedger(path)
+    led.start(entrypoint, config=config, **fields)
+    atexit.register(_atexit_end)
+    return led
+
+
+def end_global(rc: int | None = None, final_step: int | None = None,
+               **fields) -> None:
+    if _GLOBAL is not None:
+        _GLOBAL.end(rc=rc, final_step=final_step, **fields)
+
+
+def _atexit_end() -> None:
+    if _GLOBAL is not None and not _GLOBAL.ended:
+        _GLOBAL.end(rc=None)
+
+
+# --- reading ---------------------------------------------------------------
+
+def read_rows(path: str, include_rotated: bool = True
+              ) -> tuple[list[dict], int]:
+    """(rows, torn_count) across the rotated ``.1`` file (oldest first)
+    and the live file; torn/unparseable lines are counted and skipped —
+    the reader half of the crash-tolerance contract."""
+    rows: list[dict] = []
+    torn = 0
+    paths = ([path + ".1"] if include_rotated
+             and os.path.exists(path + ".1") else []) + [path]
+    for p in paths:
+        try:
+            with open(p) as f:
+                lines = f.read().splitlines()
+        except OSError:
+            continue
+        for line in lines:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                row = json.loads(line)
+            except json.JSONDecodeError:
+                torn += 1
+                continue
+            if isinstance(row, dict):
+                rows.append(row)
+    return rows, torn
+
+
+def tail_rows(path: str, n: int,
+              max_bytes: int = 256 * 1024) -> tuple[list[dict], int]:
+    """(last ``n`` parsed rows, torn count) reading only a bounded tail
+    chunk of the LIVE file — the ``/ledger/tail`` scrape runs inside
+    the very process being observed, and re-parsing a multi-MiB ledger
+    per poll would bill parse time to the run it watches.  The first
+    line of a mid-file chunk is almost surely partial; it is dropped,
+    not counted as torn."""
+    try:
+        size = os.path.getsize(path)
+        with open(path, "rb") as f:
+            offset = max(0, size - max_bytes)
+            f.seek(offset)
+            blob = f.read()
+    except OSError:
+        return [], 0
+    lines = blob.decode(errors="replace").splitlines()
+    if offset > 0 and lines:
+        lines = lines[1:]
+    rows: list[dict] = []
+    torn = 0
+    for line in lines:
+        line = line.strip()
+        if not line:
+            continue
+        try:
+            row = json.loads(line)
+        except json.JSONDecodeError:
+            torn += 1
+            continue
+        if isinstance(row, dict):
+            rows.append(row)
+    return rows[-max(1, n):], torn
+
+
+def runs(path: str) -> dict:
+    """Fold the rows into per-run groups plus the loose annotations::
+
+        {"runs": {run_id: {"start": row|None, "samples": [...],
+                           "end": row|None}},
+         "order": [run_id, ...],            # first-seen order
+         "events": [row, ...],              # resume_agreement etc.
+         "torn": int}
+    """
+    rows, torn = read_rows(path)
+    grouped: dict = {}
+    order: list = []
+    events: list = []
+    for row in rows:
+        run = row.get("run")
+        ev = row.get("event")
+        if run is None or ev not in ("run_start", "sample", "run_end"):
+            events.append(row)
+            continue
+        if run not in grouped:
+            grouped[run] = {"start": None, "samples": [], "end": None}
+            order.append(run)
+        if ev == "run_start":
+            grouped[run]["start"] = row
+        elif ev == "sample":
+            grouped[run]["samples"].append(row)
+        else:
+            grouped[run]["end"] = row
+    return {"runs": grouped, "order": order, "events": events,
+            "torn": torn}
+
+
+def run_table(path: str, folded: dict | None = None) -> list[dict]:
+    """One summary dict per run, ledger order — the ``obs_query list``
+    /``obs_report --ledger`` row shape.  Pass an already-``runs()``-
+    folded dict to avoid re-reading a multi-MiB ledger for the second
+    view of the same invocation."""
+    folded = folded if folded is not None else runs(path)
+    out = []
+    for run_id in folded["order"]:
+        g = folded["runs"][run_id]
+        start, end = g["start"] or {}, g["end"] or {}
+        flags = end.get("anomaly_flags") or {}
+        out.append({
+            "run": run_id,
+            "entrypoint": start.get("entrypoint") or start.get("src"),
+            "src": start.get("src"),
+            "rank": start.get("rank"),
+            "attempt": start.get("attempt"),
+            "start_ts": start.get("ts"),
+            "config_digest": start.get("config_digest"),
+            "rc": end.get("rc") if g["end"] else None,
+            # Gang rows (the fleet's) end with an explicit outcome
+            # instead of an rc — honor it before classifying.
+            "outcome": ("running/lost" if not g["end"] else
+                        end.get("outcome") or (
+                        "ok" if end.get("rc") == 0 else
+                        "preempted" if end.get("rc") == 143 else
+                        "unreported" if end.get("rc") is None else
+                        f"rc={end.get('rc')}")),
+            "final_step": end.get("final_step"),
+            "samples": len(g["samples"]),
+            "anomalies": sum(flags.values()) if flags else 0,
+            "duration_s": (round(end["ts"] - start["ts"], 3)
+                           if start.get("ts") is not None
+                           and end.get("ts") is not None else None)})
+    return out

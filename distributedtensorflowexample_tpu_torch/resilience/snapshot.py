@@ -239,11 +239,14 @@ class SnapshotStore:
                  f"falling back to the previous one")
         return None
 
-    def restore(self, state: TrainState,
-                step: int | None = None) -> TrainState:
+    def restore(self, state: TrainState, step: int | None = None,
+                generators: bool = True) -> TrainState:
         """Restore into ``state`` in place (the identity when the store
         is empty).  Content of another model, optimizer or layout is
-        refused by name (``load_state_dict``)."""
+        refused by name (``load_state_dict``).  ``generators=False``
+        keeps ``state``'s own dropout generators (serving has no use for
+        them, and a snapshot written on another device type holds
+        another kind of generator state)."""
         step = self.latest_valid() if step is None else step
         if step is None:
             return state
@@ -252,13 +255,16 @@ class SnapshotStore:
             raise ValueError(f"snapshot {step} failed validation: {why}")
         with np.load(io.BytesIO(payload)) as z:
             arrays = {k: z[k] for k in z.files}
-        load_state_dict(state, _arrays_to_content(arrays))
+        content = _arrays_to_content(arrays)
+        if not generators:
+            content["generators"] = {}
+        load_state_dict(state, content)
         _RESTORES.inc()
         return state
 
     def discard_newer(self, step: int) -> list[int]:
-        """Delete every snapshot (payload + manifest) newer than
-        ``step``: a rank that ran ahead of an agreed resume step holds
+        """Delete every snapshot (payload + manifest, and every shard
+        set of the row layouts) newer than ``step``: a rank that ran ahead of an agreed resume step holds
         snapshots from a timeline being abandoned, which ``save`` would
         otherwise dedupe against.  Returns the discarded steps,
         ascending; a still-valid snapshot the OS would not delete is not
@@ -280,6 +286,13 @@ class SnapshotStore:
                      f"still restorable as newest")
                 continue
             dropped.append(s)
+        # Shard sets past the agreed step are the same divergent
+        # timeline in the row-layout format: a later quorum-valid shard
+        # step must not resurrect it (resilience/shardstore.py).
+        from distributedtensorflowexample_tpu_torch.resilience import (
+            shardstore as _shardstore)
+        dropped = sorted(set(dropped)
+                         | set(_shardstore.discard_newer(self._dir, step)))
         if dropped:
             _log(f"discarded snapshot(s) {dropped} newer than agreed "
                  f"step {step} (divergent timeline)")
@@ -301,10 +314,17 @@ class SnapshotStore:
 
 
 def valid_steps(directory: str) -> list[int]:
-    """Steps in ``directory`` that pass validation, ascending (reads
-    manifests and payload bytes, never deserializes state)."""
+    """Steps in ``directory`` that pass validation, ascending.  Both
+    snapshot formats count: monolithic payloads here (size + crc32)
+    unioned with the shard store's quorum-valid sets (every 1/D shard and
+    the replicated payload digest-intact, ``resilience/shardstore.py``).
+    Reads manifests and payload bytes, never deserializes state."""
+    from distributedtensorflowexample_tpu_torch.resilience import (
+        shardstore as _shardstore)
     store = SnapshotStore(directory)
-    return [s for s in store.steps() if store.validate(s)[0]]
+    steps = {s for s in store.steps() if store.validate(s)[0]}
+    steps.update(_shardstore.quorum_valid_steps(directory))
+    return sorted(steps)
 
 
 def newest_common_step(manifest_dirs: list[str]) -> int | None:

@@ -206,15 +206,14 @@ def _prefill_buckets(cache_len: int, smallest: int = 8) -> tuple:
     return tuple(out)
 
 
-class DecodeEngine:
-    """Slots, caches and the steps (bucketed prefill, decode, verify).
-    Host bookkeeping (which slot is live, each request's tokens) belongs
-    to the ContinuousBatcher; this class owns the device state and
-    refuses geometry it cannot serve.  The model's parameters are read
-    where they are: the engine runs on their device."""
+class SlotHost:
+    """The host half of an engine that the ContinuousBatcher drives, which
+    :class:`DecodeEngine` and the sharded engine (``serving/sharded.py``)
+    share: the geometry refusals, the padding buckets, every slot's
+    position and last token, and the warm-bucket bookkeeping."""
 
-    def __init__(self, model: TransformerLM, *, slots: int = DEFAULT_SLOTS,
-                 cache_len: int = 128, prefill_smallest: int = 8):
+    def _init_slots(self, model: TransformerLM, slots: int, cache_len: int,
+                    prefill_smallest: int) -> None:
         if cache_len > model.max_len:
             raise ModeRefusal(
                 f"--max_len {cache_len} exceeds the model's positional "
@@ -225,18 +224,10 @@ class DecodeEngine:
             raise ValueError(f"slots {slots} must be >= 1")
         self.model = model
         self.smodel = serving_lm_for(model)
-        self.device = model.embed.weight.device
         self.slots = int(slots)
         self.cache_len = int(cache_len)
         self.vocab = int(model.vocab_size)
         self.buckets = _prefill_buckets(self.cache_len, prefill_smallest)
-        blk = self.smodel.blocks[0]
-        heads = blk.n_heads
-        head_dim = blk.qkv.in_features // heads
-        with torch.inference_mode():
-            self.cache = KVCache(model.n_layers, self.slots, self.cache_len,
-                                 heads, head_dim, model.dtype, self.device)
-        self.cache_bytes = self.cache.nbytes
         # Host-owned scalars per slot, uploaded per call (tiny).
         self.positions = np.zeros((self.slots,), np.int32)
         self.last_tokens = np.zeros((self.slots,), np.int32)
@@ -248,7 +239,6 @@ class DecodeEngine:
         self._warm_buckets: set = set()
         self.last_prefill_was_cold = False
 
-    # --- host <-> device --------------------------------------------------
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         """An int64 host array on the engine's device: on the card one
         pinned copy that does not wait for the device."""
@@ -257,7 +247,6 @@ class DecodeEngine:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
-    # --- the steps --------------------------------------------------------
     def bucket_for(self, prompt_len: int, max_new: int) -> int:
         """Smallest padding bucket holding ``prompt_len``, refusing
         work that cannot finish inside the cache."""
@@ -274,6 +263,20 @@ class DecodeEngine:
                 return b
         raise AssertionError("bucket table misses cache_len")  # unreachable
 
+    def _bucket_groups(self, assignments: list) -> list:
+        """``[(bucket, [(slot, prompt), ...]), ...]`` in bucket order for
+        prefill's ``[(slot, prompt, max_new), ...]``; sets
+        ``last_prefill_was_cold`` (whether any bucket runs for the first
+        time)."""
+        groups: dict = {}
+        for slot, prompt, max_new in assignments:
+            prompt = np.asarray(prompt, np.int32).ravel()
+            bucket = self.bucket_for(len(prompt), max_new)
+            groups.setdefault(bucket, []).append((slot, prompt))
+        self.last_prefill_was_cold = bool(groups.keys() - self._warm_buckets)
+        self._warm_buckets |= groups.keys()
+        return sorted(groups.items())
+
     def prefill(self, slot: int, prompt: np.ndarray,
                 max_new: int = 1) -> int:
         """Fill ``slot``'s cache rows from the prompt and return the
@@ -283,6 +286,33 @@ class DecodeEngine:
         (tok, _), = self.prefill_many([(slot, prompt, max_new)]).values()
         return tok
 
+    def set_slot(self, slot: int, last_token: int, position: int) -> None:
+        """Host bookkeeping hook (the batcher parks retired slots at
+        position 0 so their frontier never walks off the cache end)."""
+        self.last_tokens[slot] = int(last_token)
+        self.positions[slot] = int(position)
+
+
+class DecodeEngine(SlotHost):
+    """Slots, caches and the steps (bucketed prefill, decode, verify).
+    Host bookkeeping (which slot is live, each request's tokens) belongs
+    to the ContinuousBatcher; this class owns the device state and
+    refuses geometry it cannot serve.  The model's parameters are read
+    where they are: the engine runs on their device."""
+
+    def __init__(self, model: TransformerLM, *, slots: int = DEFAULT_SLOTS,
+                 cache_len: int = 128, prefill_smallest: int = 8):
+        self._init_slots(model, slots, cache_len, prefill_smallest)
+        self.device = model.embed.weight.device
+        blk = self.smodel.blocks[0]
+        heads = blk.n_heads
+        head_dim = blk.qkv.in_features // heads
+        with torch.inference_mode():
+            self.cache = KVCache(model.n_layers, self.slots, self.cache_len,
+                                 heads, head_dim, model.dtype, self.device)
+        self.cache_bytes = self.cache.nbytes
+
+    # --- the steps --------------------------------------------------------
     @torch.inference_mode()
     def prefill_many(self, assignments: list) -> dict:
         """Batched prefill: ``assignments`` is [(slot, prompt, max_new),
@@ -291,17 +321,9 @@ class DecodeEngine:
         the float32 logits at each prompt's last position, for callers
         that sample the first token.  ``last_prefill_was_cold`` reports
         whether any bucket ran for the first time."""
-        groups: dict = {}
-        for slot, prompt, max_new in assignments:
-            prompt = np.asarray(prompt, np.int32).ravel()
-            bucket = self.bucket_for(len(prompt), max_new)
-            groups.setdefault(bucket, []).append((slot, prompt))
         out: dict = {}
-        cold = False
-        for bucket, group in sorted(groups.items()):
+        for bucket, group in self._bucket_groups(assignments):
             n = len(group)
-            cold |= bucket not in self._warm_buckets
-            self._warm_buckets.add(bucket)
             # [slots, bucket + 2]: tokens, then each row's slot and length.
             host = np.zeros((self.slots, bucket + 2), np.int64)
             for i, (slot, prompt) in enumerate(group):
@@ -321,7 +343,6 @@ class DecodeEngine:
                 self.last_tokens[slot] = int(toks[i])
                 out[slot] = (int(toks[i]), last[i])
             self.prefills += n
-        self.last_prefill_was_cold = cold
         return out
 
     def _advance(self, busy) -> np.ndarray:
@@ -408,13 +429,6 @@ class DecodeEngine:
         width = k_rows.shape[1]
         self.cache.k[:, slot, :width].copy_(k_rows)
         self.cache.v[:, slot, :width].copy_(v_rows)
-
-    def set_slot(self, slot: int, last_token: int, position: int) -> None:
-        """Host bookkeeping hook (the batcher parks retired slots at
-        position 0 so their frontier never walks off the cache end)."""
-        self.last_tokens[slot] = int(last_token)
-        self.positions[slot] = int(position)
-
 
 class _OpAudit(TorchDispatchMode):
     """Records the ops that produced a tensor wider than ``ceiling``,

@@ -17,10 +17,22 @@ optimizer, is refused by name rather than mis-bound.  Serving keeps the
 model's parameters and drops the optimizer's momentum and gradient
 buffers.
 
-Layouts: only ``tree`` snapshots promote.  A ``bucket_rows`` or
-``zero3_rows`` snapshot (a ZeRO-1 or ZeRO-3 run's 1/D rows), and the
-JAX package's ``promote_sharded``, are refused by name: they come with the
-port of the shard-redundant snapshots (ROADMAP Queue 1).
+Layouts: snapshots are written in the layout the run trained in
+(``meta.update_layout``): ``tree``, ZeRO-1 ``bucket_rows`` (momentum as
+per-bucket rows) or ZeRO-3 ``zero3_rows`` (parameters and momentum as
+rows).  A row-layout snapshot holds the single-controller view of the
+rows, every bucket's full ``[D*W]`` flat (what the JAX package's global
+arrays hold; :func:`full_row_state` makes that view of a state), so its
+template rebuilds the row geometry from the manifest's ``mesh_size`` and
+``bucket_bytes`` and :func:`promote` materializes the parameters from the
+rows (``BucketPlan.unpack``, the bucket plan's own inverse).
+
+:func:`promote_sharded` is the params-stay-sharded twin, run on every
+rank of a group (``serving/sharded.py``'s engine): a ``zero3_rows``
+snapshot hands each rank its own rows as they are, a ``tree`` or
+``bucket_rows`` one converts down through ``Zero3Layout.init_rows``; the
+full parameters live only in host memory while the snapshot is read, and
+the model on the device holds empty placeholders.
 """
 
 from __future__ import annotations
@@ -34,7 +46,10 @@ import torch
 from torch import nn
 
 from distributedtensorflowexample_tpu_torch.models import build_model
+from distributedtensorflowexample_tpu_torch.parallel.bucketing import (
+    DEFAULT_BUCKET_BYTES, BucketPlan)
 from distributedtensorflowexample_tpu_torch.refusal import ModeRefusal
+from distributedtensorflowexample_tpu_torch.parallel.zero3 import Zero3Layout
 from distributedtensorflowexample_tpu_torch.resilience.snapshot import (
     SnapshotStore)
 from distributedtensorflowexample_tpu_torch.training.optimizers import (
@@ -70,28 +85,48 @@ def template_state(size: str, device: torch.device,
                              device)
 
 
-@dataclasses.dataclass
-class PromotedModel:
-    """What promotion hands the engine: the training ``TransformerLM``
-    holding the snapshot's parameters, plus the provenance the serving
-    stats carry."""
-    model: nn.Module            # the training TransformerLM
-    step: int                   # snapshot step served
-    layout: str                 # update_layout the snapshot was written in
-    manifest: dict              # the winning snapshot's manifest
+@torch.no_grad()
+def full_row_state(state: TrainState, update_layout: str, mesh_size: int,
+                   bucket_bytes: int) -> TrainState:
+    """``state`` (one process, ``tree`` layout) in the single-controller
+    view of a row layout at ``mesh_size`` ranks, in place: the momentum
+    (and under ``zero3_rows`` the parameters) as every bucket's full
+    ``[D*W]`` rows, rank d's row at ``[d*W, (d+1)*W)`` — what a row-layout
+    snapshot holds.  The flat parameters stay, for :func:`promote` to
+    materialize into."""
+    opt = state.optimizer
+    plan = BucketPlan(opt.slices, bucket_bytes, mesh_size)
+    opt.plan, opt.layout = plan, update_layout
+    if opt.momentum_flat is not None:
+        opt.momentum_rows = [plan.pack(opt.momentum_flat, b)
+                             for b in range(plan.num_buckets)]
+        opt.momentum_flat = None
+    if update_layout == "zero3_rows":
+        opt.params_rows = [plan.pack(opt.params_flat, b)
+                           for b in range(plan.num_buckets)]
+    return state
 
 
-def promote(snapshot_dir: str, size: str, *, step: int | None = None,
-            device: torch.device = torch.device("cpu")) -> PromotedModel:
-    """Load the newest VALID snapshot of an LM ``size`` from
-    ``snapshot_dir`` onto ``device``.
+def _template(size: str, layout: str, meta: dict) -> TrainState:
+    """The restore template of a snapshot's declared layout, on the host:
+    row layouts rebuild the bucket geometry from the manifest's
+    ``mesh_size`` and ``bucket_bytes``."""
+    state = template_state(size, torch.device("cpu"))
+    if layout == "tree":
+        return state
+    mesh_size, bucket_bytes = meta.get("mesh_size"), meta.get("bucket_bytes")
+    if not mesh_size or not bucket_bytes:
+        raise ValueError(
+            f"snapshot layout {layout!r} needs manifest meta "
+            f"mesh_size+bucket_bytes to rebuild the row geometry; this "
+            f"manifest carries {sorted(meta)} — it was not written by a "
+            f"layout-stamping writer")
+    return full_row_state(state, layout, int(mesh_size), int(bucket_bytes))
 
-    - newest-first with fallback: a torn or corrupt newest snapshot is
-      discarded (counted on ``snapshot_fallbacks_total``) and the
-      previous valid one serves;
-    - a manifest stamped with another model than ``size`` is refused by
-      name, as are the row layouts (see the module docstring).
-    """
+
+def _restored(snapshot_dir: str, size: str, step: int | None):
+    """(step, manifest, layout, restored host state) of the newest valid
+    (or the given) snapshot, after the by-name checks."""
     store = SnapshotStore(snapshot_dir)
     if step is None:
         step = store.latest_valid()
@@ -112,21 +147,128 @@ def promote(snapshot_dir: str, size: str, *, step: int | None = None,
     if layout not in _LAYOUTS:
         raise ValueError(f"snapshot {step} declares unknown "
                          f"update_layout {layout!r} (one of {_LAYOUTS})")
-    if layout != "tree":
-        raise ModeRefusal(
-            f"snapshot {step} in {snapshot_dir} holds {layout!r} state "
-            f"(the 1/D rows of a --shard_update/--shard_params run); "
-            f"promoting a row-layout snapshot is not ported yet — serve "
-            f"a 'tree' snapshot (a one-rank, sync_dp or bucketed run's)")
-    state = template_state(size, device)
-    store.restore(state, step=step)
+    state = _template(size, layout, meta)
+    store.restore(state, step=step, generators=False)
+    return step, man, layout, state
+
+
+def _serving_model(state: TrainState) -> nn.Module:
     model = state.model
     for p in model.parameters():
         p.grad = None            # the optimizer's buffers go with it
-    model.requires_grad_(False)
+    return model.requires_grad_(False)
+
+
+@dataclasses.dataclass
+class PromotedModel:
+    """What promotion hands the engine: the training ``TransformerLM``
+    holding the snapshot's parameters, plus the provenance the serving
+    stats carry."""
+    model: nn.Module            # the training TransformerLM
+    step: int                   # snapshot step served
+    layout: str                 # update_layout the snapshot was written in
+    manifest: dict              # the winning snapshot's manifest
+
+
+def promote(snapshot_dir: str, size: str, *, step: int | None = None,
+            device: torch.device = torch.device("cpu")) -> PromotedModel:
+    """Load the newest VALID snapshot of an LM ``size`` from
+    ``snapshot_dir`` onto ``device``.
+
+    - newest-first with fallback: a torn or corrupt newest snapshot is
+      discarded (counted on ``snapshot_fallbacks_total``) and the
+      previous valid one serves;
+    - a manifest stamped with another model than ``size`` is refused by
+      name;
+    - row layouts materialize: the parameters are cut back out of the
+      bucket rows (``BucketPlan.unpack``).
+    """
+    step, man, layout, state = _restored(snapshot_dir, size, step)
+    opt = state.optimizer
+    if layout == "zero3_rows":
+        for b, row in enumerate(opt.params_rows):
+            opt.plan.unpack(row, opt.params_flat, b)
+    model = _serving_model(state).to(device)
     _log(f"promoted snapshot step {step} ({layout}) from {snapshot_dir}")
     return PromotedModel(model=model, step=int(step), layout=layout,
                          manifest=man)
+
+
+@dataclasses.dataclass
+class ShardedPromotion:
+    """What sharded promotion hands the row-resident engine on one rank:
+    this rank's bucket rows (1/D of the parameters) and the layout that
+    explains them — the full parameters are never a member, and the
+    model's parameters on the device are empty placeholders."""
+    model: nn.Module            # the training TransformerLM (placeholders)
+    rows: list                  # this rank's [W_b] row of each bucket
+    layout: Zero3Layout         # the plan over the group's D ranks
+    step: int                   # snapshot step served
+    source_layout: str          # update_layout the snapshot was written in
+    manifest: dict              # the winning snapshot's manifest
+
+
+def promote_sharded(snapshot_dir: str, size: str, *, mesh,
+                    step: int | None = None, mesh_size: int | None = None,
+                    bucket_bytes: int | None = None) -> ShardedPromotion:
+    """Promotion that keeps the parameters SHARDED, on every rank of
+    ``mesh`` (a ``parallel/mesh.Mesh`` of the serving group): the twin of
+    :func:`promote` for ``serving/sharded.ShardedDecodeEngine``.
+
+    A ``zero3_rows`` snapshot hands each rank its own row of every bucket
+    as it is (its ``mesh_size`` must be this group's: the row layout is a
+    function of D, and another ``mesh_size`` is refused by name).  A
+    ``tree`` or ``bucket_rows`` snapshot converts down through
+    ``Zero3Layout.init_rows`` at ``bucket_bytes`` (default: the
+    manifest's, else ``--bucket_grads auto``'s cap).  ``mesh_size``
+    (``--sharded_mesh``) wider than the group's ranks is refused by name.
+    The snapshot is read on the host; only the rows reach the device."""
+    D = int(mesh_size or mesh.size)
+    if D > mesh.size:
+        raise ModeRefusal(
+            f"--sharded_mesh {D} exceeds the {mesh.size} rank(s) of this "
+            f"group — the row layout shards one row per rank; start "
+            f"{D} ranks or ask for --sharded_mesh {mesh.size}")
+    step, man, layout_name, state = _restored(snapshot_dir, size, step)
+    meta = man.get("meta") or {}
+    opt = state.optimizer
+    if layout_name == "zero3_rows":
+        snap_mesh = int(meta.get("mesh_size") or 0)
+        if D != snap_mesh:
+            raise ModeRefusal(
+                f"snapshot {step} holds zero3_rows written at mesh_size "
+                f"{snap_mesh} but --sharded_mesh {D} was requested — the "
+                f"row layout is a function of D; re-shard through a "
+                f"training-side conversion, or serve at the snapshot's "
+                f"mesh size")
+        bb = int(meta["bucket_bytes"])
+        layout = Zero3Layout(opt.slices, bb, mesh)
+        rows = [full.view(D, -1)[mesh.rank].clone()
+                for full in opt.params_rows]
+    else:
+        if D != mesh.size:
+            raise ModeRefusal(
+                f"--sharded_mesh {D} on a group of {mesh.size} ranks — "
+                f"each rank holds one row; run {D} ranks")
+        bb = int(bucket_bytes or meta.get("bucket_bytes")
+                 or DEFAULT_BUCKET_BYTES)
+        layout = Zero3Layout(opt.slices, bb, mesh)
+        rows = layout.init_rows(opt.params_flat, mesh.rank)
+    model = _serving_model(state)
+    with torch.no_grad():
+        # Placeholders made on the device: moving an expanded tensor
+        # would materialize it at full size.
+        for p in model.parameters():
+            p.data = torch.zeros((), device=mesh.device).expand(p.shape)
+    del state, opt                   # the full host copy goes here
+    model = model.to(mesh.device)
+    rows = [r.to(mesh.device) for r in rows]
+    _log(f"promoted snapshot step {step} ({layout_name}, rows sharded at "
+         f"1/{D}, bucket_bytes {bb}) from "
+         f"{snapshot_dir}")
+    return ShardedPromotion(model=model, rows=rows, layout=layout,
+                            step=int(step), source_layout=layout_name,
+                            manifest=man)
 
 
 def init_lm_snapshot(snapshot_dir: str, size: str, seed: int = 0) -> int:

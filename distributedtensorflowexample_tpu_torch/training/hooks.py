@@ -13,6 +13,12 @@ reads the step's metrics, which the loop then sums over the ranks first.
 from __future__ import annotations
 
 import os
+import time
+
+from distributedtensorflowexample_tpu_torch.obs import ledger as obs_ledger
+from distributedtensorflowexample_tpu_torch.obs import metrics as obs_metrics
+from distributedtensorflowexample_tpu_torch.obs import recorder as obs_recorder
+from distributedtensorflowexample_tpu_torch.obs import trace as obs_trace
 
 
 class Hook:
@@ -141,21 +147,69 @@ class EvalHook(Hook):
 class MetricsHook(Hook):
     """Samples the loss at ``every``-step marks (the boundaries where the
     logger has already fetched it), keeping the ``(step, loss)`` tape the
-    run summary reports.  The JAX package's hook also feeds its ``obs``
-    registry; the port has no telemetry layer yet."""
+    run summary reports, and feeds the process-wide ``obs`` registry, the
+    flight recorder and the run ledger when they are armed (the JAX
+    package's hook, ``training/hooks.py``).
+
+    Per boundary: one counter add, one gauge set, one histogram observe.
+    On ``every``-step marks only: the loss into the recorder's ring, the
+    registry delta since the last mark, a ``steps`` trace event and a
+    ledger sample (time-bounded by ``OBS_LEDGER_SAMPLE_S``)."""
 
     def __init__(self, every: int = 1):
         self._every = max(1, every)
         self._due = _EveryN(self._every)
         self.loss_tape: list[tuple[int, float]] = []
+        self._steps = obs_metrics.counter(
+            "train_steps_total", "completed global training steps")
+        self._step_g = obs_metrics.gauge(
+            "train_step", "last completed global step")
+        self._loss_g = obs_metrics.gauge(
+            "train_loss", "loss at the last sampled call boundary")
+        self._window_h = obs_metrics.histogram(
+            "train_window_seconds",
+            "wall seconds between loop call boundaries")
+        self._last_step = self._mark_step = 0
+        self._last_t = self._mark_t = time.perf_counter()
+        self._prev_snap = None
 
     def begin(self, loop) -> None:
         self._due = _EveryN(self._every, int(loop.start_step))
+        self._last_step = self._mark_step = int(loop.start_step)
+        self._last_t = self._mark_t = time.perf_counter()
+        self._prev_snap = None
+        rec = obs_recorder.get()
+        if rec is not None:
+            rec.note(start_step=int(loop.start_step))
 
     def reads_metrics(self, step) -> bool:
         return self._due.due(step)
 
     def after_step(self, step, state, metrics) -> bool:
-        if self._due(step) and "loss" in metrics:
-            self.loss_tape.append((step, float(metrics["loss"])))
+        now = time.perf_counter()
+        self._steps.inc(step - self._last_step)
+        self._step_g.set(step)
+        self._window_h.observe(now - self._last_t)
+        self._last_step, self._last_t = step, now
+        if not self._due(step):
+            return False
+        rec = obs_recorder.get()
+        if "loss" in metrics:
+            loss = float(metrics["loss"])
+            self.loss_tape.append((step, loss))
+            self._loss_g.set(loss)
+            if rec is not None:
+                rec.record_loss(step, loss)
+        obs_trace.event("steps", now - self._mark_t, step=step,
+                        n=step - self._mark_step)
+        self._mark_step, self._mark_t = step, now
+        if rec is not None:
+            snap = obs_metrics.registry().snapshot()
+            if self._prev_snap is not None:
+                rec.record_delta(obs_metrics.MetricsRegistry.delta(
+                    self._prev_snap, snap))
+            self._prev_snap = snap
+        led = obs_ledger.get()
+        if led is not None:
+            led.sample(step)
         return False

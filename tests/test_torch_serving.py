@@ -689,17 +689,29 @@ def test_request_front_answers_as_in_process(engine):
 
 
 def test_unported_modes_refused_by_name(tmp_path, monkeypatch, capsys):
+    """What stays refused by name: a one-rank --sharded_mesh, a slot
+    count the ranks do not divide, a row-layout snapshot with no geometry
+    in its manifest.  The run ledger is served (OBS_LEDGER: a run_start
+    and a run_end row)."""
+    from distributedtensorflowexample_tpu_torch.obs import ledger as obs_ledger
     d = str(tmp_path / "snaps")
     argv = ["--device", "cpu", "--snapshot", d, "--init_if_missing",
             "--drive", "1"]
-    assert serve_lm.main(argv + ["--sharded_mesh", "2"]) == 2
-    assert "--sharded_mesh 2" in capsys.readouterr().err
-    monkeypatch.setenv("OBS_LEDGER", str(tmp_path / "runs.jsonl"))
-    assert serve_lm.main(argv) == 2
-    assert "OBS_LEDGER is set" in capsys.readouterr().err
+    assert serve_lm.main(argv + ["--sharded_mesh", "1"]) == 2
+    assert "--sharded_mesh 1" in capsys.readouterr().err
+    assert serve_lm.main(argv + ["--sharded_mesh", "2", "--slots", "3"]) == 2
+    assert "--slots 3" in capsys.readouterr().err
+    runs = str(tmp_path / "runs.jsonl")
+    monkeypatch.setenv("OBS_LEDGER", runs)
+    monkeypatch.setattr(obs_ledger, "_GLOBAL", None)
+    assert serve_lm.main(argv) == 0
+    obs_ledger.end_global(rc=0)
+    monkeypatch.setattr(obs_ledger, "_GLOBAL", None)
+    (run,) = obs_ledger.run_table(runs)
+    assert run["entrypoint"] == "serve_lm" and run["outcome"] == "ok"
     state = template_state(SIZE, torch.device("cpu"))
     state.step = 9
     SnapshotStore(d).save(state, meta={"model": SIZE,
                                        "update_layout": "zero3_rows"})
-    with pytest.raises(ModeRefusal, match="'zero3_rows'"):
+    with pytest.raises(ValueError, match="mesh_size"):
         promote(d, SIZE)

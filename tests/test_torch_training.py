@@ -294,16 +294,24 @@ def test_bucketed_resnet20_is_refused_by_name():
 
 
 def test_snapshot_dir_with_a_row_layout_is_refused_by_name(
-        small_torch_mnist, monkeypatch):
+        small_torch_mnist, monkeypatch, tmp_path):
+    """SNAPSHOT_DIR with a row layout writes shard sets; resuming one into
+    another row layout is refused by name."""
+    from distributedtensorflowexample_tpu_torch.resilience.shardstore import (
+        ShardStore)
     from distributedtensorflowexample_tpu_torch.trainers import (
         trainer_sync_mnist)
-    monkeypatch.setenv("SNAPSHOT_DIR", "/nonexistent")
-    for extra in (["--shard_update", "true"], ["--shard_params", "true"]):
-        with pytest.raises(ModeRefusal, match="SNAPSHOT_DIR"):
-            trainer_sync_mnist.main(["--device", "cpu", "--dataset",
-                                     "synthetic", "--bucket_grads", "auto",
-                                     "--num_devices", "2", "--log_dir", ""]
-                                    + extra)
+    snap = str(tmp_path / "shards")
+    monkeypatch.setenv("SNAPSHOT_DIR", snap)
+    argv = ["--device", "cpu", "--dataset", "synthetic", "--bucket_grads",
+            "65536", "--num_devices", "2", "--log_dir", "",
+            "--train_steps", "2", "--log_every", "1"]
+    trainer_sync_mnist.main(argv + ["--shard_params", "true"])
+    # --checkpoint_every 0: a set every step, as in the JAX Engine.
+    assert ShardStore(snap).quorum_steps() == [1, 2]
+    with pytest.raises(ModeRefusal, match="SNAPSHOT_DIR holds 'zero3_rows'"):
+        trainer_sync_mnist.main(argv + ["--shard_update", "true",
+                                        "--train_steps", "4"])
 
 
 def test_auto_steps_per_loop_matches_the_jax_engine():
