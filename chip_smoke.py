@@ -13,8 +13,13 @@ worker and on two, that every replication mode (bucketed all-reduce,
 ZeRO-1, ZeRO-3, and async for a batch-norm model) trains on two ranks
 within its collective budget, that a ZeRO-3 lm_base run writes
 shard-redundant snapshots that survive a lost or corrupt rank directory
-and restore onto another width, and that lm_base serves with its
-parameters left sharded over two ranks.
+and restore onto another width, that lm_base serves with its
+parameters left sharded over two ranks, that config 3 trains from the
+host-fed input path (``--device_data off``: the native loader, pinned
+uploads, the LUT dequants) and with the split sharded over two ranks,
+that ResNet-20 trains with each block rematerialized, and that every
+run's telemetry (tfevents, the profiler window, ``health.json``) is
+written.
 
     python3 chip_smoke.py
 
@@ -230,6 +235,41 @@ P. params-stay-sharded serving at lm_base, full width: phase S's tree
    answered.  Launch counters 0 in both ranks.  One
    ``sharded_serving_path`` line: tokens/s, p50/p99, decode ms a step,
    bytes gathered a step, ms an all-gather, residency a rank;
+Q. (after J) the host-fed input path: the native loader built
+   (``native.available()``) and its ``gather`` and ``gather_augment``
+   bitwise numpy's on the synthetic MNIST split (uint8 and float32);
+   ``trainer_sync_mnist`` with ``--device_data off --pallas_ce true
+   --fused_optimizer true``, 200 steps at B=64 and one eval: ``ce_fwd``
+   = ``ce_bwd`` = ``sgd`` = 200, ``dequant`` 0, a finite and falling
+   loss, 64 x 784 uint8 + 64 int32 labels = 50,432 bytes uploaded a
+   step; then, under cuDNN's deterministic algorithms, 20 steps each with
+   ``--dequant_impl affine``, ``onehot`` and ``lut`` (losses bitwise
+   equal), and 20 steps through ``Engine.build_host_fed`` with the
+   prefetcher's pinned, stream-ordered uploads against the same steps fed
+   by synchronous copies, the host never waiting on the card (losses
+   bitwise equal); one ``host_fed_path`` line: steps/s, bytes a step;
+R. config 4 with ``--remat block`` against ``--remat none``, 50 steps
+   each from one seed under cuDNN's deterministic algorithms (one
+   synthetic split for both runs): the final parameters and batch-norm
+   running statistics bitwise equal (else within the 2e-2 relative bound
+   of phase 4, and the line says which); ``dequant`` 50 + the eval
+   batches, ``ce_fwd`` = ``ce_bwd`` = 50, ``sgd`` 0 in each run; the
+   peak ``max_memory_allocated`` of each run, and of 3 train steps
+   through ``Engine.build`` above the state and the split (the run's
+   peak is the eval's batch of 1000); one ``remat_path`` line;
+SH. (in phase L's two gloo ranks, last) config 3 with ``--data_sharding
+   sharded --pallas_ce true --fused_optimizer true``, 20 steps at B=64 a
+   rank: each rank's resident split is 30,000 of the 60,000 rows,
+   ``ce_fwd`` = ``ce_bwd`` = ``sgd`` = 20 and ``dequant`` 0 a rank, the
+   replicas bitwise equal, a finite and falling loss; one
+   ``sharded_data_path`` line;
+T. telemetry: config 3 with the four kernels, 60 steps, with
+   ``--log_dir``, ``--profile_dir`` (steps 21-30) and ``OBS_HEALTH``:
+   ``utils/tfevents.read_events`` reads back the steps and values of
+   ``scalars.jsonl`` (as float32), the rank-0 Chrome trace holds CUDA
+   kernel events inside its ``ProfilerStep`` window, ``health.json`` is
+   written, and ``AnomalyHook`` fired nothing; one ``telemetry_path``
+   line;
 7. the ``kernels`` JSON line (each kernel's launches summed over every
    path and rank, and per path: per rank for the multi-rank paths, per
    run for phase I), then the ``ok`` line last.
@@ -306,6 +346,12 @@ RESUME_STEPS = 200          # phase I: 100 steps, then resumed to 200
 MODE_STEPS = 50             # phase L, each mode
 MODE_LM_STEPS = 10          # phase M, each mode
 ASYNC_BN_STEPS = 40         # phase N
+HOST_STEPS = 200            # phase Q: host-fed config 3
+HOST_CMP_STEPS = 20         # phase Q: the dequants and the copies compared
+REMAT_STEPS = 50            # phase R
+REMAT_PEAK_STEPS = 3        # phase R: the steps whose peak is read
+SHARDED_DATA_STEPS = 20     # phase SH
+TELEMETRY_STEPS = 60        # phase T
 Z3_RESUME_STEPS = 40        # phase I': 20 steps, then resumed to 40
 #: The replication modes' flags (phase L; lm_base takes --bucket_grads
 #: auto by default, so its sync_dp turns it off).
@@ -970,8 +1016,8 @@ def zero3_resume_runs() -> dict:
 
 
 def mode_rank_phases(phases: tuple) -> dict:
-    """Phases L, M, N and I' (those in ``phases``) in one of the two gloo
-    ranks on ``cuda:0``, under cuDNN's deterministic algorithms."""
+    """Phases L, M, N, I' and SH (those in ``phases``) in one of the two
+    gloo ranks on ``cuda:0``, under cuDNN's deterministic algorithms."""
     from distributedtensorflowexample_tpu_torch.utils.profiling import (
         collective_ms)
     out = {}
@@ -994,12 +1040,19 @@ def mode_rank_phases(phases: tuple) -> dict:
                     shutil.rmtree(ROOT / "build" / d, ignore_errors=True)
             dist.barrier()
             out["I'"] = zero3_resume_runs()
+        if "SH" in phases:
+            out["SH"] = run_trainer("trainer_sync_mnist", [
+                "--device", "cuda", "--dataset", "synthetic",
+                "--data_sharding", "sharded", "--pallas_ce", "true",
+                "--fused_optimizer", "true", "--train_steps",
+                str(SHARDED_DATA_STEPS), "--batch_size", str(BATCH),
+                "--log_every", "10", "--log_dir", ""])
     return out
 
 
 def run_mode_phases(gpu: str, phases: tuple) -> dict:
-    """Phases L, M, N and I' on the two gloo ranks: the checks and their
-    JSON lines; the launch counts by path."""
+    """Phases L, M, N, I' and SH on the two gloo ranks: the checks and
+    their JSON lines; the launch counts by path."""
     ranks = launch.spawn(mode_rank_phases, MR_RANKS, "gloo", (phases,),
                          timeout_s=900)
     by_path = {}
@@ -1011,6 +1064,8 @@ def run_mode_phases(gpu: str, phases: tuple) -> dict:
         by_path.update(check_async_bn_phase(ranks, gpu))
     if "I'" in phases:
         by_path.update(check_zero3_resume_phase(ranks, gpu))
+    if "SH" in phases:
+        by_path.update(check_sharded_data_phase(ranks, gpu))
     return by_path
 
 
@@ -1165,6 +1220,36 @@ def check_zero3_resume_phase(ranks: list, gpu: str) -> dict:
     return {"mnist_cnn_zero3_resume_gloo2": [
         {k: sum(run["launches"][k] for run in r["runs"])
          for k in SOURCES} for r in rs]}
+
+
+def check_sharded_data_phase(ranks: list, gpu: str) -> dict:
+    """Phase SH: each rank's half of the split, the CE and SGD kernels
+    only, the replicas bitwise equal."""
+    rs = [r["SH"] for r in ranks]
+    print(rs[0]["text"], end="")
+    steps = SHARDED_DATA_STEPS
+    expect = {"dequant": 0, "ce_fwd": steps, "ce_bwd": steps, "sgd": steps}
+    for r in rs:
+        require(r["steps"] == steps and r["launches"] == expect,
+                f"phase SH: {r['steps']} steps, launches {r['launches']}, "
+                f"expected {expect}")
+        require(r["resident_rows"] == 60000 // MR_RANKS,
+                f"phase SH: {r['resident_rows']} rows resident on a rank, "
+                f"expected {60000 // MR_RANKS}")
+        require(r["loss_tape"] == rs[0]["loss_tape"],
+                "phase SH: the ranks' loss tapes differ")
+    check_loss_tape(rs[0], rs[0]["text"])      # rank 0 prints
+    require(len({r["params_digest"] for r in rs}) == 1,
+            "phase SH: the replicas' parameters differ")
+    print(json.dumps({"sharded_data_path": {
+        "model": "mnist_cnn", "ranks": MR_RANKS, "steps": steps,
+        "batch_per_rank": BATCH,
+        "resident_rows_by_rank": [r["resident_rows"] for r in rs],
+        "steps_per_sec": rs[0]["steps_per_sec"],
+        "loss_tape": rs[0]["loss_tape"],
+        "launches_by_rank": [r["launches"] for r in rs], "gpu": gpu}}),
+        flush=True)
+    return {"mnist_cnn_sharded_data_gloo2": [r["launches"] for r in rs]}
 
 
 def nccl_rank(argv: list) -> dict:
@@ -1579,6 +1664,273 @@ def run_drill_phase(gpu: str) -> None:
 
 
 # --- phase S: serving lm_base ---------------------------------------------
+
+def host_argv(steps: int, log_dir: str, log_every: int, *extra) -> list:
+    """Phase Q: config 3 host-fed, with the CE and SGD kernels."""
+    return ["--device", "cuda", "--dataset", "synthetic", "--device_data",
+            "off", "--pallas_ce", "true", "--fused_optimizer", "true",
+            "--train_steps", str(steps), "--batch_size", str(BATCH),
+            "--log_every", str(log_every), "--resume", "false",
+            "--log_dir", str(ROOT / "build" / log_dir) if log_dir else "",
+            *extra]
+
+
+def check_native_loader() -> dict:
+    """Phase Q (a): the native loader builds, and its gathers are numpy's
+    bit for bit on the synthetic MNIST split."""
+    from distributedtensorflowexample_tpu_torch import native
+    from distributedtensorflowexample_tpu_torch.data import cifar10
+    from distributedtensorflowexample_tpu_torch.data.dequant import (
+        try_quantize)
+    from distributedtensorflowexample_tpu_torch.data.mnist import load_mnist
+    require(native.available(), "phase Q: the native loader did not build "
+                                "(native.available() is False)")
+    x, _ = load_mnist("", "train", seed=0, source="synthetic")
+    u8, _ = try_quantize(x)
+    rng = np.random.RandomState(0)
+    idx = rng.randint(0, len(u8), size=1024)
+    draws = cifar10._draw(rng, idx.size)
+    checks = {
+        "gather_u8": np.array_equal(native.gather(u8, idx), u8[idx]),
+        "gather_f32": np.array_equal(native.gather(x, idx), x[idx]),
+        "gather_augment_u8": np.array_equal(
+            native.gather_augment(u8, idx, *draws),
+            cifar10._augment_numpy(u8[idx], *draws)),
+        "gather_augment_f32": np.array_equal(
+            native.gather_augment(x, idx, *draws),
+            cifar10._augment_numpy(x[idx], *draws))}
+    require(all(checks.values()), f"phase Q: native against numpy {checks}")
+    return {"omp_threads": native.omp_threads(), **checks}
+
+
+def prefetch_against_sync_copies() -> dict:
+    """Phase Q (d): the host-fed step fed by the prefetcher (pinned slots,
+    side-stream copies, ``depth`` 2) and by synchronous copies of the same
+    batches; the losses stay on the card until the end, so the host runs
+    ahead and the prefetcher's slots are refilled while the card works."""
+    from distributedtensorflowexample_tpu_torch.data.pipeline import (
+        put_local_batch)
+    from distributedtensorflowexample_tpu_torch.engine import Engine, RunSpec
+    from distributedtensorflowexample_tpu_torch.trainers import (
+        trainer_sync_mnist)
+    cfg = trainer_sync_mnist.build_config(host_argv(HOST_CMP_STEPS, "", 1))
+    engine = Engine(RunSpec("mnist_cnn", "mnist", cfg))
+    mesh = Mesh(torch.device("cuda"))
+    data = engine.input("train")
+    kernels.reset_launch_counts()
+    tapes = {}
+    for how in ("prefetched", "synchronous"):
+        built = engine.build_host_fed(mesh, data=data)
+        batches = (built.ds if how == "prefetched" else
+                   (put_local_batch(b, mesh.device) for b in built.ds.source))
+        losses = [built.step(built.state, next(batches))[1]["loss"]
+                  for _ in range(HOST_CMP_STEPS)]
+        tapes[how] = torch.stack(losses).cpu().numpy()
+    require(np.array_equal(tapes["prefetched"], tapes["synchronous"]),
+            f"phase Q: prefetched losses {tapes['prefetched']} differ from "
+            f"the synchronous copies' {tapes['synchronous']}")
+    return {"tape": tapes["prefetched"].tolist(),
+            "launches": kernels.launch_counts()}
+
+
+def run_host_fed_phase(gpu: str) -> dict:
+    """Phase Q: the host-fed input path of config 3."""
+    native_checks = check_native_loader()
+    r = run_trainer("trainer_sync_mnist", host_argv(HOST_STEPS,
+                                                    "chip_smoke_host", 50))
+    print(r["text"], end="")
+    steps = r["steps"]
+    expect = {"dequant": 0, "ce_fwd": steps, "ce_bwd": steps, "sgd": steps}
+    require(steps == HOST_STEPS and r["input"] == "host",
+            f"phase Q: {steps} steps on the {r['input']} input path")
+    require(r["launches"] == expect, f"phase Q: launch counts "
+                                     f"{r['launches']}, expected {expect}")
+    check_loss_tape(r, r["text"])
+    h2d = BATCH * 28 * 28 + BATCH * 4          # uint8 pixels, int32 labels
+    require(r["h2d_bytes_per_step"] == h2d,
+            f"phase Q: {r['h2d_bytes_per_step']} bytes uploaded a step, "
+            f"expected {h2d}")
+    tapes, launches = {}, [r["launches"]]
+    with deterministic_cudnn():
+        for impl in ("affine", "onehot", "lut"):
+            q = run_trainer("trainer_sync_mnist", host_argv(
+                HOST_CMP_STEPS, f"chip_smoke_host_{impl}", 1,
+                "--dequant_impl", impl))
+            tapes[impl] = [loss for _, loss in q["loss_tape"]]
+            launches.append(q["launches"])
+        copies = prefetch_against_sync_copies()
+    launches.append(copies["launches"])
+    require(len(tapes["affine"]) == HOST_CMP_STEPS
+            and tapes["onehot"] == tapes["affine"] == tapes["lut"],
+            f"phase Q: the dequants' losses differ: {tapes}")
+    result = {"model": "mnist_cnn", "input": "host", "steps": steps,
+              "batch": BATCH, "steps_per_sec": r["steps_per_sec"],
+              "h2d_bytes_per_step": r["h2d_bytes_per_step"],
+              "h2d_image_bytes_per_step": BATCH * 28 * 28,
+              "final_accuracy": r["final_accuracy"],
+              "loss_tape": r["loss_tape"], "native": native_checks,
+              "dequant_tapes_bitwise": True,
+              "prefetch_vs_sync_copies_bitwise": True,
+              "launches": r["launches"], "gpu": gpu}
+    print(json.dumps({"host_fed_path": result}), flush=True)
+    return {"mnist_cnn_host_fed": launches}
+
+
+def run_remat_phase(gpu: str) -> dict:
+    """Phase R: config 4 with ``--remat block`` against ``--remat none``."""
+    from distributedtensorflowexample_tpu_torch.data.cifar10 import (
+        load_cifar10)
+    from distributedtensorflowexample_tpu_torch.engine import Engine, RunSpec
+    from distributedtensorflowexample_tpu_torch.trainers import (
+        trainer_mirrored_cifar)
+    splits = {s: load_cifar10("", s, seed=0, source="synthetic")
+              for s in ("train", "test")}
+    runs = {}
+    with deterministic_cudnn():
+        for remat in ("none", "block"):
+            log_dir = f"chip_smoke_remat_{remat}"
+            shutil.rmtree(ROOT / "build" / log_dir, ignore_errors=True)
+            cfg = trainer_mirrored_cifar.build_config(
+                cifar_argv(REMAT_STEPS, log_dir, 25)
+                + ["--remat", remat, "--checkpoint_every", str(REMAT_STEPS)])
+            spec = RunSpec("resnet20", "cifar10", cfg, augment=True,
+                           input_fn=lambda _cfg, split: splits[split])
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                summary = Engine(spec).run()
+            runs[remat] = dict(summary, launches=kernels.launch_counts(),
+                               peak_bytes=torch.cuda.max_memory_allocated(),
+                               text=out.getvalue(), spec=spec)
+        peaks, step_launches = {}, []
+        for remat, r in runs.items():
+            peaks[remat], launches = remat_step_peak(r["spec"], splits)
+            step_launches.append(launches)
+    print(runs["block"]["text"], end="")
+    for remat, r in runs.items():
+        expect = dequant_ce_expect(REMAT_STEPS, r["eval_batches"])
+        require(r["steps"] == REMAT_STEPS and r["launches"] == expect,
+                f"phase R ({remat}): {r['steps']} steps, launches "
+                f"{r['launches']}, expected {expect}")
+        check_loss_tape(r, r["text"])
+    a, b = (final_part(f"chip_smoke_remat_{m}", REMAT_STEPS)
+            for m in ("none", "block"))
+    pairs = [("params", a["params"], b["params"])] + [
+        (name, a["buffers"][name], b["buffers"][name])
+        for name in a["buffers"]]
+    bitwise = all(torch.equal(x, y) for _, x, y in pairs)
+    worst = max(((x - y).abs().max() / x.abs().max().clamp_min(1e-30))
+                .item() for _, x, y in pairs)
+    require(bitwise or worst <= 2e-2,
+            f"phase R: remat block is {worst:.3g} (relative) from remat "
+            f"none")
+    result = {"model": "resnet20", "steps": REMAT_STEPS,
+              "batch": CIFAR_BATCH, "bitwise": bitwise,
+              "max_rel_diff": worst, "tolerance": None if bitwise else 2e-2,
+              "peak_bytes_run": {m: r["peak_bytes"]
+                                 for m, r in runs.items()},
+              "peak_bytes_train_steps": peaks,
+              "steps_per_sec": {m: r["steps_per_sec"]
+                                for m, r in runs.items()},
+              "loss_tape": {m: r["loss_tape"] for m, r in runs.items()},
+              "launches": {m: r["launches"] for m, r in runs.items()},
+              "gpu": gpu}
+    print(json.dumps({"remat_path": result}), flush=True)
+    return {"resnet20_remat": [r["launches"] for r in runs.values()]
+            + step_launches}
+
+
+def remat_step_peak(spec, splits: dict) -> tuple:
+    """Phase R: the device bytes the train steps take above what the
+    state and the resident split hold (``max_memory_allocated`` over
+    ``REMAT_PEAK_STEPS`` steps through ``Engine.build``, the eval's
+    batch of 1000 out of the way), and their launches."""
+    from distributedtensorflowexample_tpu_torch.engine import Engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    built = Engine(spec).build(Mesh(torch.device("cuda")),
+                               data=splits["train"])
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    for _ in range(REMAT_PEAK_STEPS):
+        built.step(built.state, next(built.ds))
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - before,
+            kernels.launch_counts())
+
+
+def run_telemetry_phase(gpu: str) -> dict:
+    """Phase T: tfevents, the profiler's window and ``health.json``."""
+    from distributedtensorflowexample_tpu_torch.obs.anomaly import (
+        read_health)
+    from distributedtensorflowexample_tpu_torch.utils.tfevents import (
+        read_events)
+    log_dir = ROOT / "build" / "chip_smoke_telemetry"
+    shutil.rmtree(log_dir, ignore_errors=True)
+    health = log_dir / "health.json"
+    held = os.environ.get("OBS_HEALTH")
+    os.environ["OBS_HEALTH"] = str(health)
+    try:
+        r = run_trainer("trainer_sync_mnist", [
+            "--device", "cuda", "--dataset", "synthetic", "--dequant_impl",
+            "pallas", "--pallas_ce", "true", "--fused_optimizer", "true",
+            "--train_steps", str(TELEMETRY_STEPS), "--batch_size",
+            str(BATCH), "--log_every", "10", "--resume", "false",
+            "--log_dir", str(log_dir), "--profile_dir",
+            str(log_dir / "profile"), "--profile_start_step", "20",
+            "--profile_num_steps", "5"])
+    finally:
+        if held is None:
+            os.environ.pop("OBS_HEALTH", None)
+        else:
+            os.environ["OBS_HEALTH"] = held
+    steps = r["steps"]
+    expect = {"dequant": steps + r["eval_batches"], "ce_fwd": steps,
+              "ce_bwd": steps, "sgd": steps}
+    require(r["launches"] == expect, f"phase T: launch counts "
+                                     f"{r['launches']}, expected {expect}")
+    (events_file,) = log_dir.glob("events.out.tfevents.*")
+    events = {(e["step"], e["tag"]): e["value"]
+              for e in read_events(str(events_file)) if "tag" in e}
+    rows = [json.loads(line) for line in
+            (log_dir / "scalars.jsonl").read_text().splitlines()]
+    scalars = {(row["step"], k): v for row in rows for k, v in row.items()
+               if k != "step"}
+    require(set(events) == set(scalars) and all(
+        events[k] == float(np.float32(v)) for k, v in scalars.items()),
+        f"phase T: tfevents {events} against scalars.jsonl {scalars}")
+    trace = json.loads(Path(r["profile_trace"]).read_text())["traceEvents"]
+    marks = [e for e in trace if e.get("cat") == "user_annotation"
+             and str(e.get("name", "")).startswith("ProfilerStep#")]
+    require(marks, "phase T: no ProfilerStep span in the trace")
+    lo = min(e["ts"] for e in marks)
+    hi = max(e["ts"] + e["dur"] for e in marks)
+    in_window = [e for e in trace if e.get("cat") == "kernel"
+                 and lo <= e["ts"] <= hi]
+    require(in_window, f"phase T: no CUDA kernel event between {lo} and "
+                       f"{hi} in {r['profile_trace']}")
+    payload = read_health(str(health))
+    require(payload is not None and payload["anomalies_total"] == 0
+            and r["anomalies"] == 0,
+            f"phase T: health {payload}, anomalies {r['anomalies']}")
+    result = {"model": "mnist_cnn", "steps": steps,
+              "tfevents_scalars": len(events),
+              "profile_trace": os.path.relpath(r["profile_trace"], ROOT),
+              "profile_window_steps": [m["name"] for m in marks],
+              "kernel_events_in_window": len(in_window),
+              "health_step": payload["step"],
+              "step_time_detector_armed": payload["detectors"]["step_time"][
+                  "baseline_mean_s"] is not None,
+              "anomalies": r["anomalies"], "launches": r["launches"],
+              "gpu": gpu}
+    print(json.dumps({"telemetry_path": result}), flush=True)
+    return {"mnist_cnn_telemetry": [r["launches"]]}
+
 
 SERVE_DIR = ROOT / "build" / "chip_smoke_serve"
 SERVE_SNAP = SERVE_DIR / "snapshots"
@@ -2637,7 +2989,10 @@ def main() -> int:
     by_path.update(run_multiworker_phase(gpu))
     by_path.update(run_resume_phase(gpu))
     run_drill_phase(gpu)
-    by_path.update(run_mode_phases(gpu, ("L", "M", "N", "I'")))
+    by_path.update(run_host_fed_phase(gpu))
+    by_path.update(run_remat_phase(gpu))
+    by_path.update(run_telemetry_phase(gpu))
+    by_path.update(run_mode_phases(gpu, ("L", "M", "N", "I'", "SH")))
     shard_ranks, four = run_shard_phase()
     serving_counts = run_serving_phase(gpu)
     by_path.update(run_sharded_phase(gpu, shard_ranks, four))

@@ -1,13 +1,20 @@
 """CIFAR-10 input (the JAX package's ``data/cifar10.py`` ``load_cifar10``):
 the python-pickle, plain-binary and unextracted ``cifar-10-python.tar.gz``
 layouts read with numpy, and the ``real | synthetic | fallback`` sources
-of ``data/mnist.py``.  Nothing is downloaded.  The JAX package's native
-C++ parser is not ported; its output is bitwise the numpy parse's.
+of ``data/mnist.py``.  Nothing is downloaded.  The ``.bin`` layout is
+parsed by the native C++ loader (``native/``) when it is built, else by
+numpy: the same arrays.
 
 Images are normalized by the fused ``"cifar"`` affine of
 ``data/dequant.py`` applied to the recovered bytes, so the split
 quantizes back to uint8 exactly (``try_quantize``) and the device-side
 dequant reproduces these floats bit for bit.
+
+:func:`augment` is the host-fed path's random crop (4-pixel reflect pad)
+and horizontal flip (``data/pipeline.Batcher``, ``--device_data off``):
+its draws come from the Batcher's ``RandomState`` in a fixed order, and
+the pixel work runs in the native loader (fused with the row gather) or
+in numpy, bit-identically.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import tarfile
 
 import numpy as np
 
+from distributedtensorflowexample_tpu_torch import native
 from distributedtensorflowexample_tpu_torch.data.dequant import (
     U8_UNIT_SCALE, affine_numpy)
 from distributedtensorflowexample_tpu_torch.data.synthetic import (
@@ -94,9 +102,12 @@ def _load_batches(data_dir: str, split: str):
                 x, y = _from_pickle(f)
         elif os.path.exists(path + ".bin"):         # 1 label byte + 3072
             with open(path + ".bin", "rb") as f:
-                rows = np.frombuffer(f.read(), dtype=np.uint8).reshape(
-                    -1, 3073)
-            x, y = _to_nhwc(rows[:, 1:]), rows[:, 0].astype(np.int32)
+                raw = f.read()
+            if native.available():
+                x, y = native.parse_cifar(raw)
+            else:
+                rows = np.frombuffer(raw, dtype=np.uint8).reshape(-1, 3073)
+                x, y = _to_nhwc(rows[:, 1:]), rows[:, 0].astype(np.int32)
         else:
             return None
         images.append(x)
@@ -151,3 +162,49 @@ def load_cifar10(data_dir: str, split: str = "train",
             out[i:i + _CHUNK] = affine_numpy(u8, "cifar")
         images = out
     return images, labels
+
+
+def augment(images: np.ndarray, rng: np.random.RandomState) -> np.ndarray:
+    """Random 4-pixel-pad crop and horizontal flip of a ``[N, H, W, C]``
+    float32 or uint8 batch: the draws from ``rng`` in a fixed order
+    (:func:`_draw`), then the native loader or numpy, bit-identically."""
+    ys, xs, flips = _draw(rng, images.shape[0])
+    if native.available() and images.dtype in (np.float32, np.uint8):
+        return native.augment_crop_flip(images, ys, xs, flips)
+    return _augment_numpy(images, ys, xs, flips)
+
+
+def _draw(rng: np.random.RandomState, n: int):
+    """The augmentation's draws, in one order for every route."""
+    ys = rng.randint(0, 9, size=n)
+    xs = rng.randint(0, 9, size=n)
+    flips = rng.rand(n) < 0.5
+    return ys, xs, flips
+
+
+def _fused_gather_augment(src: np.ndarray, idx: np.ndarray,
+                          rng: np.random.RandomState) -> np.ndarray:
+    """The native one-pass gather plus crop and flip: the batch rows go
+    from the split straight into the augmented output."""
+    return native.gather_augment(src, idx, *_draw(rng, idx.size))
+
+
+# The Batcher fuses the gather with this augmentation when the native
+# loader is built; the draws keep augment()'s order.
+augment.fused_native = _fused_gather_augment
+# Pure pixel rearrangement: safe on uint8-quantized batches (the Batcher
+# keeps a split uint8 only under an augment that says so).
+augment.u8_safe = True
+
+
+def _augment_numpy(images: np.ndarray, ys: np.ndarray, xs: np.ndarray,
+                   flips: np.ndarray) -> np.ndarray:
+    """The numpy route: one strided-window gather and one masked flip."""
+    n, h, w, _ = images.shape
+    padded = np.pad(images, ((0, 0), (4, 4), (4, 4), (0, 0)),
+                    mode="reflect")
+    windows = np.lib.stride_tricks.sliding_window_view(padded, (h, w),
+                                                       axis=(1, 2))
+    crops = windows[np.arange(n), ys, xs]          # [n, c, h, w] (copy)
+    crops = np.moveaxis(crops, 1, -1)              # back to NHWC
+    return np.where(flips[:, None, None, None], crops[:, :, ::-1, :], crops)

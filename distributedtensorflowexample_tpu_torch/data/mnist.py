@@ -1,7 +1,7 @@
 """MNIST input (the JAX package's ``data/mnist.py``): the IDX(.gz) numpy
 parse and the ``real | synthetic | fallback`` sources.  Nothing is
-downloaded.  The JAX package's native C++ IDX parser is not ported; the
-numpy parse gives the same arrays.
+downloaded.  The IDX bytes are parsed by the native C++ loader
+(``native/``) when it is built, else by numpy: the same arrays.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ import struct
 
 import numpy as np
 
+from distributedtensorflowexample_tpu_torch import native
 from distributedtensorflowexample_tpu_torch.data.dequant import U8_UNIT_SCALE
 from distributedtensorflowexample_tpu_torch.data.synthetic import (
     make_synthetic, warn_synthetic)
@@ -33,6 +34,8 @@ def _read_idx(path: str) -> bytes:
 
 def _read_idx_images(path: str) -> np.ndarray:
     raw = _read_idx(path)
+    if native.available():
+        return native.parse_idx_images(raw)
     magic, n, rows, cols = struct.unpack(">IIII", raw[:16])
     if magic != 2051:
         raise ValueError(f"bad IDX image magic {magic} in {path}")
@@ -43,6 +46,8 @@ def _read_idx_images(path: str) -> np.ndarray:
 
 def _read_idx_labels(path: str) -> np.ndarray:
     raw = _read_idx(path)
+    if native.available():
+        return native.parse_idx_labels(raw)
     magic, n = struct.unpack(">II", raw[:8])
     if magic != 2049:
         raise ValueError(f"bad IDX label magic {magic} in {path}")

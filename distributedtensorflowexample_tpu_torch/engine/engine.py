@@ -31,6 +31,15 @@ on N ranks they agree on the stop through an all-gather every
 ``SIGTERM at step N: checkpoint saved, restart auto-resumes; exiting
 143`` and raises ``SystemExit(143)``.
 
+``--device_data off`` feeds the step from the host instead
+(``data/pipeline.py``: the ``Batcher``'s shuffled rows, this rank's part
+of each global batch, uploaded by a ``DevicePrefetcher``; the JAX
+Engine's refusals with it: token data, ``--data_sharding sharded``,
+``--dequant_impl pallas`` and ``--steps_per_loop > 1``), and evaluates
+with the host-fed ``parallel/sync.evaluate``.  ``--data_sharding
+sharded`` keeps only this rank's block of the split resident
+(``data/device_dataset.py``).
+
 ``--sync_mode async`` (config 2) runs local SGD with one worker per rank
 (``parallel/async_ps.py``): its checkpoint holds every rank's own part,
 and its eval runs on the workers' average (parameters and batch-norm
@@ -52,34 +61,43 @@ manifest), and a resume restores the newest quorum-valid set first,
 written at any mesh width (``ShardStore.restore_elastic``), ahead of the
 checkpoints.  The flight recorder (``OBS_FLIGHT``), the run ledger
 (``OBS_LEDGER``) and the live scrape (``OBS_HTTP_PORT``) arm as in the JAX
-Engine.
+Engine; every run also arms ``AnomalyHook`` after ``MetricsHook``
+(``health.json`` under ``OBS_HEALTH``), writes a tfevents file beside
+``scalars.jsonl`` when ``--log_dir`` is set, and with ``--profile_dir``
+traces a window of steps (``utils/profiling.ProfilerHook``).
 
 The workloads: config 1 (``softmax`` on ``mnist``), config 3
 (``mnist_cnn`` on ``mnist``), configs 4 and 5 (``resnet20`` on
 ``cifar10``, with the on-device crop and flip: ``RunSpec.augment``) and
 the transformer LM (``lm_tiny``, ``lm_small``, ``lm_base`` on the ``lm``
-token split).
+token split); ``RunSpec.model_fn`` and ``input_fn`` declare any other
+(``trainers/trainer_tiny_mlp.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import math
 import os
 import zlib
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.distributed as dist
 
 from distributedtensorflowexample_tpu_torch import cluster
 from distributedtensorflowexample_tpu_torch.config import RunConfig
+from distributedtensorflowexample_tpu_torch.data.cifar10 import (
+    augment as cifar_augment)
 from distributedtensorflowexample_tpu_torch.data.cifar10 import load_cifar10
 from distributedtensorflowexample_tpu_torch.data.device_dataset import (
     DEQUANT_IMPLS, DeviceDataset)
 from distributedtensorflowexample_tpu_torch.data.lm import load_lm
 from distributedtensorflowexample_tpu_torch.data.mnist import load_mnist
+from distributedtensorflowexample_tpu_torch.data.pipeline import (
+    Batcher, DevicePrefetcher)
 from distributedtensorflowexample_tpu_torch.engine.spec import (
     ModeDecl, collective_budget, resolve_contract, resolve_mode,
     shards_tree_update)
@@ -91,13 +109,15 @@ from distributedtensorflowexample_tpu_torch.ops.kernels import launch_counts
 from distributedtensorflowexample_tpu_torch.ops.kernels import build as kbuild
 from distributedtensorflowexample_tpu_torch.parallel.launch import spawn
 from distributedtensorflowexample_tpu_torch.parallel.async_ps import (
-    consolidated, make_indexed_async_train_step)
+    consolidated, make_async_train_step, make_indexed_async_train_step)
 from distributedtensorflowexample_tpu_torch.parallel.bucketing import (
     BucketPlan, resolve_bucket_bytes)
 from distributedtensorflowexample_tpu_torch.parallel.mesh import (
     ONE_RANK, Mesh, local_world_size, make_mesh)
 from distributedtensorflowexample_tpu_torch.parallel.sync import (
-    make_indexed_train_step, make_resident_eval)
+    make_indexed_train_step, make_resident_eval, make_train_step)
+from distributedtensorflowexample_tpu_torch.parallel.sync import (
+    evaluate as host_evaluate)
 from distributedtensorflowexample_tpu_torch.parallel.zero3 import (
     Zero3Layout, materialized)
 from distributedtensorflowexample_tpu_torch.refusal import ModeRefusal
@@ -106,7 +126,7 @@ from distributedtensorflowexample_tpu_torch.resilience.shardstore import (
 from distributedtensorflowexample_tpu_torch.training.checkpoint import (
     CheckpointManager)
 from distributedtensorflowexample_tpu_torch.training.hooks import (
-    CheckpointHook, EvalHook, HeartbeatHook, MetricsHook)
+    AnomalyHook, CheckpointHook, EvalHook, HeartbeatHook, MetricsHook)
 from distributedtensorflowexample_tpu_torch.training.loop import TrainLoop
 from distributedtensorflowexample_tpu_torch.training.metrics import (
     MetricsLogger)
@@ -132,15 +152,20 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 @dataclasses.dataclass
 class RunSpec:
     """What to run: the workload's model and dataset names plus the
-    parsed flags (the slice of the JAX package's ``engine/spec.py``
-    RunSpec that the ported workloads use).  The ``lm`` dataset is an
-    integer token split; every other one holds images.  ``augment``: the
-    CIFAR random crop and flip in the train step."""
+    parsed flags (the JAX package's ``engine/spec.py`` RunSpec).  The
+    ``lm`` dataset is an integer token split; every other one holds
+    images.  ``augment``: the CIFAR random crop and flip in the train step.
+    ``model_fn(cfg) -> nn.Module`` replaces the models registry (the
+    module has the port models' ``reset_parameters(generator)`` and
+    ``forward(x, train, generator)``), and ``input_fn(cfg, split) -> (x,
+    y)`` the dataset loader."""
 
     model: str
     dataset: str
     config: RunConfig
     augment: bool = False
+    model_fn: Optional[Callable] = None
+    input_fn: Optional[Callable] = None
 
 
 def auto_steps_per_loop(remaining: int, steps_per_epoch: int,
@@ -202,9 +227,17 @@ def _resolve_flags(cfg: RunConfig, num_replicas: int,
         raise ValueError(f"unknown sync_mode {cfg.sync_mode!r}")
     if cfg.data_sharding not in ("replicated", "sharded"):
         raise ValueError(f"unknown data_sharding {cfg.data_sharding!r}")
+    if cfg.data_sharding == "sharded" and cfg.device_data == "off":
+        raise ModeRefusal("--data_sharding sharded requires the "
+                          "device-resident input path (device_data)")
     if cfg.dequant_impl not in DEQUANT_IMPLS:
         raise ValueError(f"unknown dequant_impl {cfg.dequant_impl!r} "
                          f"(one of {DEQUANT_IMPLS})")
+    if cfg.dequant_impl == "pallas" and (cfg.device_data == "off"
+                                         or cfg.data_sharding == "sharded"):
+        raise ModeRefusal("--dequant_impl pallas fuses the on-device "
+                          "row gather with the dequant; it requires the "
+                          "replicated device-resident input path")
     if cfg.shard_update and cfg.sync_mode == "async":
         raise ModeRefusal(
             "--shard_update shards ONE replicated update across the "
@@ -248,10 +281,11 @@ def _refuse_for_mode(cfg: RunConfig, model: str, bucket_bytes,
             f"all-reduce for BatchNorm models")
 
 
-def _refuse_unported(cfg: RunConfig, info: cluster.ClusterInfo,
-                     model: str = "") -> None:
-    """Named refusals for every mode the port does not run yet, checked
-    before any data is loaded or any rank is started."""
+def _refuse_unported(cfg: RunConfig, info: cluster.ClusterInfo) -> None:
+    """Named refusals checked before any data is loaded or any rank is
+    started: a bad dtype, knobs of the other sync mode, checkpoints with
+    no ``--log_dir``, and the layout the port does not run yet (N
+    processes of M local devices)."""
     if cfg.dtype not in _DTYPES:
         raise ValueError(f"unknown dtype {cfg.dtype!r} (one of "
                          f"{tuple(_DTYPES)})")
@@ -264,22 +298,6 @@ def _refuse_unported(cfg: RunConfig, info: cluster.ClusterInfo,
         raise ModeRefusal(
             "--checkpoint_every > 0 writes checkpoints under --log_dir, "
             "which is empty; pass a --log_dir (or --checkpoint_every 0)")
-    not_yet = [
-        (cfg.data_sharding == "sharded", "--data_sharding sharded"),
-        (cfg.device_data == "off", "--device_data off (the host-fed "
-         "Batcher path)"),
-        (bool(cfg.profile_dir), "--profile_dir (the profiler hook)"),
-        # torch.utils.checkpoint would run each block's forward twice and
-        # so update its batch-norm running statistics twice.
-        (cfg.remat == "block" and model == "resnet20", "--remat block "
-         "for resnet20 (recomputing a block would update its batch-norm "
-         "running statistics a second time)"),
-    ]
-    for hit, what in not_yet:
-        if hit:
-            raise ModeRefusal(f"{what} is not ported to the PyTorch package "
-                              f"yet; this slice runs every replication "
-                              f"mode, one rank per process")
     processes = (info.num_processes if info.is_distributed else
                  dist.get_world_size() if dist.is_initialized() else 0)
     if processes and cfg.num_devices not in (0, processes):
@@ -412,6 +430,13 @@ def _global_batch(cfg: RunConfig, replicas: int) -> int:
     return batch
 
 
+def eval_batch_size(global_batch: int, ranks: int) -> int:
+    """The JAX Engine's eval batch: the global batch, or the largest
+    multiple of the rank count up to 1000 if that is larger, so that it
+    divides across the ranks at any rank count."""
+    return max(global_batch, (1000 // ranks) * ranks or ranks)
+
+
 # Fields a process may legitimately set on its own (the JAX Engine's set):
 # cluster identity and local data / profile paths.
 _PER_PROCESS = frozenset({"job_name", "task_index", "process_id", "ps_hosts",
@@ -499,12 +524,13 @@ def _run_local_ranks(spec: "RunSpec", ranks: int) -> dict:
 
 @dataclasses.dataclass
 class EngineBuild:
-    """What :meth:`Engine.build` hands a caller: the state, the resident
-    dataset, the indexed train step over it, the resolved mode and the
-    bucket plan the step runs on."""
+    """What :meth:`Engine.build` (or :meth:`Engine.build_host_fed`) hands
+    a caller: the state, the batches (the resident dataset, or the
+    host-fed prefetcher), the train step over them, the resolved mode and
+    the bucket plan the step runs on."""
 
     state: TrainState
-    ds: DeviceDataset
+    ds: DeviceDataset | DevicePrefetcher
     step: Callable
     unroll: int
     mode: str = "sync_dp"
@@ -542,9 +568,11 @@ class Engine:
             hooks.append("ShardSnapshotHook")
         if cfg.eval_every > 0:
             hooks.append("EvalHook")
+        if cfg.profile_dir:
+            hooks.append("ProfilerHook")
         if os.environ.get("SUPERVISE_HEARTBEAT", ""):
             hooks.append("HeartbeatHook")
-        hooks.append("MetricsHook")
+        hooks += ["MetricsHook", "AnomalyHook"]
         return {"entrypoint": f"trainer:{self.spec.model}",
                 "mode": mode.name,
                 "update_layout": mode.update_layout,
@@ -562,10 +590,13 @@ class Engine:
         batch-norm model normalizes over this worker's rows alone (built
         over ``ONE_RANK``)."""
         cfg = self.spec.config
-        model = build_model(self.spec.model, dropout=cfg.dropout,
-                            dtype=_DTYPES[cfg.dtype], remat=cfg.remat,
-                            mesh=ONE_RANK if cfg.sync_mode == "async"
-                            else mesh)
+        if self.spec.model_fn is not None:
+            model = self.spec.model_fn(cfg)
+        else:
+            model = build_model(self.spec.model, dropout=cfg.dropout,
+                                dtype=_DTYPES[cfg.dtype], remat=cfg.remat,
+                                mesh=ONE_RANK if cfg.sync_mode == "async"
+                                else mesh)
         return TrainState.create(model, lambda m: build_optimizer(cfg, m),
                                   cfg.seed, mesh.device, mesh=mesh)
 
@@ -581,6 +612,22 @@ class Engine:
             update_layout=mode.update_layout, bucket_bytes=bucket_bytes,
             mesh=mesh, shard_update=shards_tree_update(cfg, mesh.size))
 
+    def _setup(self, mesh: Mesh, data, state: TrainState | None,
+               zero3_layout: Zero3Layout | None) -> tuple:
+        """What :meth:`build` and :meth:`build_host_fed` share: the global
+        batch, the resolved flags and their refusals, the train split,
+        the laid-out state and the bucket plan."""
+        cfg = self.spec.config
+        global_batch = _global_batch(cfg, mesh.size)
+        bucket_bytes, mode = _resolve_flags(cfg, mesh.size, self.token_data)
+        _refuse_for_mode(cfg, self.spec.model, bucket_bytes, mesh.size)
+        train = data if data is not None else self.input("train")
+        if state is None:
+            state, zero3_layout = self.laid_out_state(mesh)
+        plan = _step_plan(state, mode, bucket_bytes, mesh)
+        return (global_batch, bucket_bytes, mode, train, state, zero3_layout,
+                plan)
+
     def build(self, mesh: Mesh, unroll: int = 1, data=None,
               perm_fn=None, draws_fn=None,
               state: TrainState | None = None,
@@ -594,26 +641,22 @@ class Engine:
         ``draws_fn`` the augment draws
         (``parallel/sync.make_device_gather``)."""
         cfg = self.spec.config
-        global_batch = _global_batch(cfg, mesh.size)
-        bucket_bytes, mode = _resolve_flags(cfg, mesh.size, self.token_data)
-        _refuse_for_mode(cfg, self.spec.model, bucket_bytes, mesh.size)
-        x, y = (data if data is not None else
-                _load_dataset(cfg, self.spec.dataset, "train"))
-        if state is None:
-            state, zero3_layout = self.laid_out_state(mesh)
-        plan = _step_plan(state, mode, bucket_bytes, mesh)
+        global_batch, bucket_bytes, mode, (x, y), state, zero3_layout, \
+            plan = self._setup(mesh, data, state, zero3_layout)
         ds = DeviceDataset(x, y, global_batch, device=mesh.device,
                            seed=cfg.seed, start_step=state.step,
                            steps_per_next=unroll, quantize=cfg.quantize,
                            dequant_impl=cfg.dequant_impl, perm_fn=perm_fn,
-                           token_data=self.token_data)
+                           token_data=self.token_data,
+                           data_sharding=cfg.data_sharding, mesh=mesh)
         common = dict(label_smoothing=cfg.label_smoothing,
                       ce_impl="pallas" if cfg.pallas_ce else "xla",
                       unroll_steps=unroll, num_slots=ds.num_slots,
                       dequant_impl=cfg.dequant_impl,
                       token_data=self.token_data,
                       augment="cifar" if self.spec.augment else "none",
-                      seed=cfg.seed, draws_fn=draws_fn, mesh=mesh)
+                      seed=cfg.seed, draws_fn=draws_fn, mesh=mesh,
+                      data_sharding=cfg.data_sharding)
         if cfg.sync_mode == "async":
             step = make_indexed_async_train_step(
                 cfg.async_period, global_batch, ds.steps_per_epoch,
@@ -628,6 +671,49 @@ class Engine:
                            mode=mode.name, bucket_bytes=bucket_bytes,
                            plan=plan, zero3_layout=zero3_layout)
 
+    def build_host_fed(self, mesh: Mesh, data=None,
+                       state: TrainState | None = None,
+                       zero3_layout: Zero3Layout | None = None,
+                       depth: int = 2) -> EngineBuild:
+        """The ``--device_data off`` counterpart of :meth:`build`: the
+        ``Batcher`` over the train split (the JAX Engine's: seeded by
+        ``--seed`` and built afresh, so a resumed run replays the tape
+        from its start, as in JAX), this rank's rows of each global batch
+        uploaded ``depth`` ahead by a ``DevicePrefetcher``, and the
+        host-fed step, which dequantizes them (one step a call)."""
+        cfg = self.spec.config
+        global_batch, bucket_bytes, mode, (x, y), state, zero3_layout, \
+            plan = self._setup(mesh, data, state, zero3_layout)
+        batcher = Batcher(x, y, global_batch, seed=cfg.seed,
+                          process_index=mesh.rank, process_count=mesh.size,
+                          augment_fn=cifar_augment if self.spec.augment
+                          else None, quantize=cfg.quantize)
+        common = dict(ce_impl="pallas" if cfg.pallas_ce else "xla",
+                      dequant=batcher.dequant,
+                      dequant_impl=cfg.dequant_impl, quantize=cfg.quantize,
+                      mesh=mesh, plan=plan)
+        if cfg.sync_mode == "async":
+            step = make_async_train_step(cfg.async_period,
+                                         cfg.label_smoothing, **common)
+        else:
+            step = make_train_step(
+                cfg.label_smoothing,
+                replicas_to_aggregate=cfg.replicas_to_aggregate,
+                mode=mode.name, zero3_layout=zero3_layout,
+                zero3_overlap=cfg.zero3_overlap, **common)
+        return EngineBuild(state=state,
+                           ds=DevicePrefetcher(batcher, mesh.device, depth),
+                           step=step, unroll=1, mode=mode.name,
+                           bucket_bytes=bucket_bytes, plan=plan,
+                           zero3_layout=zero3_layout)
+
+    def input(self, split: str):
+        """The ``(images, labels)`` of ``split``: ``RunSpec.input_fn``,
+        or the dataset family's loader."""
+        if self.spec.input_fn is not None:
+            return self.spec.input_fn(self.spec.config, split)
+        return _load_dataset(self.spec.config, self.spec.dataset, split)
+
     def run(self) -> dict:
         """Train per the spec; returns a summary dict."""
         spec = self.spec
@@ -636,7 +722,7 @@ class Engine:
         if info.role == "ps":
             print(cluster.PS_NOTICE, flush=True)
             return {"role": "ps", "exited": True}
-        _refuse_unported(cfg, info, spec.model)
+        _refuse_unported(cfg, info)
         ranks = _expected_ranks(cfg, info)
         bucket_bytes, mode = _resolve_flags(cfg, ranks, self.token_data)
         update_layout = mode.update_layout
@@ -654,8 +740,9 @@ class Engine:
         global_batch = _global_batch(cfg, num_replicas)
         is_async = cfg.sync_mode == "async"
 
-        train_x, train_y = _load_dataset(cfg, spec.dataset, "train")
-        test_x, test_y = _load_dataset(cfg, spec.dataset, "test")
+        train_x, train_y = self.input("train")
+        test_x, test_y = self.input("test")
+        use_device_data = cfg.device_data != "off"
 
         # Laid out before any restore, which fills the layout's tensors.
         # With SNAPSHOT_DIR a row layout also writes shard-redundant
@@ -715,7 +802,12 @@ class Engine:
                           flush=True)
 
         remaining = cfg.train_steps - state.step
-        if cfg.steps_per_loop == 0:
+        if not use_device_data:
+            if cfg.steps_per_loop > 1:
+                raise ModeRefusal("--steps_per_loop > 1 requires the "
+                                  "device-resident input path (device_data)")
+            steps_per_call = 1
+        elif cfg.steps_per_loop == 0:
             steps_per_call = (auto_steps_per_loop(
                 remaining, len(train_x) // global_batch,
                 intervals=(cfg.log_every, cfg.eval_every,
@@ -734,9 +826,14 @@ class Engine:
                     f"{cfg.train_steps} - resumed step {state.step}) must be "
                     f"a multiple of --steps_per_loop {steps_per_call}")
         # Built after the restore: the epoch slots follow the restored step.
-        built = self.build(mesh, unroll=steps_per_call,
-                           data=(train_x, train_y), state=state,
-                           zero3_layout=zero3_layout)
+        if use_device_data:
+            built = self.build(mesh, unroll=steps_per_call,
+                               data=(train_x, train_y), state=state,
+                               zero3_layout=zero3_layout)
+        else:
+            built = self.build_host_fed(mesh, data=(train_x, train_y),
+                                        state=state,
+                                        zero3_layout=zero3_layout)
 
         logger = MetricsLogger(cfg.log_dir, num_chips=mesh.num_chips,
                                log_every=cfg.log_every, device=device,
@@ -751,14 +848,16 @@ class Engine:
                 shard_store, mesh, every=max(1, cfg.checkpoint_every),
                 cursor={"seed": cfg.seed})
             hooks.append(shard_hook)
-        # The JAX Engine's eval batch: one that does not divide across the
-        # ranks raises in make_resident_eval.
-        eval_batch = max(global_batch, 1000)
-        evaluate = make_resident_eval(test_x, test_y, device,
-                                      batch_size=eval_batch,
-                                      quantize=cfg.quantize,
-                                      dequant_impl=cfg.dequant_impl,
-                                      token_data=self.token_data, mesh=mesh)
+        eval_batch = eval_batch_size(global_batch, num_replicas)
+        if use_device_data:
+            evaluate = make_resident_eval(
+                test_x, test_y, device, batch_size=eval_batch,
+                quantize=cfg.quantize, dequant_impl=cfg.dequant_impl,
+                token_data=self.token_data, mesh=mesh)
+        else:
+            evaluate = functools.partial(
+                host_evaluate, images=test_x, labels=test_y,
+                batch_size=eval_batch, device=device, mesh=mesh)
 
         def eval_fn(s) -> float:
             if is_async:
@@ -771,12 +870,27 @@ class Engine:
 
         if cfg.eval_every > 0:
             hooks.append(EvalHook(eval_fn, cfg.eval_every, logger))
+        profiler = None
+        if cfg.profile_dir:
+            # Imported here: utils/profiling imports this module.
+            from distributedtensorflowexample_tpu_torch.utils.profiling \
+                import ProfilerHook
+            profiler = ProfilerHook(cfg.profile_dir, cfg.profile_start_step,
+                                    cfg.profile_num_steps, rank=mesh.rank,
+                                    device=device)
+            hooks.append(profiler)
         heartbeat = os.environ.get("SUPERVISE_HEARTBEAT", "")
         if heartbeat:
             hooks.append(HeartbeatHook(heartbeat,
                                        every=_CONSENSUS_POLL_STEPS))
         metrics_hook = MetricsHook(every=cfg.log_every)
         hooks.append(metrics_hook)
+        # Always on, after MetricsHook (whose loss gauge it reads):
+        # detection only, never a stop.
+        anomaly_hook = AnomalyHook(every=cfg.log_every,
+                                   health_path=os.environ.get("OBS_HEALTH",
+                                                              ""))
+        hooks.append(anomaly_hook)
         # Telemetry (obs/): the flight recorder arms under a supervisor or
         # OBS_FLIGHT=1, the run ledger under OBS_LEDGER, the live scrape
         # under OBS_HTTP_PORT; ranks of a group stamp OBS_RANK so their
@@ -872,6 +986,13 @@ class Engine:
                 "collective_budget": collective_budget(
                     cfg, num_replicas,
                     None if built.plan is None else built.plan.num_buckets),
+                "input": "device" if use_device_data else "host",
+                "resident_rows": (built.ds.images.shape[0]
+                                  if use_device_data else None),
+                "h2d_bytes_per_step": (None if use_device_data
+                                       else built.ds.bytes_per_batch),
+                "anomalies": anomaly_hook.health.anomalies,
+                "profile_trace": None if profiler is None else profiler.path,
                 "params_digest": _params_digest(state, mesh),
                 "stats_digest": _stats_digest(state),
                 "checkpoint": None if manager is None else manager.stats,

@@ -29,7 +29,8 @@ _REGISTRY = {
     # ``mesh``: the group whose global batch batch norm normalizes over.
     "resnet20": lambda **kw: ResNet20(num_classes=10,
                                       dtype=kw.get("dtype", torch.bfloat16),
-                                      mesh=kw.get("mesh", ONE_RANK)),
+                                      mesh=kw.get("mesh", ONE_RANK),
+                                      remat=kw.get("remat", "none")),
     **{size: _lm_entry(size) for size in LM_SIZES},
 }
 

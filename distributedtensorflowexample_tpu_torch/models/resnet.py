@@ -26,6 +26,19 @@ reference's roundings kept where they differ from PyTorch's defaults:
   ``dtype``; the head is a ``dtype`` dense layer whose logits return as
   float32.
 
+``remat="block"`` checkpoints each residual block
+(``torch.utils.checkpoint``, non-reentrant): the backward recomputes a
+block's forward instead of keeping its activations, as flax's
+``nn.remat(BasicBlock)`` does.  The recompute must not replay the
+block's side effects: it reuses the batch statistics of the first
+forward (:class:`_StatsTape`; so under sync batch norm it issues no
+second all-reduce) and leaves the running buffers alone, which the first
+forward updated once.  The non-reentrant checkpoint backpropagates
+through the first forward's graph, so the gradient and its all-reduces
+are those of ``remat="none"``.  ResNet-20 draws no random numbers in its
+forward (no dropout), so the recompute needs no generator state, and
+none is saved (the checkpoint would restore only the global one).
+
 Layout: the public input is NHWC ``[B, 32, 32, 3]``; the forward permutes
 it to an NCHW view with channels-last strides, so cuDNN runs NHWC
 convolutions on the card.  Weights are OIHW (``convert.py`` moves flax's
@@ -39,6 +52,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from distributedtensorflowexample_tpu_torch.models.initializers import (
     lecun_normal_)
@@ -66,6 +80,42 @@ class GlobalMean(torch.autograd.Function):
         mesh = ctx.mesh
         return mesh.all_reduce(grad.contiguous().clone()).div_(mesh.size), \
             None
+
+
+class _Replayed(GlobalMean):
+    """The recompute's batch statistics: the first forward's global
+    values, returned without a collective; the gradient is GlobalMean's
+    (the non-reentrant checkpoint backpropagates through the first
+    forward's graph, so it is not reached there)."""
+
+    @staticmethod
+    def forward(ctx, local: torch.Tensor, first: torch.Tensor,
+                mesh: Mesh) -> torch.Tensor:
+        ctx.mesh = mesh
+        return first.clone()
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return GlobalMean.backward(ctx, grad)[0], None, None
+
+
+class _StatsTape:
+    """One checkpointed block call's batch statistics: each batch-norm
+    layer appends its global ``[mean, mean(x^2)]`` in the first forward,
+    and reads them back, in order, in the recompute."""
+
+    def __init__(self):
+        self.stats: list[torch.Tensor] = []
+        self.replaying = False
+        self._pos = 0
+
+    def replay(self) -> None:
+        self.replaying = True
+        self._pos = 0
+
+    def next(self) -> torch.Tensor:
+        self._pos += 1
+        return self.stats[self._pos - 1]
 
 
 def same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
@@ -110,20 +160,31 @@ class BatchNorm(nn.Module):
         self.var.fill_(1.0)
 
     def forward(self, x: torch.Tensor, train: bool,
-                mesh: Mesh = ONE_RANK) -> torch.Tensor:
+                mesh: Mesh = ONE_RANK,
+                tape: _StatsTape | None = None) -> torch.Tensor:
+        """``tape``: the checkpointed block's statistics; in its recompute
+        the first forward's statistics are reused and the buffers are not
+        updated again (the recompute runs the same operations, which the
+        checkpoint matches saved tensor by saved tensor)."""
         xf = x.float()
         if train:
             stats = torch.stack([xf.mean(dim=(0, 2, 3)),
                                  (xf * xf).mean(dim=(0, 2, 3))])
-            if mesh.size > 1:
+            replay = tape is not None and tape.replaying
+            if replay:
+                stats = _Replayed.apply(stats, tape.next(), mesh)
+            elif mesh.size > 1:
                 stats = GlobalMean.apply(stats, mesh)
             mean, mean2 = stats.unbind(0)
             var = (mean2 - mean * mean).clamp_min(0.0)
-            with torch.no_grad():
-                self.mean.copy_(BN_MOMENTUM * self.mean
-                                + (1 - BN_MOMENTUM) * mean)
-                self.var.copy_(BN_MOMENTUM * self.var
-                               + (1 - BN_MOMENTUM) * var)
+            if not replay:
+                if tape is not None:
+                    tape.stats.append(stats.detach())
+                with torch.no_grad():
+                    self.mean.copy_(BN_MOMENTUM * self.mean
+                                    + (1 - BN_MOMENTUM) * mean)
+                    self.var.copy_(BN_MOMENTUM * self.var
+                                   + (1 - BN_MOMENTUM) * var)
         else:
             mean, var = self.mean, self.var
         shape = (1, -1, 1, 1)
@@ -150,32 +211,55 @@ class BasicBlock(nn.Module):
             self.proj = nn.Conv2d(in_filters, filters, 1, bias=False)
             self.bn_proj = BatchNorm(filters, dtype)
 
-    def forward(self, x: torch.Tensor, train: bool,
-                mesh: Mesh) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool, mesh: Mesh,
+                tape: _StatsTape | None = None) -> torch.Tensor:
         dt = self.dtype
+        # The tape only under remat: without it, the batch-norm layers
+        # are called as they always were.
+        extra = () if tape is None else (tape,)
         y = conv_same(x, self.conv1.weight.to(dt), self.stride)
-        y = F.relu(self.bn1(y, train, mesh))
+        y = F.relu(self.bn1(y, train, mesh, *extra))
         y = conv_same(y, self.conv2.weight.to(dt), 1)
-        y = self.bn2(y, train, mesh)
+        y = self.bn2(y, train, mesh, *extra)
         residual = x
         if self.has_proj:
             residual = conv_same(x, self.proj.weight.to(dt), self.stride)
-            residual = self.bn_proj(residual, train, mesh)
+            residual = self.bn_proj(residual, train, mesh, *extra)
         return F.relu(y + residual)
+
+
+def _checkpointed_block(block: BasicBlock, x: torch.Tensor,
+                        mesh: Mesh) -> torch.Tensor:
+    """A training forward of ``block`` under ``torch.utils.checkpoint``;
+    its recompute replays the first forward's statistics (a tape per
+    call)."""
+    tape = _StatsTape()
+
+    def run(inp: torch.Tensor) -> torch.Tensor:
+        out = block(inp, True, mesh, tape)
+        tape.replay()                   # any later call is the recompute
+        return out
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
 
 
 class ResNetCIFAR(nn.Module):
     """He-style CIFAR ResNet of depth 6n+2, n = ``blocks_per_stage``.
     ``mesh`` is the data-parallel group whose global batch the
-    batch-norm statistics span (one rank by default)."""
+    batch-norm statistics span (one rank by default); ``remat``: ``none``
+    or ``block`` (each residual block checkpointed in training)."""
 
     def __init__(self, blocks_per_stage: int = 3,
                  widths: tuple[int, ...] = (16, 32, 64),
                  num_classes: int = 10, dtype: torch.dtype = torch.bfloat16,
-                 mesh: Mesh = ONE_RANK):
+                 mesh: Mesh = ONE_RANK, remat: str = "none"):
         super().__init__()
+        if remat not in ("none", "block"):
+            raise ValueError(f"unknown remat policy {remat!r} (one of "
+                             f"none, block)")
         self.dtype = dtype
         self.mesh = mesh
+        self.remat = remat
         self.conv_init = nn.Conv2d(3, widths[0], 3, bias=False)
         self.bn_init = BatchNorm(widths[0], dtype)
         self.block_names = []
@@ -210,14 +294,18 @@ class ResNetCIFAR(nn.Module):
         x = x.to(dt).permute(0, 3, 1, 2)            # NHWC -> NCHW view
         x = conv_same(x, self.conv_init.weight.to(dt), 1)
         x = F.relu(self.bn_init(x, train, mesh))
+        remat = (self.remat == "block" and train
+                 and torch.is_grad_enabled())
         for name in self.block_names:
-            x = getattr(self, name)(x, train, mesh)
+            block = getattr(self, name)
+            x = (_checkpointed_block(block, x, mesh) if remat
+                 else block(x, train, mesh))
         x = x.float().mean(dim=(2, 3)).to(dt)
         x = F.linear(x, self.logits.weight.to(dt), self.logits.bias.to(dt))
         return x.float()
 
 
 def ResNet20(num_classes: int = 10, dtype: torch.dtype = torch.bfloat16,
-             mesh: Mesh = ONE_RANK) -> ResNetCIFAR:
+             mesh: Mesh = ONE_RANK, remat: str = "none") -> ResNetCIFAR:
     return ResNetCIFAR(blocks_per_stage=3, num_classes=num_classes,
-                       dtype=dtype, mesh=mesh)
+                       dtype=dtype, mesh=mesh, remat=remat)

@@ -1,0 +1,380 @@
+"""Online anomaly detection: step-time regression, cross-rank skew,
+NaN / loss-plateau sentinels — and the ``health.json`` contract.
+
+(a copy of the JAX package's stdlib-only ``obs/anomaly.py``;
+``training/hooks.AnomalyHook`` feeds it on every run.)
+
+Until round 10 every telemetry surface was postmortem-only: flights and
+journals say what a dead run did, but nothing watched a LIVE run for
+the failure shapes that precede death — a step-time regression (thermal
+throttle, a neighbor stealing the box, a silently-degraded backend), a
+straggling rank stretching every collective rendezvous, a loss gone
+NaN or flat.  This module is the watching half: stdlib-only online
+detectors cheap enough to feed from the existing hook boundaries
+(training/hooks.AnomalyHook, resilience/fleet.py's monitor loop), with
+three surfaces per detection:
+
+- **counters/gauges** in the shared registry (``anomaly_flags_total``
+  by kind, ``anomaly_step_time_z``, ``fleet_step_skew_steps``);
+- a machine-readable **``health.json``** (atomic, canonical JSON) the
+  FleetSupervisor reads to annotate journal events — DETECTION ONLY,
+  restart logic is unchanged by design: a false positive must cost a
+  log line, never a teardown;
+- **recorder triggers**: the hook/fleet dump a flight on a NEW firing,
+  so the postmortem ring covers the steps AROUND the anomaly instead
+  of whatever the run happened to die on later.
+
+Detector design notes:
+
+- :class:`EwmaRegression` pins its baseline over the first ``warmup``
+  samples and never updates it — an EWMA-tracking baseline would
+  absorb a slow regression (the boiled-frog failure); a pinned one
+  keeps the z-score honest against the run's own healthy start.  The
+  baseline sigma is floored at ``min_sigma_frac * |mean|``: warmup
+  samples on a quiet box can be near-constant, and an unfloored sigma
+  would turn scheduler jitter into a fired flag.
+- :func:`detect_skew` separates **lag** (step-count distance behind the
+  front rank — the signal when ranks run independently) from
+  **straggler** (lag PLUS evidence the rank is actually slow: its own
+  step-time regression flag, or a step time far above the fleet
+  median).  Lag alone is not enough: a rank still compiling, or merely
+  sampled at an unlucky instant, lags without being slow, and flagging
+  it would name the wrong rank in the one artifact an operator trusts.
+- Thresholds default from env (``OBS_ANOMALY_*``) so a drill can
+  tighten warmup without new plumbing through every CLI.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+
+from distributedtensorflowexample_tpu_torch.obs import metrics as _metrics
+
+HEALTH_VERSION = 1
+
+# One counter family for every anomaly kind, fleet- and rank-side: a
+# scraper alerts on rate(anomaly_flags_total) without enumerating kinds.
+FLAGS_TOTAL = _metrics.counter(
+    "anomaly_flags_total", "anomaly detections, by kind (and rank when "
+    "flagged by the fleet)")
+STEP_TIME_Z = _metrics.gauge(
+    "anomaly_step_time_z",
+    "EWMA step-time z-score against the warmup-pinned baseline")
+
+
+def _env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, ""))
+    except ValueError:
+        return default
+
+
+def default_warmup() -> int:
+    return int(_env_float("OBS_ANOMALY_WARMUP", 16))
+
+
+def default_z_thresh() -> float:
+    return _env_float("OBS_ANOMALY_Z", 8.0)
+
+
+class EwmaRegression:
+    """Step-time regression: EWMA-smoothed samples scored against a
+    baseline PINNED over the first ``warmup`` samples (Welford mean/var,
+    then frozen).  ``observe`` returns True exactly once — on the sample
+    where the smoothed z-score first crosses ``z_thresh`` (the firing is
+    latched; ``firing`` stays True while the z-score remains over)."""
+
+    def __init__(self, warmup: int | None = None,
+                 alpha: float = 0.3,
+                 z_thresh: float | None = None,
+                 min_sigma_frac: float = 0.05,
+                 skip_first: int | None = None):
+        self.warmup = max(2, default_warmup() if warmup is None else warmup)
+        self.alpha = alpha
+        self.z_thresh = default_z_thresh() if z_thresh is None else z_thresh
+        self.min_sigma_frac = min_sigma_frac
+        # The first call boundary's window is compile-dominated (jit
+        # tracing + XLA compile: seconds against sub-ms steps — measured
+        # in the faultline smoke while building this); folding it into
+        # the baseline inflates mean AND sigma so far that no later
+        # regression can ever score.  Skipped samples feed nothing.
+        self.skip_first = (int(_env_float("OBS_ANOMALY_SKIP", 1))
+                           if skip_first is None else skip_first)
+        self.n = 0
+        self._mean = 0.0
+        self._m2 = 0.0
+        self.mu0: float | None = None      # pinned once n == warmup
+        self.sigma0: float | None = None
+        self.ewma: float | None = None
+        self.z = 0.0
+        self.fired_step: int | None = None
+        self.last: float | None = None
+
+    @property
+    def armed(self) -> bool:
+        return self.mu0 is not None
+
+    @property
+    def firing(self) -> bool:
+        return self.armed and self.z > self.z_thresh
+
+    def observe(self, x: float, step: int | None = None) -> bool:
+        """Feed one step-time sample (seconds/step); returns True on the
+        FIRST firing only."""
+        if self.skip_first > 0:
+            self.skip_first -= 1
+            return False
+        self.n += 1
+        self.last = x
+        self.ewma = x if self.ewma is None else (
+            self.ewma + self.alpha * (x - self.ewma))
+        if self.mu0 is None:
+            d = x - self._mean
+            self._mean += d / self.n
+            self._m2 += d * (x - self._mean)
+            if self.n >= self.warmup:
+                sigma = math.sqrt(self._m2 / max(1, self.n - 1))
+                self.mu0 = self._mean
+                self.sigma0 = max(sigma,
+                                  self.min_sigma_frac * abs(self._mean),
+                                  1e-9)
+            return False
+        self.z = (self.ewma - self.mu0) / self.sigma0
+        if self.z > self.z_thresh and self.fired_step is None:
+            self.fired_step = step if step is not None else self.n
+            return True
+        return False
+
+    def payload(self) -> dict:
+        r6 = lambda v: None if v is None else round(v, 6)
+        return {"n": self.n, "warmup": self.warmup,
+                "z_thresh": self.z_thresh,
+                "baseline_mean_s": r6(self.mu0),
+                "baseline_sigma_s": r6(self.sigma0),
+                "ewma_s": r6(self.ewma), "last_s": r6(self.last),
+                "z": round(self.z, 3),
+                "firing": self.firing, "fired_step": self.fired_step}
+
+
+class PlateauSentinel:
+    """Loss plateau: fires when the best (lowest) loss seen in the last
+    ``window`` samples fails to improve on the best BEFORE the window by
+    at least ``min_delta``.  Windowed (not whole-history) so a run that
+    improves, plateaus, then improves again re-arms."""
+
+    def __init__(self, window: int = 100, min_delta: float = 1e-4):
+        self.window = max(2, window)
+        self.min_delta = min_delta
+        self._tail: list = []           # last `window` losses
+        self._best_before: float | None = None
+        self.fired_step: int | None = None
+        self.firing = False
+
+    def observe(self, loss: float, step: int | None = None) -> bool:
+        if not math.isfinite(loss):
+            return False                # the NaN sentinel's job, not ours
+        self._tail.append(loss)
+        if len(self._tail) <= self.window:
+            return False
+        evicted = self._tail.pop(0)
+        self._best_before = (evicted if self._best_before is None
+                             else min(self._best_before, evicted))
+        was_firing = self.firing
+        self.firing = (min(self._tail)
+                       > self._best_before - self.min_delta)
+        # Rising-edge fire: each distinct plateau (firing False -> True)
+        # fires once — improve-plateau-improve really re-arms, as the
+        # windowed design promises.  fired_step keeps the FIRST plateau.
+        if self.firing and not was_firing:
+            if self.fired_step is None:
+                self.fired_step = step
+            return True
+        return False
+
+    def payload(self) -> dict:
+        return {"window": self.window, "min_delta": self.min_delta,
+                "firing": self.firing, "fired_step": self.fired_step,
+                "best_before_window": (
+                    None if self._best_before is None
+                    else round(self._best_before, 6))}
+
+
+class RunHealth:
+    """One process's online health: step-time regression + NaN/plateau
+    sentinels, serialized as the per-rank ``health.json`` the fleet
+    reads.  ``observe_window``/``observe_loss`` return the list of kinds
+    that NEWLY fired (the caller's cue to bump counters, emit a trace
+    event, and dump a flight)."""
+
+    def __init__(self, rank: int | None = None,
+                 step_time: EwmaRegression | None = None,
+                 plateau: PlateauSentinel | None = None):
+        if rank is None:
+            r = os.environ.get("OBS_RANK", "")
+            rank = int(r) if r.lstrip("-").isdigit() else None
+        self.rank = rank
+        self.step_time = step_time or EwmaRegression()
+        self.plateau = plateau or PlateauSentinel()
+        self.nan_step: int | None = None
+        self.step = 0
+        self.anomalies = 0
+
+    def observe_window(self, step: int, advanced: int,
+                       window_s: float) -> list[str]:
+        """Feed one call-boundary window (``advanced`` steps in
+        ``window_s`` wall seconds) — the hot-path half: float math only,
+        no IO."""
+        self.step = step
+        fired = []
+        if advanced > 0 and self.step_time.observe(window_s / advanced,
+                                                   step=step):
+            fired.append("step_time_regression")
+        self.anomalies += len(fired)
+        return fired
+
+    def observe_loss(self, step: int, loss: float) -> list[str]:
+        """Feed one sampled loss (log-boundary cadence)."""
+        fired = []
+        if not math.isfinite(loss):
+            if self.nan_step is None:
+                self.nan_step = step
+                fired.append("nan_loss")
+        elif self.plateau.observe(loss, step=step):
+            fired.append("loss_plateau")
+        self.anomalies += len(fired)
+        return fired
+
+    @property
+    def flags(self) -> dict:
+        return {
+            "step_time_regression": {
+                "firing": self.step_time.firing,
+                "fired_step": self.step_time.fired_step,
+                "z": round(self.step_time.z, 3)},
+            "nan_loss": {"firing": self.nan_step is not None,
+                         "fired_step": self.nan_step},
+            "loss_plateau": {"firing": self.plateau.firing,
+                             "fired_step": self.plateau.fired_step}}
+
+    def payload(self) -> dict:
+        return {"version": HEALTH_VERSION, "kind": "rank",
+                "rank": self.rank, "pid": os.getpid(),
+                "updated_unix": round(_metrics._wall(), 3),
+                "step": self.step,
+                "anomalies_total": self.anomalies,
+                "flags": self.flags,
+                "detectors": {"step_time": self.step_time.payload(),
+                              "plateau": self.plateau.payload()}}
+
+    def write(self, path: str) -> None:
+        write_health(path, self.payload())
+
+
+def write_health(path: str, payload: dict) -> None:
+    """Atomic canonical-JSON write; swallows OSError — health reporting
+    must never kill the run it reports on (same contract as the beat)."""
+    from distributedtensorflowexample_tpu_torch.obs.recorder import atomic_write
+    try:
+        atomic_write(path, json.dumps(
+            _metrics.json_safe(payload), sort_keys=True, indent=1,
+            allow_nan=False, default=str).encode() + b"\n")
+    except OSError:
+        pass
+
+
+def read_health(path: str) -> dict | None:
+    """Tolerant read: None for missing/torn/not-yet-written files (the
+    fleet polls these mid-write; atomic_write means torn should never
+    happen, but a reader must not crash the supervisor either way)."""
+    try:
+        with open(path) as f:
+            payload = json.load(f)
+    except (OSError, json.JSONDecodeError):
+        return None
+    return payload if isinstance(payload, dict) else None
+
+
+def detect_skew(ranks: dict, lag_steps: int = 3,
+                time_ratio: float = 4.0) -> dict:
+    """Cross-rank skew over per-rank health reports.
+
+    ``ranks``: rank -> {"step": int, "step_time_s": float|None (recent
+    EWMA), "regression_firing": bool, "hb_age_s": float|None}.  Needs at
+    least two reporting ranks (skew is a relation).
+
+    Returns ``{"max_step", "lag_steps": {rank: lag}, "laggards": [...],
+    "stragglers": [...], "why": {rank: reason}, "median_step_time_s"}``.
+    A **laggard** merely trails the front rank by >= ``lag_steps``; a
+    **straggler** is a laggard with evidence it is actually slow: its
+    own step-time regression flag, step time > ``time_ratio`` x the
+    other ranks' median, or a stalled heartbeat — the beat goes stale
+    exactly when a boundary stalls, so a wedged-but-alive rank is named
+    even when its last health report predates the stall.  ``hb_age_s``
+    must be passed ONLY when the caller judged the span meaningful
+    (FleetSupervisor._stale_beat_span gates it against the rank's OWN
+    observed beat cadence — raw age at a coarse beat cadence is noise,
+    not evidence); pass None otherwise.  See the module docstring for
+    why lag alone must not name a straggler."""
+    reporting = {r: d for r, d in ranks.items()
+                 if d.get("step") is not None}
+    out = {"max_step": None, "lag_steps": {}, "laggards": [],
+           "stragglers": [], "why": {}, "median_step_time_s": None}
+    if len(reporting) < 2:
+        return out
+    max_step = max(d["step"] for d in reporting.values())
+    out["max_step"] = max_step
+    times = sorted(d["step_time_s"] for d in reporting.values()
+                   if d.get("step_time_s"))
+    median = times[len(times) // 2] if times else None
+    out["median_step_time_s"] = (None if median is None
+                                 else round(median, 6))
+    for r, d in sorted(reporting.items()):
+        lag = max_step - d["step"]
+        out["lag_steps"][r] = lag
+        if lag < lag_steps:
+            continue
+        out["laggards"].append(r)
+        st = d.get("step_time_s")
+        # Median of the OTHER ranks: with 2 ranks the straggler's own
+        # time IS the median of all, which would mask itself.
+        others = sorted(v["step_time_s"] for k, v in reporting.items()
+                        if k != r and v.get("step_time_s"))
+        med_others = others[len(others) // 2] if others else None
+        slow_vs_fleet = (st is not None and med_others
+                         and st > time_ratio * med_others)
+        # The caller already vetted the span (hb_age_s is passed ONLY
+        # when stale vs the rank's own beat cadence) — re-gating it
+        # against a step-time scale would DROP the evidence whenever
+        # the peers' ewma is unavailable, naming no one.
+        age = d.get("hb_age_s")
+        stale_beat = age is not None and age > 0
+        if d.get("regression_firing"):
+            out["stragglers"].append(r)
+            out["why"][r] = (f"lag {lag} steps behind rank front "
+                             f"(step {d['step']} vs {max_step}) with its "
+                             f"own step-time regression firing")
+        elif slow_vs_fleet:
+            out["stragglers"].append(r)
+            out["why"][r] = (f"lag {lag} steps; step time {st:.4f}s > "
+                             f"{time_ratio:.0f}x fleet median "
+                             f"{med_others:.4f}s")
+        elif stale_beat:
+            out["stragglers"].append(r)
+            out["why"][r] = (f"lag {lag} steps; heartbeat stale for "
+                             f"{age:.1f}s against its own beat cadence")
+        else:
+            out["why"][r] = f"lagging {lag} steps (no slowness evidence)"
+    return out
+
+
+def spread_fraction(samples) -> float:
+    """(max - min) / max over positive samples — the bench family's
+    measurement-instability sentinel (a wide repeat spread marks the
+    window, and the record, as noisy before a ratchet compares it)."""
+    vals = [s for s in samples
+            if isinstance(s, (int, float)) and s > 0]
+    if len(vals) < 2:
+        return 0.0
+    return (max(vals) - min(vals)) / max(vals)

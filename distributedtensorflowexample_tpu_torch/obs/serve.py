@@ -1,7 +1,5 @@
 """Live telemetry over HTTP — scrape a RUNNING process, not its corpse
-(a copy of the JAX package's stdlib-only ``obs/serve.py``, with the
-Prometheus text of its ``obs/export.py`` and the tolerant health-file
-read of its ``obs/anomaly.py`` kept here: the port has neither module).
+(a copy of the JAX package's stdlib-only ``obs/serve.py``).
 
 Every obs surface before round 12 was file-shaped: flights land on
 death, the Prometheus textfile lands after a task, health.json lands at
@@ -11,8 +9,9 @@ operator with curl) asking a training process how it is doing RIGHT NOW.
 This module is that surface — an opt-in (``OBS_HTTP_PORT``) background
 ``http.server`` thread per process, read-only, loopback by default:
 
-- ``GET /metrics``  — the registry as Prometheus text
-  (:func:`prometheus_text`, the JAX package's ``obs/export.py`` dialect);
+- ``GET /metrics``  — the registry as Prometheus text (the same bytes
+  ``obs/export.py`` writes to the textfile collector, so the two
+  transports can never disagree on a value's spelling);
 - ``GET /health``   — the §16 ``health.json`` contract: the registered
   in-process source (``training/hooks.AnomalyHook`` registers its
   ``RunHealth.payload``) or, failing that, the ``OBS_HEALTH`` file;
@@ -50,70 +49,6 @@ from distributedtensorflowexample_tpu_torch.obs import metrics as _metrics
 _health_source = None
 
 
-def _fmt(value) -> str:
-    if isinstance(value, bool):
-        return str(int(value))
-    if isinstance(value, int):
-        return str(value)
-    return repr(float(value))
-
-
-def _series_with_label(key: str, extra: str) -> str:
-    """Append one label to a series key that may or may not already
-    carry a label set (``h{a="1"}`` + ``le="5"`` -> ``h{a="1",le="5"}``)."""
-    if key.endswith("}"):
-        return f'{key[:-1]},{extra}}}'
-    return f"{key}{{{extra}}}"
-
-
-def prometheus_text(registry: _metrics.MetricsRegistry | None = None) -> str:
-    """The registry in the Prometheus text exposition format, families
-    and series canonically sorted (the JAX package's
-    ``obs/export.prometheus_text``)."""
-    reg = registry or _metrics.registry()
-    lines: list[str] = []
-    for fam in reg.families():
-        if fam.help:
-            lines.append(f"# HELP {fam.name} {fam.help}")
-        lines.append(f"# TYPE {fam.name} {fam.kind}")
-        for key, child in fam.series():
-            if fam.kind == "histogram":
-                # One copy of the counts backs every derived line: a
-                # concurrent observe must not break the +Inf >= finite
-                # bucket monotonicity Prometheus requires.
-                counts = list(child.counts)
-                total = sum(counts)
-                cum = 0
-                base, labels = key, ""
-                if key.endswith("}"):
-                    base = key[:key.index("{")]
-                    labels = key[key.index("{"):]
-                for bound, n in zip(child.bounds, counts):
-                    cum += n
-                    lines.append(_series_with_label(
-                        f"{base}_bucket{labels}", f'le="{bound}"')
-                        + f" {cum}")
-                lines.append(_series_with_label(
-                    f"{base}_bucket{labels}", 'le="+Inf"')
-                    + f" {total}")
-                lines.append(f"{base}_sum{labels} {_fmt(child.sum)}")
-                lines.append(f"{base}_count{labels} {total}")
-            else:
-                lines.append(f"{key} {_fmt(child.value)}")
-    return "\n".join(lines) + "\n"
-
-
-def read_health(path: str) -> dict | None:
-    """Tolerant read of a ``health.json``: None for a missing, torn or
-    not-yet-written file (the JAX package's ``obs/anomaly.read_health``)."""
-    try:
-        with open(path) as f:
-            payload = json.load(f)
-    except (OSError, json.JSONDecodeError):
-        return None
-    return payload if isinstance(payload, dict) else None
-
-
 def set_health_source(fn) -> None:
     """Register ``fn() -> dict`` as this process's live health payload
     (last registration wins — one AnomalyHook per run by construction)."""
@@ -144,7 +79,9 @@ class _Handler(BaseHTTPRequestHandler):
         try:
             url = urlparse(self.path)
             if url.path == "/metrics":
-                self._send(200, prometheus_text().encode(),
+                from distributedtensorflowexample_tpu_torch.obs import (
+                    export as _export)
+                self._send(200, _export.prometheus_text().encode(),
                            ctype="text/plain; version=0.0.4")
             elif url.path == "/health":
                 self._health()
@@ -172,7 +109,9 @@ class _Handler(BaseHTTPRequestHandler):
         # still have a health file some other writer maintains.
         path = os.environ.get("OBS_HEALTH", "")
         if path:
-            payload = read_health(path)
+            from distributedtensorflowexample_tpu_torch.obs import (
+                anomaly as _anomaly)
+            payload = _anomaly.read_health(path)
             if payload is not None:
                 self._send_json(200, payload)
                 return

@@ -14,7 +14,8 @@ worker, as one device is in JAX, so W is the mesh size:
   (zero) and the dropout generator are the rank's own;
 * each rank gathers its ``G/W`` rows of the global batch
   (``parallel/sync.make_device_gather``: the dequant kernel under
-  ``--dequant_impl pallas``), differentiates the plain mean loss over
+  ``--dequant_impl pallas``; host-fed, :func:`make_async_train_step`
+  takes its uploaded rows), differentiates the plain mean loss over
   them (``make_loss_rows``: the cross-entropy pair under ``--pallas_ce``)
   and takes a local momentum-SGD step: worker w's gradient is
   d(loss_w)/d(params_w), with no 1/W and no gradient all-reduce (JAX
@@ -50,7 +51,8 @@ from distributedtensorflowexample_tpu_torch.parallel.bucketing import (
 from distributedtensorflowexample_tpu_torch.parallel.mesh import (
     ONE_RANK, Mesh)
 from distributedtensorflowexample_tpu_torch.parallel.sync import (
-    _resolve_num_slots, indexed_step, make_device_gather, make_loss_rows)
+    _resolve_num_slots, dequant_host_batch, indexed_step, make_device_gather,
+    make_loss_rows)
 
 
 def _build_async_step_fn(period: int, label_smoothing: float = 0.0,
@@ -99,14 +101,16 @@ def make_indexed_async_train_step(period: int, batch_size: int,
                                   augment: str = "none", seed: int = 0,
                                   draws_fn: Callable | None = None,
                                   mesh: Mesh = ONE_RANK,
-                                  plan: BucketPlan | None = None
+                                  plan: BucketPlan | None = None,
+                                  data_sharding: str = "replicated"
                                   ) -> Callable:
     """Local-SGD step over a device-resident dataset: ``(state, data) ->
     (state, metrics)``, the async counterpart of
     ``parallel/sync.make_indexed_train_step`` (same gather, same unrolled
     windows; the averaging falls on ``(step + 1) % period == 0`` whatever
     the unroll).  ``batch_size`` is the global batch G; ``plan`` (the
-    ``--bucket_grads`` plan) buckets the average."""
+    ``--bucket_grads`` plan) buckets the average; ``data_sharding``: the
+    dataset's row placement (``parallel/sync.make_device_gather``)."""
     num_slots = _resolve_num_slots(unroll_steps, steps_per_epoch, num_slots)
     inner = _build_async_step_fn(period, label_smoothing, ce_impl, mesh,
                                  plan)
@@ -114,8 +118,29 @@ def make_indexed_async_train_step(period: int, batch_size: int,
                                 num_slots=num_slots,
                                 dequant_impl=dequant_impl,
                                 token_data=token_data, augment=augment,
-                                seed=seed, draws_fn=draws_fn, mesh=mesh)
+                                seed=seed, draws_fn=draws_fn, mesh=mesh,
+                                data_sharding=data_sharding)
     return indexed_step(inner, gather, unroll_steps)
+
+
+def make_async_train_step(period: int, label_smoothing: float = 0.0,
+                          ce_impl: str = "xla", mesh: Mesh = ONE_RANK,
+                          dequant: str | None = None,
+                          dequant_impl: str = "auto",
+                          quantize: str = "auto",
+                          plan: BucketPlan | None = None) -> Callable:
+    """The host-fed local-SGD step (``--device_data off``; JAX
+    ``make_async_train_step``): ``(state, batch) -> (state, metrics)`` on
+    this worker's uploaded rows, dequantized in the step
+    (``parallel/sync.dequant_host_batch``)."""
+    inner = _build_async_step_fn(period, label_smoothing, ce_impl, mesh,
+                                 plan)
+
+    def step(state, batch):
+        return state, inner(state, dequant_host_batch(
+            batch, dequant, dequant_impl, quantize))
+
+    return step
 
 
 @contextlib.contextmanager

@@ -14,6 +14,11 @@ gradient is the gradient of the mean over the global batch.  With
 iff ``(i - s) mod N < R``, and the loss is ``sum(rows * sel) / (R *
 per)`` (the JAX package's rotating subset).
 
+The host-fed path (``--device_data off``): :func:`make_train_step` runs
+the same step body on this rank's uploaded rows (``data/pipeline.py``),
+dequantized in the step (:func:`dequant_host_batch`), and
+:func:`evaluate` uploads the test split a batch at a time.
+
 A model with batch norm (``models/resnet.py``) normalizes over the
 global batch: each of its batch-norm layers adds one all-reduce of its
 statistics in the forward and one of their cotangents in the backward,
@@ -49,11 +54,14 @@ import numpy as np
 import torch
 
 from distributedtensorflowexample_tpu_torch.data.device_dataset import (
-    DEQUANT_IMPLS, DeviceDataset, apply_dequant_affine, resolve_dequant_impl)
+    DEQUANT_IMPLS, DeviceDataset, apply_dequant_affine, apply_dequant_gather,
+    apply_dequant_lut, dequantize_images, resolve_dequant_impl)
 from distributedtensorflowexample_tpu_torch.data.augment_device import (
     crop_flip, crop_flip_dequant, step_draws)
 from distributedtensorflowexample_tpu_torch.data.dequant import (
     make_dequant_affine, try_quantize)
+from distributedtensorflowexample_tpu_torch.data.pipeline import (
+    put_global_batch)
 from distributedtensorflowexample_tpu_torch.ops.kernels import (
     fused_gather_dequant, fused_softmax_cross_entropy_rows)
 from distributedtensorflowexample_tpu_torch.ops.losses import (
@@ -108,32 +116,78 @@ def _resolve_num_slots(unroll_steps: int, steps_per_epoch: int,
     return num_slots
 
 
+def _dequant_gathered(img: torch.Tensor, data: dict,
+                      dequant_impl: str) -> torch.Tensor:
+    """Dequantize a gathered uint8 batch by the family the data carries
+    (the JAX package's ``_dequant_gathered``): ``dq_scale``/``dq_bias``
+    (affine) or ``lut`` (``onehot``, or the ``lut`` index).  A factory
+    asking for the other family than the dataset resolved raises, as does
+    a uint8 batch with no constants."""
+    if img.dtype != torch.uint8:
+        return img
+    if "dq_scale" in data:
+        if dequant_impl in ("onehot", "lut"):
+            raise ValueError(
+                f"step factory asked for dequant_impl={dequant_impl!r} but "
+                f"the dataset resolved to the affine family (it carries "
+                f"dq_scale/dq_bias) — pass the same dequant_impl to "
+                f"DeviceDataset and the step factory")
+        return apply_dequant_affine(img, data["dq_scale"], data["dq_bias"])
+    if "lut" in data:
+        if dequant_impl in ("affine", "pallas"):
+            raise ValueError(
+                f"step factory asked for dequant_impl={dequant_impl!r} but "
+                f"the dataset resolved to the LUT family (it carries lut) "
+                f"— pass the same dequant_impl to DeviceDataset and the "
+                f"step factory")
+        if dequant_impl == "lut":
+            return apply_dequant_gather(img, data["lut"])
+        return apply_dequant_lut(img, data["lut"])
+    raise TypeError("gathered batch is uint8 but the data carries no "
+                    "dequant constants")
+
+
 def make_device_gather(batch_size: int, steps_per_epoch: int, *,
                        num_slots: int, dequant_impl: str = "auto",
                        token_data: bool = False, augment: str = "none",
                        seed: int = 0, draws_fn: Callable | None = None,
-                       mesh: Mesh = ONE_RANK) -> Callable:
+                       mesh: Mesh = ONE_RANK,
+                       data_sharding: str = "replicated") -> Callable:
     """(step, data) -> batch: the on-device minibatch gather from a
     resident split (``DeviceDataset``), with the JAX package's slot and
     position arithmetic over the GLOBAL ``batch_size``; on a ``mesh`` this
     rank takes its ``batch_size // N`` rows of the global index slice.
-    ``dequant_impl="pallas"`` gathers and
-    dequantizes in one kernel launch; otherwise the rows are gathered and
-    dequantized by the plain affine.  ``token_data=True`` (a token split)
-    passes the gathered ids through: they are not pixels.
+    ``dequant_impl="pallas"`` gathers and dequantizes in one kernel
+    launch; otherwise the rows are gathered and dequantized by the family
+    the data carries (:func:`_dequant_gathered`).  ``token_data=True`` (a
+    token split) passes the gathered ids through: they are not pixels.
+
+    ``data_sharding="sharded"`` pairs with a ``DeviceDataset`` of the same
+    mode: the data holds this rank's block of rows only, and the global
+    positions this rank reads always hold its own rows (the interleaved
+    per-shard order), so the indices are translated into the block (minus
+    ``rank * rows``) and no row moves between ranks.  The dequant kernel
+    gathers over the whole split and is refused there, as in JAX.
 
     ``augment="cifar"`` adds the random crop and flip
     (``data/augment_device.py``) in the JAX package's order: after the
     dequant kernel on its float32 output under ``dequant_impl="pallas"``;
-    otherwise on the gathered uint8 rows, fused with their dequant.  The
-    draws are the global batch's at each step (``step_draws`` from
-    ``seed``), this rank taking its rows; ``draws_fn(step) -> (ys, xs,
-    flips)`` over the global batch replaces them (an injected tape)."""
+    on the gathered uint8 rows fused with their affine dequant; or, for
+    the LUT family, on the uint8 rows before the table.  The draws are the
+    global batch's at each step (``step_draws`` from ``seed``), this rank
+    taking its rows; ``draws_fn(step) -> (ys, xs, flips)`` over the global
+    batch replaces them (an injected tape)."""
     if dequant_impl not in DEQUANT_IMPLS:
         raise ValueError(f"unknown dequant_impl {dequant_impl!r} "
                          f"(one of {DEQUANT_IMPLS})")
     if augment not in ("none", "cifar"):
         raise ValueError(f"unknown augment {augment!r}")
+    if data_sharding not in ("replicated", "sharded"):
+        raise ValueError(f"unknown data_sharding {data_sharding!r}")
+    if data_sharding == "sharded" and dequant_impl == "pallas":
+        raise ValueError(
+            "dequant_impl='pallas' fuses the gather over the WHOLE "
+            "resident split; pair it with data_sharding='replicated'")
     if augment == "cifar" and token_data:
         raise ValueError("augment='cifar' crops images; a token split "
                          "has none")
@@ -142,6 +196,7 @@ def make_device_gather(batch_size: int, steps_per_epoch: int, *,
         raise ValueError(f"global batch {batch_size} not divisible by {n} "
                          f"replicas")
     per = batch_size // n
+    sharded = data_sharding == "sharded"
     generators: dict = {}
 
     def draws(step: int, device: torch.device) -> tuple:
@@ -160,6 +215,8 @@ def make_device_gather(batch_size: int, steps_per_epoch: int, *,
         pos = (step % steps_per_epoch) * batch_size + rank * per
         idx = data["perm"][slot, pos:pos + per]
         images = data["images"]
+        if sharded:
+            idx = idx - rank * images.shape[0]     # into this rank's block
         cut = draws(step, images.device) if augment == "cifar" else None
         if token_data:
             img = images.index_select(0, idx)
@@ -170,17 +227,15 @@ def make_device_gather(batch_size: int, steps_per_epoch: int, *,
                 img = crop_flip(img, *cut)
         else:
             img = images.index_select(0, idx)
-            if img.dtype == torch.uint8 and "dq_scale" not in data:
-                raise TypeError("gathered batch is uint8 but the data "
-                                "carries no dequant constants")
-            if img.dtype == torch.uint8:
-                img = (crop_flip_dequant(img, *cut, data["dq_scale"],
-                                         data["dq_bias"])
-                       if cut is not None else
-                       apply_dequant_affine(img, data["dq_scale"],
-                                            data["dq_bias"]))
-            elif cut is not None:
-                img = crop_flip(img, *cut)
+            if (cut is not None and img.dtype == torch.uint8
+                    and "dq_scale" in data
+                    and dequant_impl not in ("onehot", "lut")):
+                img = crop_flip_dequant(img, *cut, data["dq_scale"],
+                                        data["dq_bias"])
+            else:
+                if cut is not None:
+                    img = crop_flip(img, *cut)
+                img = _dequant_gathered(img, data, dequant_impl)
         return {"image": img, "label": data["labels"].index_select(0, idx)}
 
     return gather
@@ -261,6 +316,50 @@ def _build_step_fn(label_smoothing: float = 0.0, ce_impl: str = "xla",
     return step
 
 
+def dequant_host_batch(batch: dict, dequant: str | None,
+                       dequant_impl: str = "auto",
+                       quantize: str = "auto") -> dict:
+    """Dequantize an uploaded uint8 batch in the step (the JAX package's
+    ``dequant_host_batch``); a float batch passes through.  A uint8 batch
+    with no ``dequant`` spec raises ``TypeError``: training on raw 0-255
+    bytes is what the guard prevents (pass ``dequant=batcher.dequant``).
+    The impl resolves by the resident path's rule, so both paths run the
+    same dequant; ``pallas`` becomes ``affine``, since an uploaded batch
+    has no row gather to fuse."""
+    img = batch["image"]
+    if img.dtype != torch.uint8:
+        return batch
+    if dequant is None:
+        raise TypeError(
+            "host-fed batch images are uint8 but the train step was "
+            "built without dequant=; pass dequant=batcher.dequant")
+    impl = resolve_dequant_impl(dequant, dequant_impl, quantize, img.device)
+    impl = "affine" if impl == "pallas" else impl
+    return dict(batch, image=dequantize_images(img, dequant, impl))
+
+
+def make_train_step(label_smoothing: float = 0.0, ce_impl: str = "xla",
+                    replicas_to_aggregate: int = 0,
+                    dequant: str | None = None, dequant_impl: str = "auto",
+                    quantize: str = "auto", mesh: Mesh = ONE_RANK,
+                    mode: str = "sync_dp", plan: BucketPlan | None = None,
+                    zero3_layout: Zero3Layout | None = None,
+                    zero3_overlap: bool = True) -> Callable:
+    """The host-fed step (``--device_data off``): ``(state, batch) ->
+    (state, metrics)`` on this rank's uploaded rows (``data/pipeline.py``
+    ``Batcher`` through ``DevicePrefetcher``), dequantized in the step by
+    :func:`dequant_host_batch`, then the resolved mode's body
+    (:func:`_build_step_fn`)."""
+    inner = _build_step_fn(label_smoothing, ce_impl, replicas_to_aggregate,
+                           mesh, mode, plan, zero3_layout, zero3_overlap)
+
+    def step(state, batch):
+        return state, inner(state, dequant_host_batch(
+            batch, dequant, dequant_impl, quantize))
+
+    return step
+
+
 def make_indexed_train_step(batch_size: int, steps_per_epoch: int,
                             label_smoothing: float = 0.0,
                             ce_impl: str = "xla",
@@ -274,7 +373,8 @@ def make_indexed_train_step(batch_size: int, steps_per_epoch: int,
                             mesh: Mesh = ONE_RANK, mode: str = "sync_dp",
                             plan: BucketPlan | None = None,
                             zero3_layout: Zero3Layout | None = None,
-                            zero3_overlap: bool = True) -> Callable:
+                            zero3_overlap: bool = True,
+                            data_sharding: str = "replicated") -> Callable:
     """Step over a device-resident dataset: ``(state, data) -> (state,
     metrics)``.  ``batch_size`` is the global batch; on a ``mesh`` each
     rank trains on its slice of it.  ``unroll_steps=K`` runs K consecutive
@@ -282,7 +382,8 @@ def make_indexed_train_step(batch_size: int, steps_per_epoch: int,
     slot, so a window may cross epochs) and returns this rank's metric
     shares averaged over the K updates, still on the device.
     ``token_data=True``: the split holds token ids; ``augment``,
-    ``seed`` and ``draws_fn``: the crop and flip and their draws
+    ``seed`` and ``draws_fn``: the crop and flip and their draws;
+    ``data_sharding``: the dataset's row placement
     (:func:`make_device_gather`); ``mode``, ``plan``, ``zero3_layout``
     and ``zero3_overlap``: the replication mode (:func:`_build_step_fn`)."""
     num_slots = _resolve_num_slots(unroll_steps, steps_per_epoch, num_slots)
@@ -292,7 +393,8 @@ def make_indexed_train_step(batch_size: int, steps_per_epoch: int,
                                 num_slots=num_slots,
                                 dequant_impl=dequant_impl,
                                 token_data=token_data, augment=augment,
-                                seed=seed, draws_fn=draws_fn, mesh=mesh)
+                                seed=seed, draws_fn=draws_fn, mesh=mesh,
+                                data_sharding=data_sharding)
 
     return indexed_step(inner, gather, unroll_steps)
 
@@ -330,7 +432,9 @@ def make_resident_eval(images: np.ndarray, labels: np.ndarray,
     ``dequant_impl="pallas"`` each batch is dequantized by the kernel
     (gathering rows ``i*batch .. (i+1)*batch``), so a card run of the
     main path never leaves the kernel for the plain version; otherwise by
-    the plain affine.
+    the impl the train path resolves (``quantize`` and ``dequant_impl``
+    by the same rule: the affine, or the LUT family's
+    ``dequantize_images``).
 
     ``token_data=True`` (the LM): the split is token ids, nothing is
     dequantized, and accuracy counts label elements (tokens of the
@@ -344,7 +448,7 @@ def make_resident_eval(images: np.ndarray, labels: np.ndarray,
         q = try_quantize(images)
         if q is not None:
             images, dequant = q
-    impl = (resolve_dequant_impl(dequant, dequant_impl)
+    impl = (resolve_dequant_impl(dequant, dequant_impl, quantize, device)
             if dequant is not None else None)
     rank, ranks = mesh.rank, mesh.size
     if batch_size % ranks:
@@ -376,6 +480,8 @@ def make_resident_eval(images: np.ndarray, labels: np.ndarray,
             hi = lo + per
             if impl == "pallas":
                 bx = fused_gather_dequant(xs, rows[lo:hi], s, b)
+            elif impl in ("onehot", "lut"):
+                bx = dequantize_images(xs[lo:hi], dequant, impl)
             elif dequant is not None:
                 bx = apply_dequant_affine(xs[lo:hi], s, b)
             else:
@@ -386,3 +492,33 @@ def make_resident_eval(images: np.ndarray, labels: np.ndarray,
         return int(total.item()) / denom
 
     return run
+
+
+def evaluate(state, images: np.ndarray, labels: np.ndarray,
+             batch_size: int = 1000, device: torch.device | str = "cpu",
+             mesh: Mesh = ONE_RANK) -> float:
+    """Exact accuracy over a host split, uploaded a batch at a time (the
+    JAX package's host-fed ``evaluate``, the eval of ``--device_data
+    off``).  Every rank holds the split and evaluates its ``batch_size //
+    N`` rows of each batch; the correct count is summed over the ranks.
+    A last partial batch is padded with label -1 (never an argmax)."""
+    if batch_size % mesh.size:
+        raise ValueError(f"eval batch {batch_size} must divide across "
+                         f"{mesh.size} devices")
+    images, labels = np.asarray(images), np.asarray(labels, np.int32)
+    n = len(labels)
+    total = torch.zeros((), dtype=torch.int64, device=device)
+    with torch.no_grad():
+        for i in range(0, n, batch_size):
+            bx, by = images[i:i + batch_size], labels[i:i + batch_size]
+            pad = batch_size - len(by)
+            if pad:
+                bx = np.concatenate(
+                    [bx, np.zeros((pad,) + bx.shape[1:], bx.dtype)])
+                by = np.concatenate([by, np.full((pad,), -1, by.dtype)])
+            batch = put_global_batch({"image": bx, "label": by}, device,
+                                     mesh.rank, mesh.size)
+            logits = state.model(batch["image"], train=False)
+            total += (logits.argmax(dim=-1) == batch["label"]).sum()
+    mesh.all_reduce(total, counted=False)
+    return int(total.item()) / n

@@ -5,6 +5,11 @@ metrics stay on the device until the logger's boundary.  On N ranks the
 step returns each rank's share of the metrics; ``reduce_metrics`` (the
 mesh's sum) turns them into the global ones, once per host read: at a
 step where the logger or a hook reads them, never on the others.
+
+Three counters split each boundary's wall time (the JAX loop's anatomy,
+which ``MetricsHook`` reports and ``obs/timeline.step_anatomy`` reads):
+the batch fetch, the train-step call (on the card: the enqueue, and the
+waits inside it), and the hooks.
 """
 
 from __future__ import annotations
@@ -12,9 +17,21 @@ from __future__ import annotations
 import time
 from typing import Iterable, Iterator
 
+from distributedtensorflowexample_tpu_torch.obs import metrics as obs_metrics
 from distributedtensorflowexample_tpu_torch.training.hooks import Hook
 from distributedtensorflowexample_tpu_torch.training.metrics import (
     MetricsLogger)
+from distributedtensorflowexample_tpu_torch.utils.logging import chief_print
+
+_INPUT_S = obs_metrics.counter(
+    "loop_input_seconds_total", "wall seconds fetching batches at loop "
+    "call boundaries")
+_STEP_S = obs_metrics.counter(
+    "loop_step_seconds_total", "wall seconds inside the train-step call "
+    "(dispatch + compute + collective wait)")
+_HOOK_S = obs_metrics.counter(
+    "loop_hook_seconds_total", "wall seconds in after_step hooks "
+    "(checkpoint/eval/telemetry)")
 
 
 class TrainLoop:
@@ -57,9 +74,8 @@ class TrainLoop:
             # so an interrupt inside the optimizer's apply leaves that
             # step half applied; SIGTERM, polled above, never does).  Say
             # so: the save takes time, and a pause invites a second Ctrl-C.
-            self._logger.note(f"interrupted at step {int(state.step)}: "
-                              f"running the exit hooks (final checkpoint) "
-                              f"before exiting")
+            chief_print(f"interrupted at step {int(state.step)}: running "
+                        f"the exit hooks (final checkpoint) before exiting")
             interrupted = e
         try:
             self._logger.sync()
@@ -69,9 +85,8 @@ class TrainLoop:
             try:
                 h.end(state)
             except KeyboardInterrupt as e:
-                self._logger.note("interrupt during the exit hooks: still "
-                                  "running the remaining ones before "
-                                  "exiting")
+                chief_print("interrupt during the exit hooks: still "
+                            "running the remaining ones before exiting")
                 interrupted = interrupted or e
         if interrupted is not None:
             raise interrupted
@@ -80,10 +95,16 @@ class TrainLoop:
     def _step(self, step: int, state) -> tuple:
         """One call boundary: the train step, the log, the hooks; the
         state, and True when a hook asks to stop."""
+        t0 = time.perf_counter()
         batch = next(self._batches)
+        t1 = time.perf_counter()
         state, metrics = self._train_step(state, batch)
+        t2 = time.perf_counter()
         if self._prefetch is not None:
             self._prefetch()
+        # Before the hooks, so MetricsHook's mark includes this boundary.
+        _INPUT_S.inc(t1 - t0)
+        _STEP_S.inc(t2 - t1)
         if self._reduce is not None and (
                 self._logger.due(step)
                 or any(h.reads_metrics(step) for h in self._hooks)):
@@ -93,5 +114,7 @@ class TrainLoop:
             self._logger.sync()
         t_hooks = time.perf_counter()
         stops = [h.after_step(step, state, metrics) for h in self._hooks]
-        self._logger.exclude(time.perf_counter() - t_hooks)
+        dt_hooks = time.perf_counter() - t_hooks
+        _HOOK_S.inc(dt_hooks)
+        self._logger.exclude(dt_hooks)
         return state, any(stops)

@@ -3,7 +3,9 @@
 
 Metrics stay on the device until a log boundary; there the logger fetches
 them, prints ``step N: loss=... accuracy=... steps_per_sec=...`` and
-appends the same values to ``scalars.jsonl``.  ``steps_per_sec`` is wall
+appends the same values to ``scalars.jsonl`` and, as TensorBoard scalars,
+to a tfevents file in the same directory (``utils/tfevents.py``;
+``tensorboard --logdir`` reads it).  ``steps_per_sec`` is wall
 time between log boundaries, with the card synchronized before each clock
 read (PyTorch returns before the device finishes, so an unsynchronized
 clock would time the enqueue) and hook wall time discounted through
@@ -22,6 +24,9 @@ import time
 
 import torch
 
+from distributedtensorflowexample_tpu_torch.utils.tfevents import (
+    TFEventsWriter)
+
 
 class MetricsLogger:
     def __init__(self, log_dir: str = "", num_chips: int = 1,
@@ -34,10 +39,12 @@ class MetricsLogger:
         self._last_time = None
         self._last_step = 0
         self._file = None
+        self._events = None
         if log_dir and is_chief:
             os.makedirs(log_dir, exist_ok=True)
             self._file = open(os.path.join(log_dir, "scalars.jsonl"), "a",
                               buffering=1)
+            self._events = TFEventsWriter(log_dir)
         self.last_steps_per_sec = 0.0
 
     def sync(self) -> None:
@@ -84,6 +91,10 @@ class MetricsLogger:
         print(f"step {step}: {parts}", flush=True)
         if self._file:
             self._file.write(json.dumps({"step": step, **fetched}) + "\n")
+        if self._events:
+            for name, value in fetched.items():
+                self._events.scalar(step, name, value)
+            self._events.flush()
 
     def note(self, text: str) -> None:
         """Print a line, on the chief only."""
@@ -96,8 +107,14 @@ class MetricsLogger:
         print(f"step {step}: {name}={value:.4f}", flush=True)
         if self._file:
             self._file.write(json.dumps({"step": step, name: value}) + "\n")
+        if self._events:
+            self._events.scalar(step, name, value)
+            self._events.flush()
 
     def close(self):
         if self._file:
             self._file.close()
             self._file = None
+        if self._events:
+            self._events.close()
+            self._events = None

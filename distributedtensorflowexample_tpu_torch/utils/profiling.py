@@ -1,4 +1,9 @@
-"""Where a training step's time goes on the card.
+"""Trace capture, and where a training step's time goes on the card.
+
+:class:`ProfilerHook` (the JAX package's ``utils/profiling.ProfilerHook``,
+armed by ``--profile_dir``) traces a steady-state window of the live
+loop with ``torch.profiler``.  The rest of the module is a profiler of
+the train step:
 
     python -m distributedtensorflowexample_tpu_torch.utils.profiling \
         [--model mnist_cnn | mnist_cnn_async | lm_base | resnet20] \
@@ -44,6 +49,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -51,10 +57,97 @@ import time
 import torch
 
 from distributedtensorflowexample_tpu_torch.device import resolve_device
-from distributedtensorflowexample_tpu_torch.engine import Engine, RunSpec
 from distributedtensorflowexample_tpu_torch.parallel.mesh import Mesh
-from distributedtensorflowexample_tpu_torch.trainers import (
-    trainer_lm, trainer_mirrored_cifar, trainer_ps_mnist, trainer_sync_mnist)
+from distributedtensorflowexample_tpu_torch.training.hooks import Hook
+
+
+def _activities(device: torch.device) -> list:
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return acts
+
+
+class ProfilerHook(Hook):
+    """Trace a window of live training steps.
+
+    Starts after step ``start_step`` completes and stops once at least
+    ``num_steps`` further steps have run, so the window holds steady-state
+    steps only (never the first step's warm-up, given ``start_step`` > 0);
+    with ``K`` steps a call the window rounds up to whole calls.  A resume
+    that lands inside or past the window slides it forward, and a window
+    is captured once.  The loop synchronizes the card before the hook
+    starts and stops the profiler (``needs_sync``).  Each boundary inside
+    the window opens a ``ProfilerStep#<n>`` span, ``n`` the first step of
+    the call.  Each rank writes its own trace:
+    ``<logdir>/rank<rank>/trace_<first>_<last>.json``."""
+
+    def __init__(self, logdir: str, start_step: int = 10, num_steps: int = 5,
+                 rank: int = 0, device: torch.device | str = "cpu"):
+        self._dir = os.path.join(logdir, f"rank{rank}")
+        self._start = max(0, start_step)
+        self._stop = self._start + max(1, num_steps)
+        self._device = torch.device(device)
+        self._prof = None
+        self._span = None
+        self._first = None
+        self._done = False
+        self.path = None
+
+    def _window(self, step: int) -> tuple:
+        if self._prof is None and step > self._start:
+            width = self._stop - self._start
+            return step, step + width
+        return self._start, self._stop
+
+    def needs_sync(self, step) -> bool:
+        if self._done:
+            return False
+        start, stop = self._window(step)
+        if self._prof is None:
+            return start <= step < stop
+        return step >= stop
+
+    def _mark(self, step: int) -> None:
+        if self._span is not None:
+            self._span.__exit__(None, None, None)
+        self._span = torch.profiler.record_function(
+            f"ProfilerStep#{step + 1}")
+        self._span.__enter__()
+
+    def after_step(self, step, state, metrics) -> bool:
+        if self._done:
+            return False
+        self._start, self._stop = self._window(step)
+        if self._prof is None and self._start <= step < self._stop:
+            self._prof = torch.profiler.profile(
+                activities=_activities(self._device))
+            self._prof.start()
+            self._first = step + 1
+            self._mark(step)
+        elif self._prof is not None and step >= self._stop:
+            self._finish(step)
+        elif self._prof is not None:
+            self._mark(step)
+        return False
+
+    def _finish(self, last: int) -> None:
+        if self._span is not None:
+            self._span.__exit__(None, None, None)
+            self._span = None
+        if self._device.type == "cuda":
+            torch.cuda.synchronize(self._device)
+        self._prof.stop()
+        os.makedirs(self._dir, exist_ok=True)
+        self.path = os.path.join(self._dir,
+                                 f"trace_{self._first}_{last}.json")
+        self._prof.export_chrome_trace(self.path)
+        self._prof = None
+        self._done = True
+
+    def end(self, state) -> None:
+        if self._prof is not None:      # the loop stopped inside the window
+            self._finish(int(state.step))
 
 #: Substrings of the port kernels' device names.
 PORT_KERNELS = {"dequant": "dequant_gather_kernel", "ce_fwd": "ce_fwd_kernel",
@@ -67,6 +160,10 @@ MODELS = ("mnist_cnn", "mnist_cnn_async", "lm_base", "resnet20")
 def workload(model: str, argv: list) -> tuple:
     """``(spec, default batches)`` for ``--model``: the trainer's config
     with the kernel flags, then ``argv``."""
+    from distributedtensorflowexample_tpu_torch.engine import RunSpec
+    from distributedtensorflowexample_tpu_torch.trainers import (
+        trainer_lm, trainer_mirrored_cifar, trainer_ps_mnist,
+        trainer_sync_mnist)
     if model == "mnist_cnn":
         cfg = trainer_sync_mnist.build_config(
             KERNEL_FLAGS + ["--dataset", "synthetic"] + argv)
@@ -118,7 +215,8 @@ def _on_device(evt) -> bool:
     return evt.device_type == torch.autograd.DeviceType.CUDA
 
 
-def profile_step(spec: RunSpec, steps: int, warmup: int) -> dict:
+def profile_step(spec, steps: int, warmup: int) -> dict:
+    from distributedtensorflowexample_tpu_torch.engine import Engine
     cfg = spec.config
     device = resolve_device(cfg.device)
     built = Engine(spec).build(Mesh(device))

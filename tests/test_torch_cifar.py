@@ -8,8 +8,10 @@ converted parameters and batch statistics (``convert.py``), its index
 tape (``perm_fn``) and its augment draws (``draws_fn``: the crop
 offsets and flips that ``_crop_flip_selectors`` draws from
 ``fold_in(fold_in(rng, 0x5EED), step)``).  The ResNet is a cut-down
-``ResNetCIFAR(blocks_per_stage=1, widths=(8, 16, 32))``; the all-reduce
-count is read on ResNet-20 itself.
+``ResNetCIFAR(blocks_per_stage=1, widths=(8, 16, 32))``, also with each
+block checkpointed (``--remat block``, held bitwise to the plain one);
+the all-reduce count is read on ResNet-20 itself, with and without
+remat.
 
 Three gloo groups (1, 2 and 4 ranks) and two processes joined by the
 cluster flags start once for the module, beside the JAX side; the rank
@@ -131,9 +133,10 @@ def _sha(arrays) -> str:
 
 # --- rank workers (run in the spawned ranks; no JAX) ----------------------
 
-def _small_state(mesh, inp):
+def _small_state(mesh, inp, remat="none"):
     cfg = parse_flags(CIFAR_FLAGS)
-    model = ResNetCIFAR(**SMALL, dtype=torch.float32, mesh=mesh)
+    model = ResNetCIFAR(**SMALL, dtype=torch.float32, mesh=mesh,
+                        remat=remat)
     state = TrainState.create(model, lambda m: build_optimizer(cfg, m), 0,
                               CPU, mesh=mesh)
     convert.load_into_state(state, inp["params0"],
@@ -141,10 +144,11 @@ def _small_state(mesh, inp):
     return state
 
 
-def _small_tape(mesh, inp) -> dict:
+def _small_tape(mesh, inp, remat="none") -> dict:
     """Config 4's update on the small ResNet from the converted JAX init,
-    over the JAX index tape and augment draws, at the global batch G."""
-    state = _small_state(mesh, inp)
+    over the JAX index tape and augment draws, at the global batch G
+    (``remat="block"``: each residual block checkpointed)."""
+    state = _small_state(mesh, inp, remat)
     ds = DeviceDataset(*_cifar_split(), G, perm_fn=inp["perms"].__getitem__)
     step = make_indexed_train_step(
         G, ds.steps_per_epoch, num_slots=ds.num_slots, augment="cifar",
@@ -167,10 +171,10 @@ def _small_tape(mesh, inp) -> dict:
                      for n, m in (("mesh", mesh), ("one", ONE_RANK))}}
 
 
-def _resnet20_all_reduces(mesh) -> dict:
+def _resnet20_all_reduces(mesh, remat="none") -> dict:
     """Two float32 steps of ResNet-20 itself through ``Engine.build`` at
     B=2 per rank: the all-reduces each rank issued."""
-    cfg = parse_flags(CIFAR_FLAGS + ["--batch_size", "2"])
+    cfg = parse_flags(CIFAR_FLAGS + ["--batch_size", "2", "--remat", remat])
     built = Engine(RunSpec("resnet20", "cifar10", cfg, augment=True)).build(
         mesh, data=_cifar_split())
     before = mesh.all_reduces
@@ -186,6 +190,10 @@ def _rank_checks(inp) -> dict:
     mesh = make_mesh("cpu")
     out = {"rank": mesh.rank, "small": _small_tape(mesh, inp),
            "resnet20": _resnet20_all_reduces(mesh)}
+    if mesh.size <= 2:
+        out["small_remat"] = _small_tape(mesh, inp, "block")
+    if mesh.size == 2:
+        out["resnet20_remat"] = _resnet20_all_reduces(mesh, "block")
     if mesh.size == 2:
         # The exchange an NCCL group makes over a gloo side group.
         out["hosts"] = mesh_mod.host_names("nccl")
@@ -407,6 +415,28 @@ def test_batch_norm_all_reduces_per_step(runs, n):
     for r in runs["ranks"][n]:
         assert r["resnet20"]["all_reduces"] == 2 * per_step
         assert r["small"]["all_reduces"] == STEPS * small
+
+
+@pytest.mark.parametrize("n", [1, 2])
+def test_remat_block_tracks_the_jax_step_and_equals_no_remat(runs, n):
+    """``--remat block`` on the small ResNet: the tape, parameters and
+    running statistics bitwise those of ``--remat none`` (each buffer
+    updated once a step), so within the tolerance of the JAX step on one
+    device; on ResNet-20 itself at 2 ranks the same 43 all-reduces a step
+    (the recompute reuses the first forward's statistics), and the same
+    parameters and statistics bit for bit."""
+    jtape, jparams, jstats = runs["jax"][1]
+    for r in runs["ranks"][n]:
+        remat, plain = r["small_remat"], r["small"]
+        assert remat["tape"] == plain["tape"]
+        assert remat["digests"] == plain["digests"]
+        assert remat["all_reduces"] == plain["all_reduces"]
+        if n == 2:
+            assert r["resnet20_remat"] == r["resnet20"]
+    remat = runs["ranks"][n][0]["small_remat"]
+    np.testing.assert_allclose(remat["tape"], jtape, rtol=1e-5)
+    assert _tree_close(remat["params"], jparams) == []
+    assert _tree_close(remat["stats"], jstats) == []
 
 
 def test_nccl_host_exchange_over_a_gloo_side_group(runs):
@@ -918,11 +948,20 @@ def test_resnet_init_follows_flax_defaults():
 
 
 def test_remat_block_is_refused_for_resnet20():
+    """Once refused (a block's recompute updated its batch-norm running
+    statistics a second time); the recompute now reuses the first
+    forward's statistics, so config 4's Engine builds ResNet-20 with
+    ``--remat block`` (``tests/test_torch_input.py`` trains it), and only
+    an unknown policy is refused."""
     from distributedtensorflowexample_tpu_torch.trainers import (
         trainer_mirrored_cifar)
-    with pytest.raises(ModeRefusal, match="--remat block for resnet20"):
-        trainer_mirrored_cifar.main(["--device", "cpu", "--dataset",
-                                     "synthetic", "--remat", "block"])
+    make = lambda remat: Engine(RunSpec(
+        "resnet20", "cifar10", trainer_mirrored_cifar.build_config(
+            ["--device", "cpu", "--remat", remat]),
+        augment=True)).create_state(Mesh(CPU))
+    assert make("block").model.remat == "block"
+    with pytest.raises(ValueError, match="unknown remat policy"):
+        make("layer")
 
 
 def test_trainer_mirrored_cifar_drives_on_the_cpu(runs, tmp_path, capsys):

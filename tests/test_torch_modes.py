@@ -814,7 +814,7 @@ def test_describe_matches_jax(row, monkeypatch):
     for key in ("mode", "update_layout", "bucket_bytes", "mesh_size",
                 "token_data", "checkpointing", "entrypoint"):
         assert got[key] == want[key], key
-    assert got["hooks"] == [h for h in want["hooks"] if h != "AnomalyHook"]
+    assert got["hooks"] == want["hooks"]
     assert (got["contract"] is None) == (want["contract"] is None)
     tree_form = {"reduce-scatter": 1, "all-gather": 1}
     assert got["contract"] == {

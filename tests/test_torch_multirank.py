@@ -3,7 +3,10 @@ each (``parallel/launch.spawn``), against the JAX package on an N-device
 mesh of the conftest's virtual CPU devices, from the same global batch.
 
 Three groups (1, 2 and 4 ranks) start once for the module and run every
-check that needs a group; the JAX side runs meanwhile in this process.
+check that needs a group (the 2-rank one also ``--data_sharding
+sharded``), and a fourth of 3 ranks runs the trainer surface at a rank
+count that does not divide 1000 (plain and bucketed); the JAX side runs
+meanwhile in this process.
 The rank workers below import no JAX (a spawned rank imports this module
 to find them), so the JAX package is imported inside the functions that
 use it.
@@ -26,7 +29,9 @@ value.  N ranks at B against one rank at N*B in float32: rtol 2e-5, atol
 another order).  Partial aggregation (float32, one step at R of 4 and
 step s) against the JAX mesh's step with the same R, and against one
 rank's plain step on the selected replicas' rows: rtol 1e-5, atol 1e-6
-(``test_sync_dp.py``'s).  Replicas against each other, and the eval
+(``test_sync_dp.py``'s).  The sharded split on 2 ranks (float32, plain
+cross-entropy) against the JAX sharded step: rtol 1e-5, atol 1e-6 (the
+replication modes' bound).  Replicas against each other, and the eval
 count: exact.
 """
 
@@ -49,6 +54,8 @@ from distributedtensorflowexample_tpu_torch.data.lm import load_lm
 from distributedtensorflowexample_tpu_torch.data.synthetic import (
     make_synthetic)
 from distributedtensorflowexample_tpu_torch.engine import Engine, RunSpec
+from distributedtensorflowexample_tpu_torch.engine.engine import (
+    eval_batch_size)
 from distributedtensorflowexample_tpu_torch.models import build_model
 from distributedtensorflowexample_tpu_torch.parallel import launch
 from distributedtensorflowexample_tpu_torch.parallel.mesh import (
@@ -236,6 +243,31 @@ def _partial_aggregation(mesh, inp) -> dict:
     return out
 
 
+def _sharded_tape(mesh, inp) -> dict:
+    """``--data_sharding sharded``: 3 float32 steps of config 3 over this
+    rank's block of the split from the converted JAX init over the JAX
+    sharded order (plain cross-entropy and dequant: the fused dequant is
+    refused on this path), then the trainer surface on the IDX files."""
+    built = Engine(RunSpec("mnist_cnn", "mnist", parse_flags(_flags(
+        "--dtype", "float32", "--dequant_impl", "auto", "--pallas_ce",
+        "false", "--data_sharding", "sharded")))).build(
+        mesh, data=_split(), perm_fn=inp["sharded_perms"].__getitem__)
+    convert.load_into_state(built.state, inp["cnn_params0"])
+    tape = []
+    for _ in range(STEPS):
+        _, m = built.step(built.state, next(built.ds))
+        tape.append(float(mesh.sum_metrics(m)["loss"]))
+    run = Engine(RunSpec("mnist_cnn", "mnist", parse_flags([
+        "--device", "cpu", "--dataset", "mnist", "--data_dir",
+        inp["data_dir"], "--data_sharding", "sharded", "--train_steps", "4",
+        "--batch_size", str(B), "--log_dir", ""]))).run()
+    return {"tape": tape, "rows": built.ds.images.shape[0],
+            "params": (convert.state_to_flax(built.state)[0]
+                       if mesh.rank == 0 else None),
+            "run": {k: run[k] for k in ("resident_rows", "params_digest",
+                                        "steps")}}
+
+
 def _rank_state(mesh, inp) -> dict:
     """Each rank seeds its init with its own rank: the broadcast makes
     the replicas equal anyway.  The dropout generators, seeded from one
@@ -279,7 +311,23 @@ def _rank_checks(inp) -> dict:
     if mesh.size == 2:
         out["state"] = _rank_state(mesh, inp)
         out["digest_refusal"] = _config_digest(mesh, inp)
+        out["sharded"] = _sharded_tape(mesh, inp)
     return out
+
+
+def _three_ranks(data_dir: str, log_dir: str) -> dict:
+    """3 ranks through ``Engine.run``: config 3 for 2 steps (its final
+    checkpoint in ``log_dir``), then the same under ``--bucket_grads``."""
+    flags = ["--device", "cpu", "--dataset", "mnist", "--data_dir", data_dir,
+             "--train_steps", "2", "--batch_size", str(B)]
+    plain = Engine(RunSpec("mnist_cnn", "mnist", parse_flags(
+        flags + ["--log_dir", log_dir]))).run()
+    bucketed = Engine(RunSpec("mnist_cnn", "mnist", parse_flags(
+        flags + ["--log_dir", "", "--bucket_grads", "65536"]))).run()
+    keys = ("final_accuracy", "eval_batches", "global_batch", "mode",
+            "collectives", "collective_budget", "params_digest", "steps")
+    return {"plain": {k: plain[k] for k in keys},
+            "bucketed": {k: bucketed[k] for k in keys}}
 
 
 def _fail_on_rank_1():
@@ -411,6 +459,80 @@ def _jax_partial(params0):
     return out
 
 
+def _jax_sharded_dataset(n):
+    from distributedtensorflowexample_tpu.data.device_dataset import (
+        DeviceDataset as JaxDeviceDataset)
+    from distributedtensorflowexample_tpu.parallel.mesh import (
+        make_mesh as jax_make_mesh)
+    mesh = jax_make_mesh(n)
+    return mesh, JaxDeviceDataset(*_split(), B * n, mesh=mesh, seed=0,
+                                  data_sharding="sharded")
+
+
+def _jax_sharded_order(n) -> list:
+    """The JAX sharded order of an n-device mesh, epochs 0-3: each
+    device's block shuffled on its own, interleaved."""
+    import jax.numpy as jnp
+    jds = _jax_sharded_dataset(n)[1]
+    return [np.asarray(jds._make_perm(jnp.asarray(e, jnp.int32)))
+            for e in range(4)]
+
+
+def _jax_sharded(n, params0):
+    """3 float32 steps of the JAX sharded step on an n-device mesh from
+    ``params0``: (tape, params)."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from distributedtensorflowexample_tpu.models.mnist_cnn import (
+        MnistCNN as JaxMnistCNN)
+    from distributedtensorflowexample_tpu.parallel.sync import (
+        make_indexed_train_step as jax_make_indexed_train_step)
+    mesh, jds = _jax_sharded_dataset(n)
+    state = _jax_state(JaxMnistCNN(dropout_rate=0.0, dtype=jnp.float32),
+                       params0, optax.sgd(LR, momentum=MU), mesh)
+    step = jax_make_indexed_train_step(
+        B * n, jds.steps_per_epoch, mesh=mesh, num_replicas=n,
+        num_slots=jds.num_slots, data_sharding="sharded")
+    tape = []
+    for _ in range(STEPS):
+        state, m = step(state, next(jds))
+        tape.append(float(m["loss"]))
+    return tape, jax.tree.map(lambda a: np.array(a, copy=True),
+                              state.params)
+
+
+def _jax_eval_batches(counts=(1, 2, 3, 4, 7)) -> dict:
+    """{N: the eval batch the JAX Engine hands its resident eval on an
+    N-device mesh}, read off ``make_resident_eval``'s argument in a
+    0-step run of the tiny MLP (the eval itself is stubbed out)."""
+    from unittest import mock
+
+    from distributedtensorflowexample_tpu.config import (
+        parse_flags as jax_parse_flags)
+    from distributedtensorflowexample_tpu.engine import engine as jax_engine
+    from distributedtensorflowexample_tpu.trainers import (
+        trainer_tiny_mlp as jax_tiny)
+    seen = {}
+
+    def capture(*args, batch_size, **kw):
+        seen[n] = batch_size
+        return lambda state: 0.0
+
+    with mock.patch.object(jax_engine, "make_resident_eval", capture):
+        for n in counts:
+            cfg = jax_parse_flags(["--num_devices", str(n), "--train_steps",
+                                   "0", "--log_dir", "", "--resume",
+                                   "false", "--batch_size", "8"],
+                                  dataset="tiny_blobs", dropout=0.0)
+            jax_engine.Engine(jax_engine.RunSpec(
+                model="tiny_mlp", dataset="tiny_blobs", config=cfg,
+                model_fn=lambda c: jax_tiny.TinyMLP(),
+                input_fn=jax_tiny.blobs)).run()
+    return seen
+
+
 def _jax_lm_params0():
     """lm_tiny's float32 init from seed 0."""
     import jax
@@ -465,6 +587,7 @@ def runs(tmp_path_factory):
     and run while the JAX tapes compile here."""
     data_dir = tmp_path_factory.mktemp("mnist")
     _tiny_mnist(data_dir)
+    three_dir = tmp_path_factory.mktemp("three_ranks")
     cluster_procs = _cluster_flag_ranks(data_dir)
     try:
         sizes = (1, 2, 4)
@@ -474,17 +597,26 @@ def runs(tmp_path_factory):
         lm_params0 = _jax_lm_params0()
         inputs[2].update(lm_params0=lm_params0,
                          lm_perms=_jax_perms(2, token_data=True))
+        # The sharded order first (the 2-rank group reads it); its JAX
+        # tape is computed again below while the groups run.
+        inputs[2].update(sharded_perms=_jax_sharded_order(2),
+                         data_dir=str(data_dir))
         with ThreadPoolExecutor(len(sizes) + 1) as pool:
             groups = {n: pool.submit(launch.spawn, _rank_checks, n, "gloo",
                                      (inputs[n],), 300) for n in sizes}
             failing = pool.submit(launch.spawn, _fail_on_rank_1, 2, "gloo",
                                   (), 300)
+            three = pool.submit(launch.spawn, _three_ranks, 3, "gloo",
+                                (str(data_dir), str(three_dir)), 300)
+            jax_eval_batches = _jax_eval_batches()
             jax_cnn = {n: _jax_cnn_tape(n, inputs[n]["cnn_params0"])
                        for n in sizes}
             jax_lm = _jax_lm_tape(2, lm_params0)
             jax_partial = _jax_partial(params0)
+            jax_sharded = _jax_sharded(2, params0)
             ranks = {n: g.result() for n, g in groups.items()}
             failed = failing.exception()
+            three = three.result()
         cluster_out = [(*p.communicate(timeout=300), p.returncode)
                        for p in cluster_procs]
     finally:
@@ -494,7 +626,9 @@ def runs(tmp_path_factory):
                 proc.communicate()
     return {"inputs": inputs, "ranks": ranks, "jax_cnn": jax_cnn,
             "jax_lm": jax_lm, "jax_partial": jax_partial,
-            "failed": failed, "data_dir": data_dir,
+            "failed": failed, "data_dir": data_dir, "three": three,
+            "three_dir": three_dir, "jax_eval_batches": jax_eval_batches,
+            "jax_sharded": jax_sharded,
             "cluster_flags": cluster_out}
 
 
@@ -731,3 +865,72 @@ def test_cli_two_cpu_ranks_print_once_from_rank_0(runs, tmp_path, capfd):
     assert sum('"final_accuracy"' in line for line in lines) == 1
     tape = [loss for _, loss in summary["loss_tape"]]
     assert len(tape) == 2 and tape[-1] < tape[0]
+
+
+# --- 3 ranks: a rank count that does not divide 1000 ----------------------
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 7])
+def test_eval_batch_equals_the_jax_engine(runs, n):
+    """The eval batch at N ranks is the JAX Engine's (999 at N = 3), for
+    config 3's global batch and the tiny MLP's the JAX run used."""
+    assert eval_batch_size(8 * n, n) == runs["jax_eval_batches"][n]
+    assert eval_batch_size(B * n, n) == max(B * n, (1000 // n) * n)
+    if n == 3:
+        assert eval_batch_size(B * n, n) == 999
+
+
+def test_three_ranks_evaluate_as_one_rank(runs):
+    """Config 3 on 3 ranks trains and evaluates; its final accuracy is the
+    one a single rank computes from the same (checkpointed) parameters."""
+    three = runs["three"]
+    plain = [r["plain"] for r in three]
+    assert all(p["steps"] == 2 and p["global_batch"] == 3 * B
+               for p in plain)
+    assert len({p["params_digest"] for p in plain}) == 1
+    assert len({p["final_accuracy"] for p in plain}) == 1
+    content = torch.load(runs["three_dir"] / "checkpoints" / "2"
+                         / "rank-0.pt", weights_only=True)
+    built = Engine(RunSpec("mnist_cnn", "mnist", parse_flags(
+        ["--device", "cpu"]))).build(Mesh(CPU), data=_split())
+    built.state.optimizer.params_flat.copy_(content["params"])
+    tx, ty = make_synthetic(128, (28, 28, 1), 10, seed=0, sample_seed=2)
+    one = make_resident_eval(tx, ty, CPU, batch_size=1000)(built.state)
+    assert plain[0]["final_accuracy"] == one
+
+
+def test_three_ranks_bucketed_keep_their_budget(runs):
+    """``--bucket_grads`` on 3 ranks: the bucketed mode, the replicas
+    bitwise equal, B all-reduces a step."""
+    bucketed = [r["bucketed"] for r in runs["three"]]
+    assert all(b["mode"] == "bucketed" for b in bucketed)
+    assert len({b["params_digest"] for b in bucketed}) == 1
+    budget = bucketed[0]["collective_budget"]
+    assert budget["all-reduce"] > 1
+    assert bucketed[0]["collectives"]["all-reduce"] == 2 * budget[
+        "all-reduce"]
+
+
+# --- --data_sharding sharded on 2 ranks ------------------------------------
+
+def test_sharded_two_ranks_track_the_jax_sharded_step(runs):
+    """Each rank holds its half of the split; the tape and parameters
+    track the JAX sharded step (float32, rtol 1e-5, atol 1e-6)."""
+    jtape, jparams = runs["jax_sharded"]
+    sharded = [r["sharded"] for r in runs["ranks"][2]]
+    assert [s["rows"] for s in sharded] == [ROWS // 2] * 2
+    assert sharded[0]["tape"] == sharded[1]["tape"]
+    np.testing.assert_allclose(sharded[0]["tape"], jtape, rtol=1e-5,
+                               atol=1e-6)
+    got = sharded[0]["params"]
+    for k0, leaves in jparams.items():
+        for k1, want in leaves.items():
+            assert _close(got[k0][k1], want, rtol=1e-5, atol=1e-6) is None
+
+
+def test_sharded_trainer_surface_on_two_ranks(runs):
+    """``--data_sharding sharded`` through ``Engine.run`` on the 512-row
+    IDX split: 256 rows resident a rank, the replicas equal."""
+    runs_ = [r["sharded"]["run"] for r in runs["ranks"][2]]
+    assert [r["resident_rows"] for r in runs_] == [256, 256]
+    assert runs_[0]["params_digest"] == runs_[1]["params_digest"]
+    assert runs_[0]["steps"] == 4

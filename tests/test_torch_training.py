@@ -258,19 +258,27 @@ def test_cli_converges_on_cpu(small_torch_mnist, tmp_path, capsys):
     ["--bucket_grads", "auto", "--fused_optimizer", "true"],
     ["--shard_update", "true", "--fused_optimizer", "true"],
     ["--shard_params", "true"],
-    ["--data_sharding", "sharded"], ["--device_data", "off"],
+    # the sharded split and the host-fed path are ported; JAX refuses
+    # them together, and --steps_per_loop > 1 host-fed
+    ["--data_sharding", "sharded", "--device_data", "off"],
+    ["--device_data", "off", "--steps_per_loop", "2"],
     # checkpoints are ported; they need a --log_dir (the test's is "")
     ["--checkpoint_every", "10"],
     # ZeRO-3 lays its rows out by --bucket_grads, as in JAX
     ["--shard_params", "true", "--num_devices", "2"],
-    ["--dequant_impl", "onehot"], ["--dequant_impl", "lut"],
+    # onehot and lut are ported; the fused dequant kernel gathers over
+    # the whole resident split, so JAX refuses it host-fed and sharded
+    ["--dequant_impl", "pallas", "--device_data", "off"],
+    ["--dequant_impl", "pallas", "--data_sharding", "sharded"],
     ["--fused_optimizer", "true", "--momentum", "0"],
     # weight decay is ported; the fused apply still has no decay term
     ["--fused_optimizer", "true", "--weight_decay", "0.1"],
     # 2 processes x 2 local devices: refused before any group is joined
     ["--coordinator_address", "localhost:1", "--num_processes", "2",
      "--process_id", "0", "--num_devices", "4"],
-    ["--data_sharding", "sharded", "--num_devices", "2"],
+    # refused before any rank is started
+    ["--data_sharding", "sharded", "--num_devices", "2", "--dequant_impl",
+     "pallas"],
 ])
 def test_unported_modes_are_refused_by_name(small_torch_mnist, flags):
     from distributedtensorflowexample_tpu_torch.trainers import (
