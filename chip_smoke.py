@@ -17,9 +17,12 @@ and restore onto another width, that lm_base serves with its
 parameters left sharded over two ranks, that config 3 trains from the
 host-fed input path (``--device_data off``: the native loader, pinned
 uploads, the LUT dequants) and with the split sharded over two ranks,
-that ResNet-20 trains with each block rematerialized, and that every
+that ResNet-20 trains with each block rematerialized, that every
 run's telemetry (tfevents, the profiler window, ``health.json``) is
-written.
+written, and that the resilience drivers supervise runs on the card: a
+preempted config-3 child restarted and resumed bitwise, a wedge killed
+by the heartbeat watchdog, and a two-rank gang restarted from its agreed
+snapshot step.
 
     python3 chip_smoke.py
 
@@ -138,6 +141,27 @@ J. the SIGTERM drill on the card: ``trainer_sync_mnist`` in a process of
    0; then the same for two gloo ranks on the one card started through
    ``parallel/launch.spawn`` (the launcher ``--num_devices N`` uses),
    which forwards the signal to both ranks; one ``sigterm_drill`` line;
+U. (after J) supervision on the card, through the port's entry points
+   (``python -m distributedtensorflowexample_tpu_torch.tools.<name>``):
+   (a) ``supervise --retries 2`` of config 3 with the four kernels
+   (1,000 steps, B=64, deterministic cuDNN) in a child process; SIGTERM
+   to the child (found through ``/proc/<pid>/task/*/children``) after
+   its first log line: the journal holds rc 143 then 0, the supervisor
+   exits 0, attempt 1 logs ``resumed from checkpoint at step N``, each
+   attempt's launches are ``dequant`` = the steps it trained (+ the eval
+   batches), ``ce_fwd`` = ``ce_bwd`` = ``sgd`` = the steps it trained,
+   and the final parameters and momentum are bitwise those of an
+   uninterrupted run of the same flags in this process; (b) ``faultline
+   --model mnist_cnn --plan wedge@3:60`` under ``supervise
+   --heartbeat_timeout_s 3 --kill_grace_s 2``: the watchdog kills attempt
+   0's group, attempt 1 resumes at step 3 and exits 0; the time from the
+   last beat to the kill is at least the timeout; (c) ``supervise_fleet
+   --num_ranks 2`` of faultline ranks on the one card with ``kill@4%1``
+   (rank 0 slowed from step 2 so the gang is whole when rank 1 dies):
+   rank 1 dies by SIGKILL, the gang is torn down, both ranks restart
+   from the agreed step (``FLEET_RESUME_STEP``) and end with the digest
+   and tape of an uninterrupted ``--plan none`` run; (b) and (c) start
+   first and run beside (a); one ``supervision_path`` line;
 L. the replication modes on the two gloo ranks, under cuDNN's
    deterministic algorithms: config 3 (``trainer_sync_mnist``, B=64 per
    rank, the dequant and CE kernels, plain momentum SGD: the fused apply
@@ -270,9 +294,10 @@ T. telemetry: config 3 with the four kernels, 60 steps, with
    kernel events inside its ``ProfilerStep`` window, ``health.json`` is
    written, and ``AnomalyHook`` fired nothing; one ``telemetry_path``
    line;
-7. the ``kernels`` JSON line (each kernel's launches summed over every
+7. a ``phase_wall_s`` line (each phase's wall seconds, and their sum),
+   the ``kernels`` JSON line (each kernel's launches summed over every
    path and rank, and per path: per rank for the multi-rank paths, per
-   run for phase I), then the ``ok`` line last.
+   run for phase I, per attempt for phase U), then the ``ok`` line last.
 
 Times come from ``utils/kernel_timing.py``, by CUDA events after a
 warm-up, each launch on fresh indices (dequant) or buffers (SGD) where
@@ -353,6 +378,11 @@ REMAT_PEAK_STEPS = 3        # phase R: the steps whose peak is read
 SHARDED_DATA_STEPS = 20     # phase SH
 TELEMETRY_STEPS = 60        # phase T
 Z3_RESUME_STEPS = 40        # phase I': 20 steps, then resumed to 40
+SUPERVISED_STEPS = 1000     # phase U (a): SIGTERM after the step-100 line
+SUPERVISED_HB_S = 120.0     # phase U (a): far above the trainer's beats
+FAULT_STEPS = 10            # phase U (b), (c): faultline steps
+WEDGE_HB_S = 3.0            # phase U (b): the watchdog's timeout
+WEDGE_GRACE_S = 2.0         # phase U (b): TERM-to-KILL grace
 #: The replication modes' flags (phase L; lm_base takes --bucket_grads
 #: auto by default, so its sync_dp turns it off).
 MODE_FLAGS = {"sync_dp": [], "bucketed": ["--bucket_grads", "auto"],
@@ -1663,6 +1693,324 @@ def run_drill_phase(gpu: str) -> None:
     print(json.dumps({"sigterm_drill": dict(out, gpu=gpu)}), flush=True)
 
 
+# --- phase U: supervision on the card --------------------------------------
+
+TOOLS = "distributedtensorflowexample_tpu_torch.tools."
+
+
+def supervised_trainer(argv: list) -> None:
+    """Phase U (a)'s supervised child: ``trainer_sync_mnist`` under cuDNN's
+    deterministic algorithms; its last stdout line is the attempt's
+    kernel launches and summary, also when SIGTERM ends it with 143."""
+    from distributedtensorflowexample_tpu_torch.trainers import (
+        trainer_sync_mnist)
+    torch.backends.cudnn.deterministic = True
+    summary = None
+    try:
+        summary = trainer_sync_mnist.main(argv)
+    finally:
+        keep = ("start_step", "steps", "eval_batches", "params_digest",
+                "final_accuracy", "steps_per_sec")
+        print(json.dumps({"supervised_attempt": {
+            "attempt": int(os.environ.get("SUPERVISE_ATTEMPT", "-1")),
+            "launches": kernels.launch_counts(),
+            "summary": None if summary is None else
+            {k: summary[k] for k in keep}}}), flush=True)
+
+
+def child_pids(pid: int) -> list:
+    """The child processes of ``pid``: the ids in
+    ``/proc/<pid>/task/*/children`` that lead their own thread group and
+    whose parent is ``pid`` (a sandboxed kernel may list a child's
+    threads there too)."""
+    found = set()
+    for task in Path(f"/proc/{pid}/task").glob("*"):
+        try:
+            found.update(int(c) for c in
+                         (task / "children").read_text().split())
+        except OSError:
+            continue
+    out = []
+    for c in sorted(found):
+        try:
+            status = Path(f"/proc/{c}/status").read_text()
+        except OSError:
+            continue
+        fields = dict(line.split(":", 1) for line in status.splitlines()
+                      if ":" in line)
+        if (int(fields.get("Tgid", -1)) == c
+                and int(fields.get("PPid", -1)) == pid):
+            out.append(c)
+    return out
+
+
+def stop(p: subprocess.Popen) -> None:
+    """End ``p`` if it still runs: SIGTERM first, which a supervisor
+    forwards to its children's process groups, then SIGKILL."""
+    if p.poll() is None:
+        p.terminate()
+        try:
+            p.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+
+
+def journal_rows(path: Path) -> list:
+    return [json.loads(line) for line in path.read_text().splitlines()
+            if line.strip()]
+
+
+def supervised_preemption(gpu: str) -> tuple:
+    """Phase U (a): config 3 with the four kernels under the port's
+    ``supervise``; SIGTERM to the child after its first log line; 143 then
+    0, the resume bitwise an uninterrupted run's."""
+    root = ROOT / "build" / "chip_smoke_supervised"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    flags = ["--device", "cuda", "--dataset", "synthetic", "--dequant_impl",
+             "pallas", "--pallas_ce", "true", "--fused_optimizer", "true",
+             "--batch_size", str(BATCH), "--train_steps",
+             str(SUPERVISED_STEPS), "--log_every", "100",
+             "--checkpoint_every", "500"]
+    cmd = [sys.executable, "-m", TOOLS + "supervise", "--retries", "2",
+           "--heartbeat_timeout_s", str(SUPERVISED_HB_S), "--heartbeat",
+           str(root / "hb"), "--journal", str(root / "journal.jsonl"),
+           "--seed", "0", "--", sys.executable, "-u", "-c",
+           "import sys, chip_smoke; chip_smoke.supervised_trainer("
+           "sys.argv[1:])", *flags, "--log_dir", str(root / "supervised")]
+    t0 = time.perf_counter()
+    p = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+    lines, first = [], threading.Event()
+
+    def drain():
+        for line in p.stdout:
+            lines.append(line)
+            if line.startswith("step ") and "loss" in line:
+                first.set()
+        first.set()
+
+    reader = threading.Thread(target=drain, daemon=True)
+    reader.start()
+    try:
+        first.wait(timeout=300)
+        kids = child_pids(p.pid)
+        require(len(kids) == 1, f"phase U (a): the supervisor has children "
+                                f"{kids}, want the one trainer:\n"
+                                f"{''.join(lines)[-3000:]}")
+        t_signal, signal_wall = time.perf_counter(), time.time()
+        os.kill(kids[0], signal.SIGTERM)
+        p.wait(timeout=600)
+    finally:
+        stop(p)
+        reader.join(timeout=30)
+    wall = time.perf_counter() - t0
+    text = "".join(lines)
+    attempts = [json.loads(l)["supervised_attempt"] for l in lines
+                if l.startswith('{"supervised_attempt"')]
+    rows = [r for r in journal_rows(root / "journal.jsonl")
+            if r["event"] == "attempt_end"]
+    ends = [(r["attempt"], r["rc"], r["reason"]) for r in rows]
+    m = re.search(r"SIGTERM at step (\d+): checkpoint saved", text)
+    require(p.returncode == 0 and ends == [(0, 143, "exit"), (1, 0, "exit")]
+            and m is not None and len(attempts) == 2
+            and "Traceback" not in text,
+            f"phase U (a): supervise exit code {p.returncode}, attempts "
+            f"{ends}:\n{text[-4000:]}")
+    saved = int(m.group(1))
+    require(f"resumed from checkpoint at step {saved}" in text
+            and attempts[1]["summary"]["start_step"] == saved,
+            f"phase U (a): attempt 1 did not resume at step {saved}")
+    trained = [saved, SUPERVISED_STEPS - saved]
+    evals = attempts[1]["summary"]["eval_batches"]
+    for a, n, ev in zip(attempts, trained, (0, evals)):
+        want = {"dequant": n + ev, "ce_fwd": n, "ce_bwd": n, "sgd": n}
+        require(a["launches"] == want and n > 0,
+                f"phase U (a): attempt {a['attempt']} launches "
+                f"{a['launches']}, expected {want}")
+    cudnn = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref = run_trainer("trainer_sync_mnist",
+                          flags + ["--log_dir", str(root / "straight")])
+    finally:
+        torch.backends.cudnn.deterministic = cudnn
+    last = SUPERVISED_STEPS
+    a, b = (torch.load(root / d / "checkpoints" / str(last) / "rank-0.pt",
+                       weights_only=True) for d in ("supervised", "straight"))
+    bitwise = (torch.equal(a["params"], b["params"])
+               and torch.equal(a["momentum"], b["momentum"])
+               and attempts[1]["summary"]["params_digest"]
+               == ref["params_digest"])
+    require(bitwise, f"phase U (a): the resumed parameters are "
+                     f"{(a['params'] - b['params']).abs().max().item():.3g} "
+                     f"from the uninterrupted run's")
+    return {"steps": SUPERVISED_STEPS, "preempted_at": saved,
+            "attempt_rcs": [rc for _, rc, _ in ends],
+            "launches_by_attempt": [x["launches"] for x in attempts],
+            "resumed_bitwise": bitwise,
+            "signal_to_attempt_end_s": rows[0]["ts"] - signal_wall,
+            "first_line_s": t_signal - t0,
+            "wall_s": wall}, [x["launches"] for x in attempts]
+
+
+def watch_mtimes(path: Path, stop: threading.Event, seen: set) -> None:
+    """Phase U (b): every mtime ``path`` shows, polled every 10 ms."""
+    while not stop.is_set():
+        try:
+            seen.add(os.path.getmtime(path))
+        except OSError:
+            pass
+        time.sleep(0.01)
+
+
+def faultline_argv(*extra) -> list:
+    return [sys.executable, "-m", TOOLS + "faultline", "--device", "cuda",
+            "--model", "mnist_cnn", "--steps", str(FAULT_STEPS), "--seed",
+            "0", *extra]
+
+
+def last_json(path: Path) -> dict:
+    return json.loads(path.read_text().strip().splitlines()[-1])
+
+
+def start(cmd: list, log: Path) -> subprocess.Popen:
+    with open(log, "wb") as f:
+        return subprocess.Popen(cmd, cwd=ROOT, stdout=f,
+                                stderr=subprocess.STDOUT)
+
+
+def wedge_under_watchdog(root: Path) -> tuple:
+    """Phase U (b): ``faultline --plan wedge@3:60`` under ``supervise``;
+    returns the process and what to check once it ends."""
+    hb = root / "hb"
+    cmd = [sys.executable, "-m", TOOLS + "supervise", "--retries", "1",
+           "--backoff_base_s", "0.01", "--heartbeat_timeout_s",
+           str(WEDGE_HB_S), "--kill_grace_s", str(WEDGE_GRACE_S),
+           "--heartbeat", str(hb), "--journal", str(root / "journal.jsonl"),
+           "--stdout", str(root / "out.json"), "--seed", "0", "--",
+           *faultline_argv("--plan", "wedge@3:60", "--workdir",
+                           str(root / "w"))]
+    stop, seen = threading.Event(), set()
+    watcher = threading.Thread(target=watch_mtimes, args=(hb, stop, seen),
+                               daemon=True)
+    watcher.start()
+    return start(cmd, root / "log.txt"), (stop, watcher, seen)
+
+
+def check_wedge(root: Path, rc: int, watch: tuple) -> dict:
+    stop, watcher, seen = watch
+    stop.set()
+    watcher.join(timeout=10)
+    text = (root / "log.txt").read_text()
+    ends = [(r["attempt"], r["rc"], r["reason"], r["ts"])
+            for r in journal_rows(root / "journal.jsonl")
+            if r["event"] == "attempt_end"]
+    require(rc == 0 and [e[:3] for e in ends] == [
+        (0, None, "heartbeat_timeout"), (1, 0, "exit")],
+        f"phase U (b): supervise exit code {rc}, attempts {ends}:\n"
+        f"{text[-4000:]}")
+    final = last_json(root / "out.json")
+    require(final["status"] == "ok" and final["step"] == FAULT_STEPS
+            and final["start_step"] == 3,
+            f"phase U (b): the retry gave {final}")
+    killed_at = ends[0][3]
+    beats = [t for t in seen if t <= killed_at]
+    require(bool(beats), "phase U (b): no beat seen before the kill")
+    gap = killed_at - max(beats)
+    require(WEDGE_HB_S <= gap <= WEDGE_HB_S + WEDGE_GRACE_S + 5.0,
+            f"phase U (b): {gap:.3f} s from the last beat to the kill, "
+            f"timeout {WEDGE_HB_S} s, grace {WEDGE_GRACE_S} s")
+    stale = re.search(r"heartbeat stale ([0-9.]+)s", text)
+    return {"heartbeat_timeout_s": WEDGE_HB_S, "kill_grace_s": WEDGE_GRACE_S,
+            "last_beat_to_kill_s": gap,
+            "stale_age_at_detection_s": float(stale.group(1)) if stale
+            else None, "retry_start_step": final["start_step"]}
+
+
+def gang_on_the_card(root: Path) -> tuple:
+    """Phase U (c): ``supervise_fleet --num_ranks 2`` of faultline ranks on
+    the one card, rank 1 SIGKILLed at step 4; rank 0 is slowed from step 2
+    so the gang is still whole when rank 1 dies, and the teardown has a
+    live rank to stop.  With the uninterrupted reference, in parallel."""
+    cmd = [sys.executable, "-m", TOOLS + "supervise_fleet", "--num_ranks",
+           "2", "--retries", "1", "--backoff_base_s", "0.01",
+           "--kill_grace_s", "30", "--workdir", str(root / "fleet"),
+           "--seed", "0", "--",
+           *faultline_argv("--plan", "kill@4%1,slow_rank@2:1.0%0", "--keep",
+                           "20", "--workdir", str(root / "fleet"
+                                                  / "rank{rank}"))]
+    ref = faultline_argv("--plan", "none", "--workdir", str(root / "ref"))
+    return (start(cmd, root / "fleet_log.txt"),
+            start(ref, root / "ref_log.txt"))
+
+
+def check_gang(root: Path, rc: int, ref_rc: int) -> dict:
+    fleet = root / "fleet"
+    text = (root / "fleet_log.txt").read_text()
+    require(rc == 0 and ref_rc == 0,
+            f"phase U (c): supervise_fleet exit code {rc}, reference "
+            f"{ref_rc}:\n{text[-4000:]}")
+    ref = last_json(root / "ref_log.txt")
+    rows = journal_rows(fleet / "fleet.jsonl")
+    killed = [r for r in rows if r["event"] == "rank_exit"
+              and r["attempt"] == 0 and r["rank"] == 1]
+    tear = [r for r in rows if r["event"] == "gang_teardown"]
+    agree = [r for r in rows if r["event"] == "resume_agreement"]
+    starts = [r for r in rows if r["event"] == "gang_start"]
+    require(killed and killed[0]["rc"] == -signal.SIGKILL,
+            f"phase U (c): rank 1's attempt-0 exit {killed}")
+    require(tear and tear[0]["why"] == "rank_crash" and tear[0]["rank"] == 1,
+            f"phase U (c): teardown {tear}")
+    require(len(agree) == 1 and len(starts) == 2,
+            f"phase U (c): agreements {agree}, gang starts {starts}")
+    agreed = agree[0]["agreed"]
+    require(agreed >= 1 and starts[1]["resume_step"] == agreed,
+            f"phase U (c): agreed step {agreed}, exported "
+            f"{starts[1]['resume_step']}")
+    finals = [last_json(fleet / f"rank{r}_attempt1.out") for r in (0, 1)]
+    for r, f in enumerate(finals):
+        require(f["status"] == "ok" and f["start_step"] == agreed
+                and f["step"] == FAULT_STEPS and f["digest"] == ref["digest"]
+                and f["losses"] == ref["losses"][agreed:],
+                f"phase U (c): rank {r} ended {f}, the uninterrupted run "
+                f"{ref['digest']}")
+    teardown_rcs = {r["rank"]: r["rc"] for r in rows
+                    if r["event"] == "rank_exit" and r["attempt"] == 0}
+    return {"agreed_step": agreed, "attempt0_rcs": teardown_rcs,
+            "discarded": agree[0]["discarded"],
+            "digest_equal_uninterrupted": True}
+
+
+def run_supervision_phase(gpu: str) -> dict:
+    """Phase U: (b) and (c) started first, (a) in the meantime (their
+    processes share the one card)."""
+    t0 = time.perf_counter()
+    root = ROOT / "build" / "chip_smoke_faults"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "wedge").mkdir(parents=True)
+    (root / "gang").mkdir(parents=True)
+    wedge, watch = wedge_under_watchdog(root / "wedge")
+    gang, ref = gang_on_the_card(root / "gang")
+    procs = (wedge, gang, ref)
+    try:
+        pre, launches = supervised_preemption(gpu)
+        for q in procs:
+            q.wait(timeout=600)
+    finally:
+        for q in procs:
+            stop(q)
+    result = {"supervised_preemption": pre,
+              "wedge_watchdog": check_wedge(root / "wedge", wedge.returncode,
+                                            watch),
+              "gang": check_gang(root / "gang", gang.returncode,
+                                 ref.returncode),
+              "wall_s": time.perf_counter() - t0, "gpu": gpu}
+    print(json.dumps({"supervision_path": result}), flush=True)
+    return {"mnist_cnn_supervised": launches}
+
+
 # --- phase S: serving lm_base ---------------------------------------------
 
 def host_argv(steps: int, log_dir: str, log_every: int, *extra) -> list:
@@ -2922,6 +3270,14 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(gpu, flush=True)
 
+    laps, last = {}, [time.perf_counter()]
+
+    def lap(phase: str) -> None:
+        """Wall seconds since the previous lap, under ``phase``."""
+        now = time.perf_counter()
+        laps[phase] = round(now - last[0], 1)
+        last[0] = now
+
     t0 = time.perf_counter()
     report = kbuild.build()
     print(json.dumps({"build_s": round(time.perf_counter() - t0, 3),
@@ -2932,6 +3288,7 @@ def main() -> int:
         print(json.dumps({"ptxas": name,
                           "kernels": kt.ptxas_summary(r["ptxas"])}),
               flush=True)
+    lap("1-2")
     gen = torch.Generator(device="cuda").manual_seed(0)
     print(json.dumps({"floor_device_us": kt.floor_device_us(), "gpu": gpu}),
           flush=True)
@@ -2961,41 +3318,65 @@ def main() -> int:
                           "max_abs_err": r["max_abs_err"], **extra,
                           "gpu": gpu}), flush=True)
 
+    lap("3")
     for model in ("mnist_cnn", "lm_small", "resnet20"):
         print(json.dumps({"card_vs_cpu_5_steps":
                           check_card_against_cpu(model)}), flush=True)
+    lap("4")
 
     result, counts = run_main_path(gpu)
     print(json.dumps({"main_path": result}), flush=True)
     print(f"main path: {result['steps_per_sec']:.1f} steps/s (last "
           f"100-step window, B={BATCH}) on {gpu}", flush=True)
+    lap("5")
     lm, lm_counts = run_lm_main_path(gpu)
     print(json.dumps({"lm_main_path": lm}), flush=True)
     print(f"lm main path: {lm['steps_per_sec']:.2f} steps/s (last 100-step "
           f"window, {LM_SIZE}, B={LM_BATCH} x T=128) on {gpu}", flush=True)
 
+    lap("6")
     cifar, cifar_counts = run_cifar_main_path(gpu)
     print(json.dumps({"cifar_main_path": cifar}), flush=True)
     print(f"cifar main path: {cifar['steps_per_sec']:.1f} steps/s (last "
           f"100-step window, resnet20, B={CIFAR_BATCH}) on {gpu}",
           flush=True)
 
+    lap("E")
     async_one = run_async_main_path()
+    lap("K one worker")
 
     by_path = run_gloo_phases(gpu)
     report_async_path(async_one, by_path.pop("async_gloo2"), gpu)
+    lap("A B D F K")
     by_path.update(run_nccl_phase(gpu))
+    lap("C")
     softmax_counts = run_local_mnist(gpu)
+    lap("G")
     by_path.update(run_multiworker_phase(gpu))
+    lap("H")
     by_path.update(run_resume_phase(gpu))
+    lap("I")
     run_drill_phase(gpu)
+    lap("J")
+    by_path.update(run_supervision_phase(gpu))
+    lap("U")
     by_path.update(run_host_fed_phase(gpu))
+    lap("Q")
     by_path.update(run_remat_phase(gpu))
+    lap("R")
     by_path.update(run_telemetry_phase(gpu))
+    lap("T")
     by_path.update(run_mode_phases(gpu, ("L", "M", "N", "I'", "SH")))
+    lap("L M N I' SH")
     shard_ranks, four = run_shard_phase()
+    lap("O")
     serving_counts = run_serving_phase(gpu)
+    lap("S")
     by_path.update(run_sharded_phase(gpu, shard_ranks, four))
+    lap("P")
+    print(json.dumps({"phase_wall_s": laps,
+                      "script_wall_s": round(sum(laps.values()), 1),
+                      "gpu": gpu}), flush=True)
 
     line = []
     for name, (source, replaces) in SOURCES.items():
