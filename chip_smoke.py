@@ -19,10 +19,13 @@ host-fed input path (``--device_data off``: the native loader, pinned
 uploads, the LUT dequants) and with the split sharded over two ranks,
 that ResNet-20 trains with each block rematerialized, that every
 run's telemetry (tfevents, the profiler window, ``health.json``) is
-written, and that the resilience drivers supervise runs on the card: a
+written, that the resilience drivers supervise runs on the card: a
 preempted config-3 child restarted and resumed bitwise, a wedge killed
 by the heartbeat watchdog, and a two-rank gang restarted from its agreed
-snapshot step.
+snapshot step, and that the control plane schedules and heals on it: a
+config-3 job evicted by a more urgent one and resumed bitwise, a wedged
+job quarantined, a damaged ZeRO-3 shard set reconstructed, and a slow
+rank evicted and its gang resumed bitwise.
 
     python3 chip_smoke.py
 
@@ -82,7 +85,8 @@ C. config 3 through an NCCL group of the largest power of two of
    all-reduce on the card): with one rank the parameters must be bitwise
    those of the same 50 steps with no process group (both with cuDNN's
    deterministic algorithms); with two or more, phase A's cross-rank
-   checks;
+   checks; run after U, beside H, J and V (its steps/s is then not a
+   quiet card's);
 D. in the same two gloo ranks last: first 3 steps of lm_base at B=16
    per rank against the same 3 steps of one rank at B=32 with no group,
    from one init and one index tape (global loss tapes within 2e-2
@@ -115,7 +119,8 @@ H. config 5: ``trainer_multiworker_cifar.main`` as one NCCL process,
    started with the cluster flags (``--worker_hosts``, ``--task_index``)
    inside a one-rank NCCL group, 50 steps: a host-name exchange places
    the rank, one gradient all-reduce a step and none for batch norm (one
-   rank), phase E's launches per step;
+   rank), phase E's launches per step; run after U, beside C, J and V
+   (its steps/s is then not a quiet card's);
 K. config 2's main path: ``trainer_ps_mnist.main`` on ``cuda`` at full
    width (``MnistCNN``, 3,274,634 parameters) with ``--dequant_impl
    pallas --pallas_ce true``, 600 steps at B=64: dequant once per step
@@ -138,10 +143,11 @@ J. the SIGTERM drill on the card: ``trainer_sync_mnist`` in a process of
    its own on ``cuda`` with the four kernels, SIGTERM after its first log
    line: exit code 143 and ``SIGTERM at step N: checkpoint saved``, then
    a restart in the same ``--log_dir`` resumes from N and ends with code
-   0; then the same for two gloo ranks on the one card started through
-   ``parallel/launch.spawn`` (the launcher ``--num_devices N`` uses),
-   which forwards the signal to both ranks; one ``sigterm_drill`` line;
-U. (after J) supervision on the card, through the port's entry points
+   0; beside it the same for two gloo ranks on the one card started
+   through ``parallel/launch.spawn`` (the launcher ``--num_devices N``
+   uses), which forwards the signal to both ranks; run after U, beside
+   C, H and V; one ``sigterm_drill`` line;
+U. (after I) supervision on the card, through the port's entry points
    (``python -m distributedtensorflowexample_tpu_torch.tools.<name>``):
    (a) ``supervise --retries 2`` of config 3 with the four kernels
    (1,000 steps, B=64, deterministic cuDNN) in a child process; SIGTERM
@@ -162,6 +168,33 @@ U. (after J) supervision on the card, through the port's entry points
    from the agreed step (``FLEET_RESUME_STEP``) and end with the digest
    and tape of an uninterrupted ``--plan none`` run; (b) and (c) start
    first and run beside (a); one ``supervision_path`` line;
+V. (after U, beside C, H and J) the scheduler and the heal drills on
+   the card, through the port's entry points; (b) and (c) start first
+   and run beside (a):
+   (a) ``schedule --devices 1`` of a three-job queue: the config-3
+   victim (phase U (a)'s flags and 1,000 steps, ``--checkpoint_every
+   50``, priority 10), a priority-0 one-rank ``faultline`` evictor gated
+   on the victim's step-50 checkpoint, and a wedge (``sys.exit(3)``).
+   The ledger holds ``sched_evict`` of the victim (rc 143, clean) before
+   the evictor's ``sched_place``, the victim's second placement
+   ``resumed``, ``sched_done`` for both, ``sched_quarantine`` for the
+   wedge (placed once; exit code 3); each placement's launches are
+   ``dequant`` = the steps it trained (+ the eval batches), ``ce_fwd`` =
+   ``ce_bwd`` = ``sgd`` = the steps it trained; the final parameters
+   and momentum are bitwise phase U's uninterrupted run; the ``--record``
+   names the card and its power limit; the time from the eviction's
+   intent to the victim's 143 is printed; (b) ``heal_drill --drill ckpt
+   --model softmax --mesh 2``: a ZeRO-3 faultline of two gloo ranks on
+   the card, ``shard_loss`` and ``bitflip`` after the final save, each
+   reconstructed (``ckpt_reconstruct``, ``ckpt_digest_mismatch``),
+   bitwise, 0 steps lost, ``ckpt_shard_restore_failures`` and
+   ``ckpt_digest_mismatch_unrecovered`` 0, MTTD and MTTR printed; (c)
+   ``supervise_fleet --heal`` of two faultline ranks (mnist_cnn, 16
+   steps), rank 1 slowed 2 s a step from step 5, the per-rank
+   regression detector unarmed: a ``heal_evict`` of rank 1 named
+   straggler by the fleet, one relaunch from the agreed step, both
+   ranks' digests and tapes those of an uninterrupted run beside it; one
+   ``scheduling_path`` line and one line for each part;
 L. the replication modes on the two gloo ranks, under cuDNN's
    deterministic algorithms: config 3 (``trainer_sync_mnist``, B=64 per
    rank, the dequant and CE kernels, plain momentum SGD: the fused apply
@@ -176,14 +209,14 @@ L. the replication modes on the two gloo ranks, under cuDNN's
    ``modes_path`` line with steps/s per mode and the host-staged ms per
    collective of each kind at 3,274,634 float32;
 M. lm_base at full width on the two gloo ranks (B=16 x T=128 per rank,
-   ``--remat block``, lr 0.02, the CE pair), 10 steps in each of
+   ``--remat block``, lr 0.02, the CE pair), 6 steps in each of
    ``sync_dp``, ``bucketed`` (auto), ``zero1`` and ``zero3`` with the
    gathers overlapped and serial: the loss tapes within 1e-5 relative of
    ``sync_dp``'s, the budgets per step, B per mode, each rank's
    ``torch.cuda.memory_allocated`` by its state after init (and the
    state's own tensor bytes) and its peak over the steps
    (``torch.cuda.max_memory_allocated``, both above what was allocated
-   before the state), against sync_dp's, steps/s over the last 9
+   before the state), against sync_dp's, steps/s over the last 5
    steps; then one ``lm_modes_path`` line (and the ms per collective at
    57,289,728 float32);
 N. config 4's ResNet-20 in async mode on the two gloo ranks (B=128 per
@@ -224,8 +257,8 @@ O. (after I', before S) shard-redundant snapshots at lm_base, full
    width, on the two gloo ranks: ``trainer_lm`` under ``--bucket_grads
    auto --shard_params true`` (B=66 buckets), B=16 x T=128 a rank,
    ``--remat block``, lr 0.02, the CE pair, with ``SNAPSHOT_DIR``, a set
-   (and a checkpoint) every 5 steps to step 10, keep 2; twice, and a copy
-   of the first run's step-5 set resumed to step 10.  Checks, each fatal:
+   (and a checkpoint) every 2 steps to step 4, keep 2; twice, and a copy
+   of the first run's step-2 set resumed to step 4.  Checks, each fatal:
    (a) both sets quorum-valid, each rank directory holding ``own``, one
    mirror and ``repl``; (b) rank 1's directory dropped: the restore at
    D=2 reconstructs shard 1 and is bitwise the intact restore (sha256 of
@@ -234,7 +267,7 @@ O. (after I', before S) shard-redundant snapshots at lm_base, full
    bitwise; (d) shard 0's own copy and its mirror dropped: ``ModeRefusal``
    naming "exceeds redundancy R=2"; (e) the D=2 set restored on four gloo
    ranks, saved there as a D=4 set, and that restored on two (after S,
-   in phase P's group): bitwise; (f) the resumed step-10 shards bitwise the straight
+   in phase P's group): bitwise; (f) the resumed step-4 shards bitwise the straight
    run's if the two straight runs are bitwise equal, else within twice
    their gap; (g) the collectives a step the zero3 budget with the hook
    on; (h) ``ce_fwd`` = ``ce_bwd`` = 1 launch a step on each rank,
@@ -244,7 +277,7 @@ O. (after I', before S) shard-redundant snapshots at lm_base, full
 P. params-stay-sharded serving at lm_base, full width: phase S's tree
    snapshot promoted into 1/2 rows a rank (``promote_sharded``) and
    served by ``serve_lm --sharded_mesh 2`` (two gloo ranks on the card)
-   with 8 slots of 128 rows (4 a rank), 16 requests of 4-12-token prompts
+   with 8 slots of 128 rows (4 a rank), 8 requests of 4-12-token prompts
    from 4 closed-loop clients, 16 tokens each.  Checks, each fatal: (a)
    all 16 answered; (b) each request's tokens bitwise a replicated engine
    of 4 slots fed its prompt; (c) equal to an 8-slot engine up to the
@@ -259,8 +292,8 @@ P. params-stay-sharded serving at lm_base, full width: phase S's tree
    answered.  Launch counters 0 in both ranks.  One
    ``sharded_serving_path`` line: tokens/s, p50/p99, decode ms a step,
    bytes gathered a step, ms an all-gather, residency a rank;
-Q. (after J) the host-fed input path: the native loader built
-   (``native.available()``) and its ``gather`` and ``gather_augment``
+Q. (after C, H, J and V) the host-fed input path: the native loader
+   built (``native.available()``) and its ``gather`` and ``gather_augment``
    bitwise numpy's on the synthetic MNIST split (uint8 and float32);
    ``trainer_sync_mnist`` with ``--device_data off --pallas_ce true
    --fused_optimizer true``, 200 steps at B=64 and one eval: ``ce_fwd``
@@ -297,7 +330,8 @@ T. telemetry: config 3 with the four kernels, 60 steps, with
 7. a ``phase_wall_s`` line (each phase's wall seconds, and their sum),
    the ``kernels`` JSON line (each kernel's launches summed over every
    path and rank, and per path: per rank for the multi-rank paths, per
-   run for phase I, per attempt for phase U), then the ``ok`` line last.
+   run for phase I, per attempt for phase U, per placement for phase
+   V), then the ``ok`` line last.
 
 Times come from ``utils/kernel_timing.py``, by CUDA events after a
 warm-up, each launch on fresh indices (dequant) or buffers (SGD) where
@@ -313,6 +347,7 @@ float32 outside the tensor cores.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import gc
 import importlib
@@ -369,7 +404,7 @@ MR_ASYNC_STEPS = 296        # phase K, two workers: a multiple of the period
 ASYNC_PERIOD = 8
 RESUME_STEPS = 200          # phase I: 100 steps, then resumed to 200
 MODE_STEPS = 50             # phase L, each mode
-MODE_LM_STEPS = 10          # phase M, each mode
+MODE_LM_STEPS = 6           # phase M, each mode
 ASYNC_BN_STEPS = 40         # phase N
 HOST_STEPS = 200            # phase Q: host-fed config 3
 HOST_CMP_STEPS = 20         # phase Q: the dequants and the copies compared
@@ -1421,10 +1456,11 @@ def run_gloo_phases(gpu: str) -> dict:
             "async_gloo2": an}
 
 
-def run_nccl_phase(gpu: str) -> dict:
+def run_nccl_phase(gpu: str) -> tuple:
     """Phase C: config 3 through an NCCL group on the visible cards: the
     largest power of two of them up to 4, so that the eval batch of 1000
-    divides across the ranks."""
+    divides across the ranks.  Returns the ``nccl_path`` line to print
+    and the launches by path."""
     world = 1 << (min(torch.cuda.device_count(), 4).bit_length() - 1)
     argv = ["--device", "cuda", "--dataset", "synthetic", "--dequant_impl",
             "pallas", "--pallas_ce", "true", "--fused_optimizer", "true",
@@ -1458,35 +1494,36 @@ def run_nccl_phase(gpu: str) -> dict:
                 f"phase C: loss tapes differ ({alone['loss_tape']} without "
                 f"a group, {ranks[0]['loss_tape']} under NCCL)")
         result["bitwise_equal_to_no_group"] = True
-    print(json.dumps({"nccl_path": result}), flush=True)
-    return {"mnist_cnn_nccl": [r["launches"] for r in ranks]}
+    return (json.dumps({"nccl_path": result}) + "\n",
+            {"mnist_cnn_nccl": [r["launches"] for r in ranks]})
 
 
 def multiworker_rank(argv: list) -> dict:
     return run_trainer("trainer_multiworker_cifar", argv)
 
 
-def run_multiworker_phase(gpu: str) -> dict:
+def run_multiworker_phase(gpu: str) -> tuple:
     """Phase H: config 5 as one NCCL process started with the cluster
-    flags; the process group is the one-rank NCCL group it runs in."""
+    flags; the process group is the one-rank NCCL group it runs in.
+    Returns the text to print (the trainer's lines and the
+    ``multiworker_path`` line) and the launches by path."""
     argv = cifar_argv(MR_CIFAR_STEPS, "chip_smoke_multiworker",
                       log_every=10) + ["--worker_hosts", "localhost:2222",
                                        "--task_index", "0"]
     (r,) = launch.spawn(multiworker_rank, 1, "nccl", (argv,), timeout_s=600)
-    print(r["text"], end="")
     check_ranks([r], "phase H", dequant_ce_expect(MR_CIFAR_STEPS,
                                              r["eval_batches"]),
                 MR_CIFAR_STEPS)
     require(r["device"] == "cuda:0", f"phase H: placed on {r['device']}")
     losses = [l for _, l in r["loss_tape"]]
     require(all(np.isfinite(losses)), f"phase H: loss tape {losses}")
-    print(json.dumps({"multiworker_path": {
+    line = json.dumps({"multiworker_path": {
         "model": "resnet20", "world": 1, "backend": "nccl",
         "steps": r["steps"], "steps_per_sec": r["steps_per_sec"],
         "final_accuracy": r["final_accuracy"],
         "loss_tape": r["loss_tape"], "launches": r["launches"],
-        "gpu": gpu}}), flush=True)
-    return {"resnet20_nccl": [r["launches"]]}
+        "gpu": gpu}})
+    return r["text"] + line + "\n", {"resnet20_nccl": [r["launches"]]}
 
 
 def async_argv(steps: int, log_dir: str, log_every: int = 100) -> list:
@@ -1674,23 +1711,50 @@ def drill(cmd: list) -> dict:
             "restart_rc": r.returncode}
 
 
-def run_drill_phase(gpu: str) -> None:
-    """Phase J: one trainer process, then two gloo ranks."""
+def run_drill_phase(gpu: str) -> tuple:
+    """Phase J: one trainer process and two gloo ranks, side by side (each
+    drill is two process start-ups in turn).  Returns the
+    ``sigterm_drill`` line to print, and no launches by path."""
     flags = ["--device", "cuda", "--dataset", "synthetic", "--dequant_impl",
              "pallas", "--pallas_ce", "true", "--fused_optimizer", "true",
              "--batch_size", str(BATCH), "--steps_per_loop", "1",
              "--log_every", "10"]
-    out = {}
-    for name, head in (
-            ("one_process", ["-m", "distributedtensorflowexample_tpu_torch."
-                                   "trainers.trainer_sync_mnist"]),
-            ("two_gloo_ranks", ["-c", "import sys, chip_smoke; "
-                                      "chip_smoke.gloo_drill(sys.argv[1:])"])):
-        log_dir = ROOT / "build" / f"chip_smoke_drill_{name}"
-        shutil.rmtree(log_dir, ignore_errors=True)
-        out[name] = drill([sys.executable, "-u", *head, *flags,
-                           "--log_dir", str(log_dir)])
-    print(json.dumps({"sigterm_drill": dict(out, gpu=gpu)}), flush=True)
+    heads = {"one_process": ["-m", "distributedtensorflowexample_tpu_torch."
+                                   "trainers.trainer_sync_mnist"],
+             "two_gloo_ranks": ["-c", "import sys, chip_smoke; "
+                                      "chip_smoke.gloo_drill(sys.argv[1:])"]}
+    with concurrent.futures.ThreadPoolExecutor(len(heads)) as pool:
+        runs = {}
+        for name, head in heads.items():
+            log_dir = ROOT / "build" / f"chip_smoke_drill_{name}"
+            shutil.rmtree(log_dir, ignore_errors=True)
+            runs[name] = pool.submit(drill, [sys.executable, "-u", *head,
+                                             *flags, "--log_dir",
+                                             str(log_dir)])
+        out = {name: run.result() for name, run in runs.items()}
+    return json.dumps({"sigterm_drill": dict(out, gpu=gpu)}) + "\n", {}
+
+
+def run_side_and_scheduling_phases(gpu: str) -> dict:
+    """Phases C, H and J beside phase V: all four are mostly process
+    start-ups, none is timed against a limit (C's and H's steps/s are
+    then not a quiet card's), and V (a) reads phase U's uninterrupted
+    run, so U runs before them.  C, H and J each return their lines,
+    printed in that order, then V's, after all end: one thread prints,
+    and C's in-process trainer redirects this process's stdout while it
+    runs."""
+    side_phases = (run_nccl_phase, run_multiworker_phase, run_drill_phase)
+    with concurrent.futures.ThreadPoolExecutor(len(side_phases)) as pool:
+        sides = [pool.submit(phase, gpu) for phase in side_phases]
+        try:
+            scheduling = run_scheduling_phase(gpu)
+        finally:
+            done = [side.result() for side in sides]
+    launches = {}
+    for text, side_launches in done + [scheduling]:
+        print(text, end="", flush=True)
+        launches.update(side_launches)
+    return launches
 
 
 # --- phase U: supervision on the card --------------------------------------
@@ -1768,11 +1832,7 @@ def supervised_preemption(gpu: str) -> tuple:
     root = ROOT / "build" / "chip_smoke_supervised"
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
-    flags = ["--device", "cuda", "--dataset", "synthetic", "--dequant_impl",
-             "pallas", "--pallas_ce", "true", "--fused_optimizer", "true",
-             "--batch_size", str(BATCH), "--train_steps",
-             str(SUPERVISED_STEPS), "--log_every", "100",
-             "--checkpoint_every", "500"]
+    flags = supervised_flags(500)
     cmd = [sys.executable, "-m", TOOLS + "supervise", "--retries", "2",
            "--heartbeat_timeout_s", str(SUPERVISED_HB_S), "--heartbeat",
            str(root / "hb"), "--journal", str(root / "journal.jsonl"),
@@ -2009,6 +2069,272 @@ def run_supervision_phase(gpu: str) -> dict:
               "wall_s": time.perf_counter() - t0, "gpu": gpu}
     print(json.dumps({"supervision_path": result}), flush=True)
     return {"mnist_cnn_supervised": launches}
+
+
+# --- phase V: the scheduler and the heal drills on the card ---------------
+
+SCHED_ROOT = ROOT / "build" / "chip_smoke_sched"
+SCHED_CKPT_EVERY = 50       # phase V (a): the evictor waits for step 50's
+HEAL_STEPS = 16             # phase V (c): faultline steps
+HEAL_SLOW_AT = 5            # phase V (c): rank 1 slow from this step ...
+HEAL_SLOW_S = 2.0           # ... by this much a step
+#: Phase V (c) leaves each rank's step-time regression detector unarmed
+#: (its warm-up longer than the run): with a few warm-up steps, a hiccup
+#: of the front rank's host on this loaded machine fired it and evicted
+#: the gang for the wrong rank.  The eviction rests on the fleet's
+#: straggler naming instead (3 steps behind the front and a step time
+#: over 4x the other rank's), which the front rank cannot meet.
+HEAL_ENV = {"OBS_ANOMALY_WARMUP": "1000"}
+
+
+def supervised_flags(checkpoint_every: int) -> list:
+    """Phase U (a)'s and V (a)'s config-3 run: the four kernels, 1,000
+    steps at B=64 (the caller adds ``--log_dir``)."""
+    return ["--device", "cuda", "--dataset", "synthetic", "--dequant_impl",
+            "pallas", "--pallas_ce", "true", "--fused_optimizer", "true",
+            "--batch_size", str(BATCH), "--train_steps",
+            str(SUPERVISED_STEPS), "--log_every", "100",
+            "--checkpoint_every", str(checkpoint_every)]
+
+
+def write_queue(root: Path) -> Path:
+    """Phase V (a)'s queue: the config-3 victim (priority 10), the
+    priority-0 faultline evictor gated on the victim's first committed
+    checkpoint, and a wedge (rc 3)."""
+    victim = root / "victim"
+    jobs = [
+        {"job": "victim", "kind": "train", "priority": 10,
+         "steps": SUPERVISED_STEPS, "est_step_time_s": 0.01,
+         "wall_timeout_s": 600, "kill_grace_s": 60, "retries": 0,
+         # Every checkpoint kept: the evictor's gate file must still be
+         # there when the evictor comes up after the eviction.
+         "argv": [sys.executable, "-u", "-c",
+                  "import sys, chip_smoke; chip_smoke.supervised_trainer("
+                  "sys.argv[1:])",
+                  *supervised_flags(SCHED_CKPT_EVERY),
+                  "--log_dir", str(victim), "--keep_checkpoints",
+                  str(SUPERVISED_STEPS // SCHED_CKPT_EVERY)]},
+        {"job": "evictor", "kind": "train", "priority": 0,
+         "steps": FAULT_STEPS, "est_step_time_s": 0.1,
+         "wall_timeout_s": 600, "retries": 0,
+         "argv": faultline_argv("--plan", "none", "--workdir",
+                                str(root / "evictor")),
+         "after_file": str(victim / "checkpoints" / str(SCHED_CKPT_EVERY)
+                           / "rank-0.pt")},
+        {"job": "wedge", "kind": "drill", "priority": 20, "retries": 0,
+         "argv": [sys.executable, "-c", "import sys; sys.exit(3)"]},
+    ]
+    path = root / "queue.json"
+    path.write_text(json.dumps({"jobs": jobs}, indent=1))
+    return path
+
+
+def scheduled_attempt(path: Path) -> dict:
+    return next(json.loads(l)["supervised_attempt"] for l in
+                reversed(path.read_text().splitlines())
+                if l.startswith('{"supervised_attempt"'))
+
+
+def check_scheduled_queue(root: Path, rc: int, gpu: str) -> tuple:
+    """Phase V (a): evict -> 143 -> resume, the victim bitwise phase U's
+    uninterrupted run, the wedge quarantined, launches by placement."""
+    sched = root / "sched"
+    text = (root / "sched_log.txt").read_text()
+    require(rc == 3, f"phase V (a): schedule exit code {rc}, want 3 (the "
+                     f"wedge quarantined):\n{text[-4000:]}")
+    rows = journal_rows(sched / "RUNS.jsonl")
+    dec = [(r["event"], r.get("job")) for r in rows
+           if r["event"].startswith("sched_")]
+    evict = [r for r in rows if r["event"] == "sched_evict"]
+    places = [r for r in rows if r["event"] == "sched_place"
+              and r["job"] == "victim"]
+    require(len(evict) == 1 and evict[0]["job"] == "victim"
+            and evict[0]["for_job"] == "evictor"
+            and evict[0]["rcs"] == {"0": 143} and evict[0]["clean"],
+            f"phase V (a): evictions {evict}; decisions {dec}")
+    order = [dec.index(d) if d in dec else -1 for d in (
+        ("sched_evict", "victim"), ("sched_place", "evictor"),
+        ("sched_done", "victim"))]
+    require([p["resumed"] for p in places] == [False, True]
+            and order == sorted(order) and -1 not in order,
+            f"phase V (a): victim placements {places}; decisions {dec}")
+    require(("sched_quarantine", "wedge") in dec
+            and ("sched_done", "evictor") in dec
+            and sum(1 for d in dec if d == ("sched_place", "wedge")) == 1,
+            f"phase V (a): decisions {dec}")
+    out = sched / "jobs" / "victim" / "out"
+    first, second = (scheduled_attempt(out / f"place{n}" /
+                                       "rank0_attempt0.out") for n in (1, 2))
+    prose = "".join(p.read_text() for p in
+                    (sched / "jobs" / "victim" / "fleet").glob("rank*.log"))
+    prose += "".join(p.read_text() for p in out.glob("place*/*.out"))
+    m = re.search(r"SIGTERM at step (\d+): checkpoint saved", prose)
+    require(m is not None and second["summary"] is not None,
+            f"phase V (a): no save at the eviction:\n{prose[-3000:]}")
+    saved = int(m.group(1))
+    require(second["summary"]["start_step"] == saved
+            and SCHED_CKPT_EVERY <= saved < SUPERVISED_STEPS,
+            f"phase V (a): resumed at {second['summary']['start_step']}, "
+            f"saved at {saved}")
+    trained = [saved, SUPERVISED_STEPS - saved]
+    evals = second["summary"]["eval_batches"]
+    for a, n, ev in zip((first, second), trained, (0, evals)):
+        want = {"dequant": n + ev, "ce_fwd": n, "ce_bwd": n, "sgd": n}
+        require(a["launches"] == want,
+                f"phase V (a): placement launches {a['launches']}, expected "
+                f"{want}")
+    last = str(SUPERVISED_STEPS)
+    a, b = (torch.load(d / "checkpoints" / last / "rank-0.pt",
+                       weights_only=True)
+            for d in (root / "victim",
+                      ROOT / "build" / "chip_smoke_supervised" / "straight"))
+    bitwise = (torch.equal(a["params"], b["params"])
+               and torch.equal(a["momentum"], b["momentum"]))
+    require(bitwise, "phase V (a): the resumed victim differs from phase "
+                     "U's uninterrupted run")
+    intent = next(r for r in journal_rows(sched / "sched.jsonl")
+                  if r["event"] == "sched_intent"
+                  and r.get("action") == "evict")
+    exit143 = next(r for r in journal_rows(sched / "jobs" / "victim" /
+                                           "fleet.jsonl")
+                   if r["event"] == "rank_exit" and r.get("rc") == 143)
+    record = journal_rows(root / "record.jsonl")
+    require(record[0]["platform"] == "cuda"
+            and record[0]["detail"]["gpu"] == gpu,
+            f"phase V (a): record {record[0]}")
+    return {"decisions": dec, "preempted_at": saved,
+            "launches_by_placement": [first["launches"], second["launches"]],
+            "resumed_bitwise": bitwise,
+            "term_to_143_s": exit143["ts"] - intent["ts"],
+            "makespan_s": record[0]["detail"]["makespan_s"]}, \
+        [first["launches"], second["launches"]]
+
+
+def check_ckpt_drill(root: Path, rc: int) -> dict:
+    """Phase V (b): ``heal_drill --drill ckpt --mesh 2`` on the card."""
+    text = (root / "heal_log.txt").read_text()
+    require(rc == 0, f"phase V (b): heal_drill exit code {rc}:\n"
+                     f"{text[-4000:]}")
+    rows = {}
+    for r in journal_rows(root / "heal.jsonl"):
+        rows.setdefault(r["metric"], []).append(r)
+    out = {}
+    for plan, event in (("shard_loss", "ckpt_reconstruct"),
+                        ("bitflip", "ckpt_digest_mismatch")):
+        (lost,) = rows[f"heal_ckpt_{plan}_steps_lost"]
+        d = lost["detail"]
+        require(lost["value"] == 0 and d["bitwise_resume"]
+                and d["reconstructs"] >= 1 and d["detect_event"] == event
+                and lost["platform"] == "cuda",
+                f"phase V (b): {plan}: {lost}")
+        out[plan] = {"mttd_ms": d["mttd_ms"], "mttr_ms": d["mttr_ms"],
+                     "reconstructs": d["reconstructs"],
+                     "detect_event": d["detect_event"],
+                     "steps_lost": lost["value"], "bitwise_resume": True}
+    for metric in ("ckpt_shard_restore_failures",
+                   "ckpt_digest_mismatch_unrecovered"):
+        values = [r["value"] for r in rows[metric]]
+        require(values == [0, 0], f"phase V (b): {metric} {values}")
+        out[metric] = 0
+    return out
+
+
+def healed_gang(root: Path) -> tuple:
+    """Phase V (c): ``supervise_fleet --heal`` of two faultline ranks on
+    the card, rank 1 slow from step ``HEAL_SLOW_AT``; with the
+    uninterrupted reference beside it."""
+    cmd = [sys.executable, "-m", TOOLS + "supervise_fleet", "--num_ranks",
+           "2", "--heal", "--kill_grace_s", "30", "--backoff_base_s", "0.01",
+           "--workdir", str(root / "gang"), "--seed", "0", "--",
+           *faultline_argv("--plan", f"slow_rank@{HEAL_SLOW_AT}:"
+                           f"{HEAL_SLOW_S}%1", "--steps", str(HEAL_STEPS),
+                           "--keep", "50", "--workdir",
+                           str(root / "gang" / "rank{rank}"))]
+    ref = faultline_argv("--plan", "none", "--steps", str(HEAL_STEPS),
+                         "--workdir", str(root / "heal_ref"))
+    with open(root / "gang_log.txt", "wb") as f:
+        gang = subprocess.Popen(cmd, cwd=ROOT, stdout=f,
+                                stderr=subprocess.STDOUT,
+                                env={**os.environ, **HEAL_ENV})
+    return gang, start(ref, root / "heal_ref_log.txt")
+
+
+def check_healed_gang(root: Path, rc: int, ref_rc: int) -> dict:
+    gang = root / "gang"
+    text = (root / "gang_log.txt").read_text()
+    require(rc == 0 and ref_rc == 0,
+            f"phase V (c): supervise_fleet --heal exit code {rc}, reference "
+            f"{ref_rc}:\n{text[-4000:]}")
+    ref = last_json(root / "heal_ref_log.txt")
+    rows = journal_rows(gang / "RUNS.jsonl")
+    evict = [r for r in rows if r["event"] == "heal_evict"]
+    detect = [r for r in rows if r["event"] == "heal_detect"]
+    require(evict and evict[0]["rank"] == 1
+            and evict[0]["kind"] == "straggler" and detect,
+            f"phase V (c): heal rows "
+            f"{[(r['event'], r.get('kind'), r.get('rank')) for r in rows]}")
+    launches = sorted(p.name for p in gang.glob("launch*"))
+    require(launches == ["launch0", "launch1"],
+            f"phase V (c): launches {launches}")
+    finals = [last_json(gang / "launch1" / f"rank{r}_attempt0.out")
+              for r in (0, 1)]
+    agreed = finals[0]["start_step"]
+    for r, f in enumerate(finals):
+        require(f["status"] == "ok" and f["start_step"] == agreed
+                and f["step"] == HEAL_STEPS and f["digest"] == ref["digest"]
+                and f["losses"] == ref["losses"][agreed:]
+                and HEAL_SLOW_AT <= agreed < HEAL_STEPS,
+                f"phase V (c): rank {r} ended {f}, the uninterrupted run "
+                f"{ref['digest']}")
+    onset = (detect[0].get("detail") or {}).get("updated_unix")
+    return {"agreed_step": agreed, "evict_kind": evict[0]["kind"],
+            "detect_to_evict_s": evict[0]["ts"] - detect[0]["ts"],
+            "onset_to_detect_s": (detect[0]["ts"] - onset
+                                  if onset else None),
+            "digest_equal_uninterrupted": True}
+
+
+def run_scheduling_phase(gpu: str) -> tuple:
+    """Phase V: (b) and (c) started first, (a) in the meantime; all three
+    through the port's ``-m`` entry points.  Not beside phase U: its
+    wedge drill's 3 s heartbeat timeout does not survive the disk and
+    CPU load of (b) and (c).  Returns the lines to print and the
+    launches by path."""
+    t0 = time.perf_counter()
+    root = SCHED_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    heal = start([sys.executable, "-m", TOOLS + "heal_drill", "--drill",
+                  "ckpt", "--model", "softmax", "--mesh", str(MR_RANKS),
+                  "--device", "cuda", "--workdir", str(root / "heal"),
+                  "--out", str(root / "heal.jsonl")], root / "heal_log.txt")
+    gang, ref = healed_gang(root)
+    procs = (heal, gang, ref)
+    try:
+        cmd = [sys.executable, "-m", TOOLS + "schedule", "--queue",
+               str(write_queue(root)), "--workdir", str(root / "sched"),
+               "--devices", "1", "--device", "cuda", "--seed", "0",
+               "--record", str(root / "record.jsonl")]
+        with open(root / "sched_log.txt", "wb") as f:
+            rc = subprocess.run(cmd, cwd=ROOT, stdout=f,
+                                stderr=subprocess.STDOUT,
+                                timeout=600).returncode
+        queue, launches = check_scheduled_queue(root, rc, gpu)
+        for q in procs:
+            q.wait(timeout=600)
+    finally:
+        for q in procs:
+            stop(q)
+    result = {"scheduled_queue": queue,
+              "ckpt_drill": check_ckpt_drill(root, heal.returncode),
+              "healed_gang": check_healed_gang(root, gang.returncode,
+                                               ref.returncode),
+              "wall_s": time.perf_counter() - t0, "gpu": gpu}
+    lines = [{"scheduling_path": result}] + [
+        {f"scheduling_{part}": result[part], "gpu": gpu}
+        for part in ("scheduled_queue", "ckpt_drill", "healed_gang")]
+    return ("".join(json.dumps(line) + "\n" for line in lines),
+            {"mnist_cnn_scheduled": launches})
 
 
 # --- phase S: serving lm_base ---------------------------------------------
@@ -2650,8 +2976,8 @@ def run_serving_phase(gpu: str) -> dict:
 
 # --- phase O: shard-redundant snapshots of lm_base -------------------------
 
-SHARD_STEPS = 10            # phase O: ZeRO-3 lm_base, a shard set every 5
-SHARD_EVERY = 5
+SHARD_STEPS = 4             # phase O: ZeRO-3 lm_base, a shard set every 2
+SHARD_EVERY = 2
 SHARD_KEEP = 2
 SHARD_ROOT = ROOT / "build" / "chip_smoke_shards"
 ELASTIC_RANKS = 4           # phase O (e): the D=2 set restored on 4 ranks
@@ -2951,7 +3277,7 @@ def check_shard_phase(ranks: list, four: list, back: list, gpu: str) -> dict:
 # --- phase P: params-stay-sharded serving of lm_base -----------------------
 
 SHARDED_SLOTS = 8           # 4 a rank
-SHARDED_REQUESTS = 16
+SHARDED_REQUESTS = 8
 SHARDED_CLIENTS = 4
 SHARDED_NEW = 16
 SHARDED_CONTRACT_STEPS = 20
@@ -3348,18 +3674,14 @@ def main() -> int:
     by_path = run_gloo_phases(gpu)
     report_async_path(async_one, by_path.pop("async_gloo2"), gpu)
     lap("A B D F K")
-    by_path.update(run_nccl_phase(gpu))
-    lap("C")
     softmax_counts = run_local_mnist(gpu)
     lap("G")
-    by_path.update(run_multiworker_phase(gpu))
-    lap("H")
     by_path.update(run_resume_phase(gpu))
     lap("I")
-    run_drill_phase(gpu)
-    lap("J")
     by_path.update(run_supervision_phase(gpu))
     lap("U")
+    by_path.update(run_side_and_scheduling_phases(gpu))
+    lap("C H J V")
     by_path.update(run_host_fed_phase(gpu))
     lap("Q")
     by_path.update(run_remat_phase(gpu))

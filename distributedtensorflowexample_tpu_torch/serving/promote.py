@@ -336,8 +336,9 @@ class Canary:
     only; the serving harness owns the two engine arms and the drain
     (an in-flight canary request always decodes to completion —
     rollback must never drop admitted work, exactly the eviction
-    protocol's rule).  In the JAX package the remediation engine
-    records the verdicts; the port has no remediation engine yet."""
+    protocol's rule).  The remediation engine
+    (``resilience/remediate.py``) records the verdicts as
+    ``heal_canary_*`` rows (``tools.heal_drill``'s canary drill)."""
 
     def __init__(self, baseline_step: int, candidate_step: int, *,
                  fraction: float | None = None,

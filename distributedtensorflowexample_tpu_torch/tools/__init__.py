@@ -7,5 +7,10 @@ distributedtensorflowexample_tpu_torch.tools.<name>``:
 - ``supervise`` — any command under the heartbeat watchdog and bounded
   retries (``resilience/supervisor.py``);
 - ``supervise_fleet`` — an N-rank gang under the fleet supervisor
-  (``resilience/fleet.py``).
+  (``resilience/fleet.py``), self-healing with ``--heal``
+  (``resilience/remediate.py``);
+- ``schedule`` — a journaled queue of jobs over gang slots
+  (``resilience/scheduler.py``);
+- ``heal_drill`` — measured self-healing drills (MTTD, MTTR, steps
+  lost) per fault class.
 """

@@ -21,18 +21,33 @@ like the JAX driver it launches none of the port's kernels.
 
 Plans (resilience/faults.py NAMED_PLANS): preempt, wedge, nan_loss,
 corrupt_batch, corrupt_batch_rank, torn_snapshot, heartbeat_flap,
-journal_torn, slow_rank, host_loss, none — or explicit specs like
-``preemption@3`` / ``wedge@2:5.0`` / ``slow_rank@5:0.5%1``,
-comma-separated.  The same ``(--plan, --steps, --seed)`` triple
-reproduces the same scenario anywhere, and the batches are bitwise the
-JAX driver's.  Under the supervisor, faults are TRANSIENT by default:
-they fire on attempt 0 only (SUPERVISE_ATTEMPT).
+journal_torn, slow_rank, host_loss, shard_loss, bitflip, none — or
+explicit specs like ``preemption@3`` / ``wedge@2:5.0`` /
+``slow_rank@5:0.5%1``, comma-separated.  The same ``(--plan, --steps,
+--seed)`` triple reproduces the same scenario anywhere, and the batches
+are bitwise the JAX driver's.  Under the supervisor, faults are
+TRANSIENT by default: they fire on attempt 0 only (SUPERVISE_ATTEMPT).
 
-Refused by name (exit 2): ``--layout zero3`` and the ``shard_loss`` and
-``bitflip`` plans, which act on it.  The JAX driver lays one process's
-state out over a virtual device mesh; the port's shard store
-(``resilience/shardstore.py``) saves over torch.distributed ranks, so
-that drill needs a multi-rank driver that the port does not have yet.
+``--layout zero3 --mesh D`` runs the drill as D ranks of one ZeRO-3
+group (``parallel/zero3.py``: the parameters and the momentum as 1/D
+bucket rows), started by this process through ``parallel/launch.spawn``
+(gloo on the CPU and for D ranks sharing fewer cards, NCCL when every
+rank has a card of its own; one intra-op thread a rank, so the tape does
+not depend on the host's core count).  Each rank takes its rows of every
+global batch (the JAX step's batch sharding) and writes its part of the
+shard-redundant ``ShardStore`` (resilience/shardstore.py) in place of
+the monolithic SnapshotStore: snapshots are per-rank shard files + ring
+mirrors under a quorum manifest, and resume goes through the elastic
+regroup (so a ``--mesh 2`` resume of a ``--mesh 4`` run is legal).  To a
+fleet this process stays ONE rank: a SIGTERM to its process group
+reaches every mesh rank, the ranks agree on the stop at a step boundary,
+save, and this process exits 143 once.  The ``shard_loss``/``bitflip``
+plans delete or rot exactly one shard after the final save, once every
+rank has returned; ``%RANK`` on those plans names the MESH-SHARD index
+inside this process's store, not a fleet rank.  The emitted
+``params_digest`` hashes the MATERIALIZED parameters (width-independent
+in layout); the row-state ``digest`` hashes each rank's rows in rank
+order and compares only at equal width.
 
 Fleet drills (``supervise_fleet``) run one faultline per rank with the
 SAME plan text: a ``%rank`` suffix pins a spec to one rank (``kill@5%1``
@@ -54,15 +69,16 @@ import argparse
 import hashlib
 import json
 import os
+import signal
 import sys
 
 import numpy as np
 import torch
 
-from distributedtensorflowexample_tpu_torch.resilience.faults import (
-    _SHARD_KINDS)
+from distributedtensorflowexample_tpu_torch.parallel.mesh import ONE_RANK
 
 _LM_DRILL_SEQ = 32      # short sequences keep LM drills cheap
+_DRILL_BUCKET_BYTES = 1 << 20   # zero3 drills: one-ish bucket per dtype
 LEARNING_RATE = 0.1     # optax.sgd(0.1, momentum=0.9) in the JAX driver
 MOMENTUM = 0.9
 
@@ -79,13 +95,14 @@ def _leaves(obj):
         yield obj
 
 
-def _digest(state) -> str:
+def _digest(state, mesh=ONE_RANK, replicated: bool = True) -> str:
     """sha256 over every leaf of ``saveable_state_dict`` (the one
-    definition of a resumable state), as host bytes."""
+    definition of a resumable state), as host bytes; of a row layout,
+    this rank's rows (``replicated`` False)."""
     from distributedtensorflowexample_tpu_torch.training.state import (
         saveable_state_dict)
     h = hashlib.sha256()
-    for leaf in _leaves(saveable_state_dict(state)):
+    for leaf in _leaves(saveable_state_dict(state, mesh, replicated)):
         if isinstance(leaf, torch.Tensor):
             h.update(leaf.numpy().tobytes())
         else:
@@ -130,12 +147,14 @@ def _batch_stream(batch_size: int, seed: int, start_step: int,
     return gen()
 
 
-def init_state(model: str, seed: int, device: torch.device):
+def init_state(model: str, seed: int, device: torch.device,
+               mesh=ONE_RANK):
     """The run's initial state: ``model`` initialized from ``seed`` (flax's
     default init distributions, the port's own draws) on ``device``, with
-    plain momentum SGD at :data:`LEARNING_RATE` and :data:`MOMENTUM`.
-    The one place the state is built, so a test can start the port from
-    another package's converted initial state."""
+    plain momentum SGD at :data:`LEARNING_RATE` and :data:`MOMENTUM`, in
+    the tree layout (rank 0 of ``mesh`` broadcasts it).  The one place
+    the state is built, so a test can start the port from another
+    package's converted initial state."""
     from distributedtensorflowexample_tpu_torch.models import build_model
     from distributedtensorflowexample_tpu_torch.training.optimizers import (
         MomentumSGD)
@@ -145,21 +164,251 @@ def init_state(model: str, seed: int, device: torch.device):
     return TrainState.create(
         build_model(model),
         lambda m: MomentumSGD(m, lambda count: lr, MOMENTUM, fused=False),
-        seed, device)
+        seed, device, mesh=mesh)
 
 
-def _unported(args, plan) -> str | None:
-    """Why the port's faultline refuses this drill, or None."""
-    if args.layout == "zero3":
-        return ("faultline: --layout zero3 is not ported: the JAX driver "
-                "lays one process's state out over a virtual device mesh, "
-                "and the port's shard store saves over torch.distributed "
-                "ranks")
-    shard = sorted({s.kind for s in plan.specs if s.kind in _SHARD_KINDS})
-    if shard:
-        return (f"faultline: plan kind(s) {shard} act on --layout zero3's "
-                f"shard store, which the port's faultline does not run yet")
-    return None
+def _truthy(v) -> bool:
+    return str(v).lower() in ("1", "true", "t", "yes", "y")
+
+
+def _emit(args, attempt: int, rank: int, start_step: int, losses,
+          status: str, **extra) -> None:
+    """The one stdout line."""
+    rec = {"status": status, "plan": args.plan, "seed": args.seed,
+           "attempt": attempt, "rank": rank, "start_step": start_step,
+           "losses": [[s, loss] for s, loss in losses], **extra}
+    print(json.dumps(rec, sort_keys=True), flush=True)
+
+
+def _post_exit_faults(plan, final_step: int, snapshots, shards) -> None:
+    """The plan's post-exit faults, applied AFTER the final save: the
+    torn snapshot/journal shapes recovery must survive by falling back
+    (previous valid snapshot; journal replay skipping the tail), and the
+    shard store's lost or rotten shard (``shards`` None: the tree
+    layout, which has no shard store to damage)."""
+    from distributedtensorflowexample_tpu_torch.resilience.faults import (
+        tear_journal)
+    for spec in plan.post_exit_specs:
+        if spec.step > final_step:
+            continue
+        if spec.kind == "torn_snapshot":
+            torn = snapshots.tear_latest()
+            print(f"faultline: tore snapshot {torn} mid-file",
+                  file=sys.stderr, flush=True)
+        elif spec.kind in ("shard_loss", "bitflip") and shards is None:
+            print(f"faultline: {spec.kind} needs the shard store "
+                  f"(--layout zero3) — no-op", file=sys.stderr, flush=True)
+        elif spec.kind == "shard_loss":
+            hit = shards.drop_rank_dir(spec.rank or 0)
+            print(f"faultline: dropped mesh-shard {spec.rank or 0}'s whole "
+                  f"directory from shard set {hit}", file=sys.stderr,
+                  flush=True)
+        elif spec.kind == "bitflip":
+            hit = shards.flip_payload_byte(spec.rank or 0)
+            step_hit, off = hit if hit else (None, None)
+            print(f"faultline: flipped payload byte {off} of mesh-shard "
+                  f"{spec.rank or 0} in shard set {step_hit} (silent rot)",
+                  file=sys.stderr, flush=True)
+        elif spec.kind == "journal_torn":
+            jp = os.environ.get("SUPERVISE_JOURNAL", "")
+            if jp and tear_journal(jp):
+                print(f"faultline: tore journal {jp} mid-line",
+                      file=sys.stderr, flush=True)
+            else:
+                print("faultline: journal_torn had no journal to tear "
+                      "(SUPERVISE_JOURNAL unset or empty) — no-op",
+                      file=sys.stderr, flush=True)
+
+
+def _zero3_rank(opts: dict) -> dict:
+    """One mesh rank of ``--layout zero3`` (``launch.spawn``'s child):
+    this rank's rows of the ZeRO-3 state, restored from (and saved to)
+    the shared shard store; returns its part of the record.  Every rank
+    runs the same hooks with the same plan, so a fault lands at the same
+    boundary on each; the stop after a SIGTERM is agreed at every
+    boundary (one small all-gather), so no rank leaves a collective
+    another is waiting in."""
+    from distributedtensorflowexample_tpu_torch.engine.engine import (
+        apply_update_layout)
+    from distributedtensorflowexample_tpu_torch.obs.anomaly import RunHealth
+    from distributedtensorflowexample_tpu_torch.parallel.mesh import (
+        make_mesh)
+    from distributedtensorflowexample_tpu_torch.parallel.sync import (
+        make_train_step)
+    from distributedtensorflowexample_tpu_torch.parallel.zero3 import (
+        materialized)
+    from distributedtensorflowexample_tpu_torch.resilience import (
+        FaultInjectionHook, FaultyBatches, MetricsTapeHook, NaNGuardHook,
+        ShardLayout, ShardSnapshotHook, ShardStore)
+    from distributedtensorflowexample_tpu_torch.training.hooks import (
+        AnomalyHook, HeartbeatHook, MetricsHook)
+    from distributedtensorflowexample_tpu_torch.training.loop import TrainLoop
+    from distributedtensorflowexample_tpu_torch.utils.signals import (
+        SigtermFlag)
+
+    # Installed for the rank's whole life and never restored: the fleet's
+    # group-wide SIGTERM and this process's parent's forward of it may
+    # both arrive, the second after the loop has stopped.
+    term = SigtermFlag()
+    signal.signal(signal.SIGTERM,
+                  lambda signum, frame: setattr(term, "_seen", True))
+    mesh = make_mesh(opts["device"])
+    if mesh.device.type == "cuda":
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+    chief = mesh.rank == 0
+    state = init_state(opts["model"], opts["seed"], mesh.device, mesh)
+    store = ShardStore(
+        os.path.join(opts["workdir"], "snapshots"),
+        layout=ShardLayout.for_params(
+            "zero3_rows", _DRILL_BUCKET_BYTES,
+            dict(state.model.named_parameters()), mesh.size),
+        keep=opts["keep"])
+    layout = None
+    if opts["resume"]:
+        agreed = opts["agreed"]
+        if agreed:
+            # The fleet's agreement pass picked the max common valid
+            # step; restoring this store's own newest instead would
+            # resume a different global step than the other fleet ranks.
+            step = int(agreed)
+            if step > 0:
+                ok, why = store.validate(step)
+                if not ok:
+                    return {"refused": why, "agreed": step}
+                state, aux = store.restore_elastic(
+                    state, mesh=mesh, step=step, update_layout="zero3_rows")
+                layout = aux["zero3_layout"]
+        elif store.latest_valid() is not None:
+            # The elastic restore: ANY saved width regroups onto this
+            # mesh through the engine's one re-layout pass.
+            state, aux = store.restore_elastic(state, mesh=mesh,
+                                               update_layout="zero3_rows")
+            layout = aux["zero3_layout"]
+    if layout is None:
+        state, layout = apply_update_layout(
+            state, update_layout="zero3_rows",
+            bucket_bytes=_DRILL_BUCKET_BYTES, mesh=mesh)
+    start_step = int(state.step)
+    per = opts["batch"] // mesh.size
+    lo = mesh.rank * per
+    # Every rank faults the same GLOBAL stream, then takes its rows: a
+    # corrupted batch is the same bytes on each rank's slice.
+    batches = FaultyBatches(
+        _batch_stream(opts["batch"], opts["seed"], start_step,
+                      model=opts["model"], device=mesh.device),
+        opts["plan"], start_step=start_step)
+    rows = ({k: v[lo:lo + per] for k, v in b.items()} for b in batches)
+    tape = MetricsTapeHook()
+    # The hooks of the one-process driver, in its order; every rank runs
+    # MetricsHook (it makes the loop reduce the metrics, a collective,
+    # at every step), rank 0 alone writes health and beats.
+    hooks = [MetricsHook(every=1)]
+    if chief:
+        hooks.append(AnomalyHook(every=1, health_path=opts["health"],
+                                 health=RunHealth(rank=opts["rank"])))
+    hooks += [NaNGuardHook(), tape,
+              ShardSnapshotHook(store, mesh, every=opts["snapshot_every"],
+                                cursor={"seed": opts["seed"]}),
+              FaultInjectionHook(opts["plan"])]
+    if chief and opts["heartbeat"]:
+        hooks.append(HeartbeatHook(opts["heartbeat"]))
+
+    def agreed_stop() -> bool:
+        return max(mesh.all_gather_int(bool(term))) > 0
+
+    loop = TrainLoop(make_train_step(mesh=mesh, mode="zero3",
+                                     zero3_layout=layout),
+                     rows, opts["steps"], hooks=hooks,
+                     reduce_metrics=mesh.sum_metrics,
+                     should_stop=agreed_stop)
+    out = {"start_step": start_step, "losses": tape.tape}
+    try:
+        state = loop.run(state)
+    except FloatingPointError as e:
+        # Every rank reads the same reduced loss, so every rank raises at
+        # the same boundary, before the poisoned state is saved.
+        return {**out, "status": "fault", "error": str(e),
+                "step": start_step + len(tape.tape)}
+    preempted = agreed_stop()
+    with materialized(state, mesh) as flat:
+        params_digest = hashlib.sha256(
+            flat.detach().cpu().numpy().tobytes()).hexdigest()
+    return {**out, "status": "preempted" if preempted else "ok",
+            "step": int(state.step),
+            "digest": _digest(state, mesh, replicated=False),
+            "params_digest": params_digest}
+
+
+def _main_zero3(args, plan, attempt: int, rank: int) -> int:
+    """``--layout zero3``: the mesh ranks through ``launch.spawn``, then
+    the post-exit faults once every rank has saved, and the record."""
+    from distributedtensorflowexample_tpu_torch.obs import ledger as obs_ledger
+    from distributedtensorflowexample_tpu_torch.obs import recorder as obs_recorder
+    from distributedtensorflowexample_tpu_torch.parallel import launch
+    from distributedtensorflowexample_tpu_torch.resilience import (
+        ShardStore, SnapshotStore)
+    from distributedtensorflowexample_tpu_torch.tools import (
+        faultline as this)
+
+    snap_dir = os.path.join(args.workdir, "snapshots")
+    opts = {"model": args.model, "seed": args.seed, "batch": args.batch,
+            "steps": args.steps, "workdir": args.workdir, "keep": args.keep,
+            "snapshot_every": args.snapshot_every,
+            "resume": _truthy(args.resume),
+            "agreed": os.environ.get("FLEET_RESUME_STEP", ""),
+            "device": args.device, "plan": plan, "rank": rank,
+            "health": os.environ.get("OBS_HEALTH", ""),
+            "heartbeat": os.environ.get("SUPERVISE_HEARTBEAT", "")}
+    backend = ("nccl" if args.device == "cuda"
+               and torch.cuda.device_count() >= args.mesh else "gloo")
+    torch.set_num_threads(1)        # one intra-op thread a rank
+    try:
+        # By module name, not through __main__: the ranks unpickle it.
+        parts = launch.spawn(this._zero3_rank, args.mesh, backend, (opts,))
+    except SystemExit as e:
+        if e.code != 143:
+            raise
+        # A rank the signal ended before its handler was in place: no
+        # rank saved past the newest set on disk, and none reported.
+        print("faultline: the mesh ranks were terminated before they "
+              "reported", file=sys.stderr, flush=True)
+        _emit(args, attempt, rank, 0, [], status="preempted")
+        obs_ledger.end_global(rc=143)
+        return 143
+    head = parts[0]
+    if "refused" in head:
+        print(f"faultline: fleet agreed resume step {head['agreed']} is "
+              f"not valid in this rank's shard store ({head['refused']}) "
+              f"— the agreement pass guarantees every rank holds it; "
+              f"refusing to resume from a divergent snapshot",
+              file=sys.stderr, flush=True)
+        obs_ledger.end_global(rc=1)
+        return 1
+    start_step = head["start_step"]
+    if start_step:
+        print(f"faultline: resumed from shard set at step {start_step}",
+              file=sys.stderr, flush=True)
+    if head["status"] == "fault":
+        print(f"faultline: {head['error']}", file=sys.stderr, flush=True)
+        _emit(args, attempt, rank, start_step, head["losses"],
+              status="fault", error=head["error"], step=head["step"])
+        obs_ledger.end_global(rc=1, final_step=head["step"])
+        return 1
+    _post_exit_faults(plan, head["step"],
+                      SnapshotStore(snap_dir, keep=args.keep),
+                      ShardStore(snap_dir))
+    digest = hashlib.sha256("".join(p["digest"] for p in parts)
+                            .encode()).hexdigest()
+    status = head["status"]
+    _emit(args, attempt, rank, start_step, head["losses"], status=status,
+          step=head["step"], digest=digest,
+          params_digest=head["params_digest"])
+    if status == "preempted":
+        obs_recorder.dump_global("preempted")
+    rc = 143 if status == "preempted" else 0
+    obs_ledger.end_global(rc=rc, final_step=head["step"])
+    return rc
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -189,9 +438,12 @@ def main(argv: list[str] | None = None) -> int:
                    help="this process's rank for %%rank-targeted fault "
                         "specs (default: OBS_RANK, else 0)")
     p.add_argument("--layout", default="tree", choices=["tree", "zero3"],
-                   help="zero3 is refused (see the module docstring)")
+                   help="zero3: ZeRO-3 row state over --mesh ranks with "
+                        "the shard-redundant ShardStore (shard_loss/"
+                        "bitflip plans live here; resume is elastic "
+                        "across widths)")
     p.add_argument("--mesh", type=int, default=4,
-                   help="the mesh width of --layout zero3 (refused)")
+                   help="the number of ranks of --layout zero3")
     p.add_argument("--transient", default="true",
                    help="faults fire on SUPERVISE_ATTEMPT=0 only (a "
                         "retry models recovered hardware); false "
@@ -200,9 +452,9 @@ def main(argv: list[str] | None = None) -> int:
                    help="where the loop runs (cuda unless asked for the "
                         "CPU; no fallback)")
     args = p.parse_args(argv)
-    truthy = lambda v: str(v).lower() in ("1", "true", "t", "yes", "y")
 
-    from distributedtensorflowexample_tpu_torch.device import resolve_device
+    from distributedtensorflowexample_tpu_torch.device import (
+        require_cuda, resolve_device)
     from distributedtensorflowexample_tpu_torch.obs import ledger as obs_ledger
     from distributedtensorflowexample_tpu_torch.obs import recorder as obs_recorder
     from distributedtensorflowexample_tpu_torch.obs import serve as obs_serve
@@ -212,8 +464,6 @@ def main(argv: list[str] | None = None) -> int:
     from distributedtensorflowexample_tpu_torch.resilience import (
         FaultInjectionHook, FaultPlan, FaultyBatches, MetricsTapeHook,
         NaNGuardHook, SnapshotHook, SnapshotStore)
-    from distributedtensorflowexample_tpu_torch.resilience.faults import (
-        tear_journal)
     from distributedtensorflowexample_tpu_torch.training.hooks import (
         AnomalyHook, HeartbeatHook, MetricsHook)
     from distributedtensorflowexample_tpu_torch.training.loop import TrainLoop
@@ -221,15 +471,22 @@ def main(argv: list[str] | None = None) -> int:
         sigterm_flag)
 
     plan = FaultPlan.parse(args.plan, args.steps, args.seed)
-    refusal = _unported(args, plan)
-    if refusal:
-        print(refusal, file=sys.stderr, flush=True)
-        return 2
-    device = resolve_device(args.device)
-    if device.type == "cuda":
-        # Bitwise resume on the card: the same algorithms every attempt.
-        torch.backends.cudnn.deterministic = True
-        torch.backends.cudnn.benchmark = False
+    if args.layout == "zero3":
+        if args.mesh < 2 or args.batch % args.mesh:
+            print(f"faultline: --layout zero3 shards the state over "
+                  f"--mesh >= 2 ranks and the global --batch into equal "
+                  f"rows (mesh {args.mesh}, batch {args.batch})",
+                  file=sys.stderr, flush=True)
+            return 2
+        if args.device == "cuda":
+            require_cuda()          # the mesh ranks hold the card, not this
+    else:
+        device = resolve_device(args.device)
+        if device.type == "cuda":
+            # Bitwise resume on the card: the same algorithms every
+            # attempt.
+            torch.backends.cudnn.deterministic = True
+            torch.backends.cudnn.benchmark = False
 
     attempt = int(os.environ.get("SUPERVISE_ATTEMPT", "0"))
     rank = (args.rank if args.rank is not None
@@ -257,16 +514,18 @@ def main(argv: list[str] | None = None) -> int:
               + (", ".join(f"{s.kind}@{s.step}" for s in plan.specs)
                  or "(no faults target this rank)"),
               file=sys.stderr, flush=True)
-    if plan and truthy(args.transient) and attempt > 0:
+    if plan and _truthy(args.transient) and attempt > 0:
         print(f"faultline: attempt {attempt}: plan {args.plan!r} already "
               f"fired (transient) — clean run", file=sys.stderr, flush=True)
         plan = FaultPlan([], seed=args.seed, name=f"{args.plan} (cleared)")
+    if args.layout == "zero3":
+        return _main_zero3(args, plan, attempt, rank)
 
     store = SnapshotStore(os.path.join(args.workdir, "snapshots"),
                           keep=args.keep)
     state = init_state(args.model, args.seed, device)
     agreed_txt = os.environ.get("FLEET_RESUME_STEP", "")
-    if truthy(args.resume):
+    if _truthy(args.resume):
         if agreed_txt:
             # The fleet's agreement pass picked the max common valid
             # step and discarded everything newer; restoring this
@@ -318,14 +577,11 @@ def main(argv: list[str] | None = None) -> int:
         hooks.append(HeartbeatHook(hb))
 
     def emit(status: str, digest_state=None, **extra) -> None:
-        rec = {"status": status, "plan": args.plan, "seed": args.seed,
-               "attempt": attempt, "rank": rank,
-               "start_step": start_step,
-               "losses": [[s, loss] for s, loss in tape.tape], **extra}
         if digest_state is not None:
-            rec["step"] = int(digest_state.step)
-            rec["digest"] = _digest(digest_state)
-        print(json.dumps(rec, sort_keys=True), flush=True)
+            extra.update(step=int(digest_state.step),
+                         digest=_digest(digest_state))
+        _emit(args, attempt, rank, start_step, tape.tape, status=status,
+              **extra)
 
     with sigterm_flag() as preempted:
         loop = TrainLoop(make_train_step(), batches, args.steps,
@@ -342,25 +598,7 @@ def main(argv: list[str] | None = None) -> int:
             obs_ledger.end_global(rc=1,
                                   final_step=start_step + len(tape.tape))
             return 1
-        # Post-exit faults: applied AFTER the final save — the torn
-        # snapshot/journal shapes recovery must survive by falling back
-        # (previous valid snapshot; journal replay skipping the tail).
-        for spec in plan.post_exit_specs:
-            if spec.step > int(state.step):
-                continue
-            if spec.kind == "torn_snapshot":
-                torn = store.tear_latest()
-                print(f"faultline: tore snapshot {torn} mid-file",
-                      file=sys.stderr, flush=True)
-            elif spec.kind == "journal_torn":
-                jp = os.environ.get("SUPERVISE_JOURNAL", "")
-                if jp and tear_journal(jp):
-                    print(f"faultline: tore journal {jp} mid-line",
-                          file=sys.stderr, flush=True)
-                else:
-                    print("faultline: journal_torn had no journal to "
-                          "tear (SUPERVISE_JOURNAL unset or empty) — "
-                          "no-op", file=sys.stderr, flush=True)
+        _post_exit_faults(plan, int(state.step), store, None)
         if preempted:
             obs_recorder.dump_global("preempted")
             emit("preempted", digest_state=state)

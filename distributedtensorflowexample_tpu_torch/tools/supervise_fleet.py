@@ -35,12 +35,24 @@ receives a fleet.prom textfile-collector export after every gang
 attempt; per-rank flight files land in OBS_DIR (default
 <workdir>/flight).
 
-``--heal`` (the JAX package's self-healing mode over
-``resilience/remediate.py``) is refused by name: the remediation layer
-is not ported yet.
+``--heal`` closes the loop (``resilience/remediate.py``): the
+remediation policy engine watches the same health files + ledger rows
+and acts through guardrailed policies: straggler/regression → loss-free
+stop + bitwise resume, NaN/plateau → rollback to the pinned last-good
+snapshot, repeated host loss → rank quarantine.  Every decision is a
+``heal_*`` ledger row; HEAL_DRY_RUN=1 journals without acting.  Drill it
+with a slow rank (the step-time detector warmed up on 3 steps before
+the slowdown):
 
-Online health (detection only): every rank's AnomalyHook writes
-<workdir>/health_rank<r>.json; the fleet's monitor loop reads those,
+  OBS_ANOMALY_WARMUP=3 python -m \
+      distributedtensorflowexample_tpu_torch.tools.supervise_fleet \
+      --num_ranks 2 --heal --kill_grace_s 30 --workdir /tmp/heal -- \
+      python -m distributedtensorflowexample_tpu_torch.tools.faultline \
+          --plan 'slow_rank@5:1.0%1' --steps 12 --keep 50 \
+          --workdir '/tmp/heal/rank{rank}'
+
+Online health (detection only without --heal): every rank's AnomalyHook
+writes <workdir>/health_rank<r>.json; the fleet's monitor loop reads those,
 flags stragglers/skew (obs/anomaly.detect_skew), annotates the journal
 with ``anomaly`` events, and maintains the aggregate
 <workdir>/health.json.  Every rank and the fleet append to the run
@@ -63,16 +75,58 @@ import os
 import sys
 
 from distributedtensorflowexample_tpu_torch.obs import recorder as obs_recorder
+from distributedtensorflowexample_tpu_torch.resilience import remediate
 from distributedtensorflowexample_tpu_torch.resilience.fleet import (
-    FleetSupervisor, RankLossRefused, RankLossStructurallyIllegal)
+    FleetSupervisor, RankLossRefused, RankLossStructurallyIllegal,
+    resolve_ledger_dest)
 from distributedtensorflowexample_tpu_torch.resilience.supervisor import (
     Journal, RetryPolicy)
 
-#: ``supervise_fleet --heal``'s refusal (exit 2).
-HEAL_REFUSAL = (
-    "supervise_fleet: --heal is not ported: it drives the remediation "
-    "layer (resilience/remediate.py), which the port does not have yet; "
-    "run without --heal for detection-only gang supervision")
+
+def _run_healed(args, make_fleet, journal, child: list, workdir: str,
+                snapshots: str):
+    """``--heal``: the gang under ``remediate.run_remediated``.  One
+    journal holds the fleet's AND the remediator's write-ahead records,
+    one ledger both row families; the shared resolution rule
+    (``fleet.resolve_ledger_dest``) keeps the remediator bound to the
+    SAME file the fleet's anomaly/rank_lost rows land in.  Returns the
+    last launch's ``GangResult``."""
+    scope = args.name or "fleet"
+    ledger_path = resolve_ledger_dest(
+        "" if args.ledger == "none"
+        else args.ledger or os.path.join(workdir, "RUNS.jsonl"))
+    target = remediate.FleetTarget()
+    actuators = {
+        "evict": remediate.make_evict_actuator(target),
+        "quarantine": remediate.make_quarantine_actuator(target),
+    }
+    if snapshots:
+        actuators["rollback"] = remediate.make_rollback_actuator(
+            snapshots, target=target)
+    rem = remediate.Remediator(journal=journal, ledger_path=ledger_path,
+                               actuators=actuators, scope=scope)
+    watchers = [remediate.HealthWatcher(
+        os.path.join(workdir, "health_rank*.json"),
+        fleet_health=("" if args.health == "none"
+                      else args.health
+                      or os.path.join(workdir, "health.json")),
+        scope=scope)]
+    if ledger_path:
+        # rank_lost ONLY: the ledger's `anomaly` rows mirror the same
+        # conditions the health files already deliver — tailing both
+        # would double-count one condition into one guardrail key and
+        # cross the flap bar in a single poll cycle.
+        watchers.append(remediate.LedgerWatcher(
+            ledger_path, kinds=("rank_lost",), scope=scope))
+    out = remediate.run_remediated(
+        make_fleet, child, rem, watchers, target=target, name=args.name,
+        snapshot_dir_template=snapshots,
+        stdout_dir=args.stdout_dir or workdir,
+        poll_s=args.heal_poll_s, max_heals=args.max_heals)
+    print(f"supervise_fleet: heal: {out['healed']} relaunch(es), "
+          f"{rem.guardrails.actions_used} action(s), final status "
+          f"{out['status']}", file=sys.stderr, flush=True)
+    return out["results"][-1]
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -146,8 +200,16 @@ def main(argv: list[str] | None = None) -> int:
                         "'none' disables the default — an operator's "
                         "own OBS_LEDGER export still wins)")
     p.add_argument("--heal", action="store_true",
-                   help="the JAX package's self-healing mode (refused "
-                        "here: the remediation layer is not ported yet)")
+                   help="self-healing mode (resilience/remediate.py): "
+                        "watch the per-rank health files + ledger "
+                        "rank_lost rows while the gang runs, and close "
+                        "the loop — straggler/regression → loss-free "
+                        "stop + bitwise resume, NaN/plateau → rollback "
+                        "to the pinned last-good snapshot, repeated "
+                        "host loss → rank quarantine.  Guardrailed "
+                        "(HEAL_FLAP_N/HEAL_COOLDOWN_S/"
+                        "HEAL_ACTION_BUDGET) and HEAL_DRY_RUN=1 "
+                        "journals decisions without acting")
     p.add_argument("--heal_poll_s", type=float, default=0.25,
                    help="remediation watcher cadence under --heal")
     p.add_argument("--max_heals", type=int, default=4,
@@ -155,9 +217,6 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--seed", type=int, default=None,
                    help="backoff-jitter seed (tests)")
     args = p.parse_args(argv)
-    if args.heal:
-        print(HEAL_REFUSAL, file=sys.stderr, flush=True)
-        return 2
     if not child:
         p.error("nothing to run: pass -- CMD ARGS... "
                 "({rank} substituted per rank)")
@@ -173,32 +232,40 @@ def main(argv: list[str] | None = None) -> int:
     os.makedirs(os.environ["OBS_DIR"], exist_ok=True)
     obs_recorder.install(sigterm=False)
 
-    fleet = FleetSupervisor(
-        args.num_ranks,
-        policy=RetryPolicy(retries=args.retries,
-                           backoff_base_s=args.backoff_base_s,
-                           backoff_max_s=args.backoff_max_s),
-        journal=Journal(args.journal
-                        or os.path.join(workdir, "fleet.jsonl")),
-        heartbeat_timeout_s=args.heartbeat_timeout_s,
-        wall_timeout_s=args.timeout_s,
-        kill_grace_s=args.kill_grace_s,
-        preempt_grace_s=args.preempt_grace_s,
-        seed=args.seed,
-        elastic=args.elastic,
-        worker_tiled=(args.sync_mode == "async"),
-        workdir=workdir,
-        health_path=("" if args.health == "none"
-                     else args.health or None),
-        skew_lag_steps=args.skew_lag_steps,
-        skew_time_ratio=args.skew_time_ratio,
-        ledger_path=("" if args.ledger == "none"
-                     else args.ledger or None),
-        http=args.http)
+    journal = Journal(args.journal
+                      or os.path.join(workdir, "fleet.jsonl"))
+
+    def make_fleet() -> FleetSupervisor:
+        return FleetSupervisor(
+            args.num_ranks,
+            policy=RetryPolicy(retries=args.retries,
+                               backoff_base_s=args.backoff_base_s,
+                               backoff_max_s=args.backoff_max_s),
+            journal=journal,
+            heartbeat_timeout_s=args.heartbeat_timeout_s,
+            wall_timeout_s=args.timeout_s,
+            kill_grace_s=args.kill_grace_s,
+            preempt_grace_s=args.preempt_grace_s,
+            seed=args.seed,
+            elastic=args.elastic,
+            worker_tiled=(args.sync_mode == "async"),
+            workdir=workdir,
+            health_path=("" if args.health == "none"
+                         else args.health or None),
+            skew_lag_steps=args.skew_lag_steps,
+            skew_time_ratio=args.skew_time_ratio,
+            ledger_path=("" if args.ledger == "none"
+                         else args.ledger or None),
+            http=args.http)
+
     try:
-        res = fleet.run(child, name=args.name,
-                        snapshot_dir_template=snapshots,
-                        stdout_dir=args.stdout_dir or workdir)
+        if args.heal:
+            res = _run_healed(args, make_fleet, journal, child, workdir,
+                              snapshots)
+        else:
+            res = make_fleet().run(child, name=args.name,
+                                   snapshot_dir_template=snapshots,
+                                   stdout_dir=args.stdout_dir or workdir)
     except RankLossStructurallyIllegal as e:
         print(f"supervise_fleet: {e}", file=sys.stderr, flush=True)
         return 4

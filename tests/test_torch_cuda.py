@@ -303,3 +303,43 @@ def test_config2_launches_dequant_and_ce_not_sgd(cuda, tmp_path,
         "ce_bwd": 40, "sgd": 0}
     losses = [l for _, l in summary["loss_tape"]]
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+_SCHEDULED_CHILD = """
+import json, sys
+from distributedtensorflowexample_tpu_torch.data import mnist
+from distributedtensorflowexample_tpu_torch.ops import kernels
+from distributedtensorflowexample_tpu_torch.trainers import trainer_sync_mnist
+mnist._SYNTH_SIZES = {"train": 2048, "test": 512}
+summary = trainer_sync_mnist.main(sys.argv[1:])
+print(json.dumps({"launches": kernels.launch_counts(),
+                  "eval_batches": summary["eval_batches"]}))
+"""
+
+
+def test_scheduled_config3_job_launches_every_kernel(cuda, tmp_path):
+    """A config-3 job placed by the port's scheduler (a gang of one, in a
+    process of its own, which takes the card): the four kernels launch
+    as on the main path, and the queue ends done."""
+    import json
+    import os
+    import sys
+
+    from distributedtensorflowexample_tpu_torch.resilience.scheduler import (
+        Job, Scheduler)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    job = Job(job="cfg3", argv=[
+        sys.executable, "-c", _SCHEDULED_CHILD, "--device", "cuda",
+        "--dataset", "synthetic", "--train_steps", "40", "--batch_size",
+        "32", "--log_every", "20", "--dequant_impl", "pallas",
+        "--pallas_ce", "true", "--fused_optimizer", "true",
+        "--log_dir", str(tmp_path / "run")],
+        env={"PYTHONPATH": repo}, wall_timeout_s=600)
+    summary = Scheduler([job], devices=1, workdir=str(tmp_path / "sched"),
+                        tick_s=0.05, seed=0).run()
+    assert summary["jobs"] == {"cfg3": "done"}
+    out = tmp_path / "sched" / "jobs" / "cfg3" / "out" / "place1" \
+        / "rank0_attempt0.out"
+    rec = json.loads(out.read_text().strip().splitlines()[-1])
+    assert rec["launches"] == {"dequant": 40 + rec["eval_batches"],
+                               "ce_fwd": 40, "ce_bwd": 40, "sgd": 40}

@@ -404,9 +404,25 @@ def test_faultline_tears_the_supervisor_journal(tmp_path, capsys,
     (["--plan", "bitflip@3%0"], "bitflip")])
 def test_faultline_refuses_the_zero3_drills_by_name(tmp_path, capsys, argv,
                                                     name):
-    rc, rec = _run(capsys, "--workdir", str(tmp_path / "w"), *argv)
-    assert rc == 2 and name in rec["_stderr"]
-    assert not os.path.exists(tmp_path / "w")      # refused before work
+    """Once refused by name, now run: ``--layout zero3`` trains as two
+    gloo mesh ranks under the default plan (a preemption), which both
+    ranks agree on, save and report as one 143; on the tree layout the
+    shard plans run their other specs and name their no-op (no shard
+    store to damage), as the JAX driver does.  (The zero3 drills
+    themselves: tests/test_torch_heal.py.)"""
+    rc, rec = _run(capsys, "--workdir", str(tmp_path / "w"), "--mesh", "2",
+                   "--steps", "4", *argv)
+    if name == "--layout zero3":
+        assert rc == 143 and rec["status"] == "preempted"
+        assert 1 <= rec["step"] < 4 and len(rec["losses"]) == rec["step"]
+        assert rec["digest"] and rec["params_digest"]
+        assert os.listdir(tmp_path / "w" / "snapshots")    # shard sets
+        return
+    assert f"{name} needs the shard store (--layout zero3) — no-op" \
+        in rec["_stderr"]
+    # shard_loss pairs its damage with a preemption; bitflip@3%0 alone
+    assert rc == {"shard_loss": 143, "bitflip": 0}[name]
+    assert rec["status"] == {"shard_loss": "preempted", "bitflip": "ok"}[name]
 
 
 # ---- the loss tape against the JAX faultline -----------------------------

@@ -544,8 +544,34 @@ sys.exit(7)
 
 
 def test_supervise_fleet_heal_is_refused_by_name(tmp_path, capsys):
-    rc = supervise_fleet.main(["--heal", "--workdir", str(tmp_path / "wd"),
-                               "--", sys.executable, "-c", "pass"])
-    assert rc == 2
-    assert "--heal is not ported" in capsys.readouterr().err
-    assert not os.path.exists(tmp_path / "wd")
+    """Once refused by name, now run: ``--heal`` over one scripted rank
+    whose first launch writes a firing step-time regression and waits;
+    the remediator evicts it (TERM -> 143), and the relaunch, with the
+    bumped SUPERVISE_ATTEMPT, exits 0.  The faultline gang with a slow
+    rank: tests/test_torch_heal.py."""
+    child = tmp_path / "child.py"
+    child.write_text("""
+import json, os, signal, sys, time
+if os.environ.get("SUPERVISE_ATTEMPT", "0") == "0":
+    signal.signal(signal.SIGTERM, lambda s, f: sys.exit(143))
+    flags = {"step_time_regression": {"firing": True, "fired_step": 4},
+             "nan_loss": {"firing": False, "fired_step": None}}
+    with open(os.environ["OBS_HEALTH"], "w") as f:
+        json.dump({"version": 1, "kind": "rank", "rank": 0, "step": 5,
+                   "updated_unix": time.time(), "flags": flags}, f)
+    time.sleep(60)
+    sys.exit(5)
+""")
+    wd = tmp_path / "wd"
+    rc = supervise_fleet.main(["--heal", "--num_ranks", "1", "--workdir",
+                               str(wd), "--snapshots", "none",
+                               "--heal_poll_s", "0.05", "--kill_grace_s",
+                               "5", "--seed", "0", "--", sys.executable,
+                               str(child)])
+    assert rc == 0
+    assert "heal: 1 relaunch(es), 1 action(s), final status ok" \
+        in capsys.readouterr().err
+    rows = [json.loads(l) for l in open(wd / "RUNS.jsonl")]
+    evict = [r for r in rows if r["event"] == "heal_evict"]
+    assert len(evict) == 1 and evict[0]["kind"] == "step_time_regression"
+    assert (wd / "launch1" / "rank0_attempt0.out").exists()
