@@ -25,7 +25,10 @@ by the heartbeat watchdog, and a two-rank gang restarted from its agreed
 snapshot step, and that the control plane schedules and heals on it: a
 config-3 job evicted by a more urgent one and resumed bitwise, a wedged
 job quarantined, a damaged ZeRO-3 shard set reconstructed, and a slow
-rank evicted and its gang resumed bitwise.
+rank evicted and its gang resumed bitwise, and that the same control
+plane runs at fleet scale on the card's host: the simulator's four
+10,000-rank storms are deterministic, and the ledger's readers explain
+the card's eviction, quarantine and gang restart.
 
     python3 chip_smoke.py
 
@@ -195,6 +198,23 @@ V. (after U, beside C, H and J) the scheduler and the heal drills on
    straggler by the fleet, one relaunch from the agreed step, both
    ranks' digests and tapes those of an uninterrupted run beside it; one
    ``scheduling_path`` line and one line for each part;
+W. (after V) the control plane at fleet scale and the ledger's readers,
+   each a ``python -m`` child process that imports neither torch nor JAX
+   (checked first; the simulator patches process-wide clock seams, so it
+   never runs in a thread of this script): (a) ``sim_run --battery``, the
+   four 10,000-rank storms (host-loss waves, a straggler epidemic, a
+   serve spike, a wedge cascade) each run twice against the port's real
+   ``Scheduler`` and ``Remediator``: 0 determinism violations, 0 steps
+   lost, 0 unbalanced WAL intents, 10,000 ranks in ``fleet10k``, and the
+   host wall seconds; (b) ``obs_query why victim`` and ``why wedge`` over
+   phase V (a)'s ledger (``sched/RUNS.jsonl``): the victim's eviction for
+   the priority-0 evictor, its resumed placement and its completion; the
+   wedge's quarantine; ``obs_query list`` over the same ledger; (c)
+   ``obs_report`` over phase U (c)'s fleet journal and flights: the
+   markdown names rank 1's SIGKILL, the teardown and the agreed restart
+   step, ``--format trace`` parses with one lane per rank, and phase V
+   (c)'s healed gang renders too.  This process's launch counts are the
+   same after W as before; one ``control_plane_path`` line;
 L. the replication modes on the two gloo ranks, under cuDNN's
    deterministic algorithms: config 3 (``trainer_sync_mnist``, B=64 per
    rank, the dequant and CE kernels, plain momentum SGD: the fused apply
@@ -2337,6 +2357,171 @@ def run_scheduling_phase(gpu: str) -> tuple:
             {"mnist_cnn_scheduled": launches})
 
 
+# --- phase W: the control plane at fleet scale, and the ledger's readers --
+
+SIM_ROOT = ROOT / "build" / "chip_smoke_sim"
+#: Phase W's tools are torch-free: a child that imports them loads none of
+#: these, so W launches no kernel and touches no device.
+W_BANNED = ("torch", "jax", "jaxlib", "distributedtensorflowexample_tpu")
+W_TOOLS = ("sim", "tools.sim_run", "tools.obs_query", "tools.obs_report")
+
+
+def run_tool(name: str, *args, timeout: float = 300) -> tuple:
+    """(exit code, stdout, stderr) of ``python -m <port>.tools.<name>``."""
+    proc = subprocess.run([sys.executable, "-m", TOOLS + name, *args],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=timeout)
+    return proc.returncode, proc.stdout, proc.stderr
+
+
+def tools_stay_torch_free() -> None:
+    """Phase W: a fresh interpreter imports the simulator and the three
+    tools and loads neither torch nor JAX."""
+    pkg = TOOLS.rsplit(".", 2)[0]
+    probe = ("import importlib, sys\n"
+             f"for m in {W_TOOLS!r}:\n"
+             f"    importlib.import_module({pkg!r} + '.' + m)\n"
+             "print(sorted(m for m in sys.modules\n"
+             f"             if m.split('.')[0] in {W_BANNED!r}))\n")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    require(out.returncode == 0 and out.stdout.strip() == "[]",
+            f"phase W: the tools import {out.stdout.strip()} "
+            f"{out.stderr[-2000:]}")
+
+
+def check_battery() -> dict:
+    """Phase W (a): ``sim_run --battery``, the four 10,000-rank storms
+    each twice against the port's scheduler and remediator."""
+    record = SIM_ROOT / "battery.jsonl"
+    t0 = time.perf_counter()
+    rc, out, err = run_tool("sim_run", "--battery", "--workdir",
+                            str(SIM_ROOT / "battery"), "--out", str(record))
+    wall = time.perf_counter() - t0
+    require(rc == 0, f"phase W (a): sim_run --battery exit code {rc}:\n"
+                     f"{err[-4000:]}")
+    rows = {r["metric"]: r for r in journal_rows(record)}
+    storms = {}
+    for name in ("fleet10k", "epidemic10k", "servespike", "cascade10k"):
+        zeros = {m: rows[f"sim_{name}_{m}"]["value"] for m in (
+            "determinism_violations", "fleet_steps_lost",
+            "wal_unbalanced_violations")}
+        require(not any(zeros.values()), f"phase W (a): {name} {zeros}")
+        storms[name] = {
+            "ranks": rows[f"sim_{name}_ranks"]["value"],
+            "virtual_s": rows[f"sim_{name}_virtual_s"]["value"],
+            "jobs_done": rows[f"sim_{name}_jobs_done"]["value"],
+            "evictions": rows[f"sim_{name}_evictions"]["value"],
+            "queue_wait_p99_s": rows[f"sim_{name}_queue_wait_p99_s"]["value"],
+            **zeros}
+    require(storms["fleet10k"]["ranks"] == 10_000,
+            f"phase W (a): fleet10k ranks {storms['fleet10k']['ranks']}")
+    return {"storms": storms, "wall_s": wall}
+
+
+def why(ledger: Path, job: str) -> dict:
+    rc, out, err = run_tool("obs_query", "why", job, "--ledger", str(ledger),
+                            "--format", "json")
+    require(rc == 0, f"phase W (b): obs_query why {job} exit code {rc}:\n"
+                     f"{err[-2000:]}")
+    return json.loads(out)
+
+
+def check_why() -> dict:
+    """Phase W (b): ``obs_query why`` and ``list`` over phase V (a)'s live
+    ledger: the victim's eviction for the priority-0 job, its resumed
+    placement and its completion; the wedge's quarantine."""
+    ledger = SCHED_ROOT / "sched" / "RUNS.jsonl"
+    victim, wedge = why(ledger, "victim"), why(ledger, "wedge")
+    texts = [line["text"] for line in victim["timeline"]]
+    evicted = [t for t in texts if t.startswith("EVICTED:")]
+    resumed = [t for t in texts if t.startswith("placed on")
+               and "resuming from snapshots" in t]
+    require(len(evicted) == 1 and "`evictor`" in evicted[0]
+            and len(resumed) == 1 and texts[-1].startswith("done:")
+            and "preempted 1x (for `evictor`)" in victim["verdict"]
+            and victim["verdict"].endswith("finally completed"),
+            f"phase W (b): why victim {victim}")
+    require(any(t.startswith("QUARANTINED") for t in
+                (line["text"] for line in wedge["timeline"]))
+            and wedge["verdict"].endswith("finally quarantined"),
+            f"phase W (b): why wedge {wedge}")
+    rc, out, err = run_tool("obs_query", "list", "--ledger", str(ledger),
+                            "--format", "json")
+    require(rc == 0, f"phase W (b): obs_query list exit code {rc}:\n"
+                     f"{err[-2000:]}")
+    runs = json.loads(out)["runs"]
+    outcomes = sorted(f"{r['entrypoint']}:{r['outcome']}" for r in runs)
+    require(len(runs) >= 3 and any(r["outcome"] == "ok" for r in runs),
+            f"phase W (b): obs_query list {outcomes}")
+    return {"victim_verdict": victim["verdict"],
+            "wedge_verdict": wedge["verdict"],
+            "victim_timeline": len(texts), "runs_listed": outcomes}
+
+
+def report(flight_dir: Path, journal: Path, fmt: str) -> str:
+    rc, out, err = run_tool("obs_report", "--dir", str(flight_dir),
+                            "--journal", str(journal), "--format", fmt)
+    require(rc == 0, f"phase W (c): obs_report --format {fmt} on "
+                     f"{journal} exit code {rc}:\n{err[-2000:]}")
+    return out
+
+
+def check_reports() -> dict:
+    """Phase W (c): ``obs_report`` over phase U (c)'s two-rank fleet
+    journal and flights (the lost rank, the agreed restart step, one
+    trace lane per rank), and over phase V (c)'s healed gang."""
+    fleet = ROOT / "build" / "chip_smoke_faults" / "gang" / "fleet"
+    journal = fleet / "fleet.jsonl"
+    (agree,) = [r for r in journal_rows(journal)
+                if r["event"] == "resume_agreement"]
+    md = report(fleet / "flight", journal, "md")
+    require("## Per-rank timeline — `fleet.jsonl`" in md
+            and "| 1 | 0 | `rank_exit` | rc=-9" in md
+            and "`gang_teardown` | rank_crash" in md
+            and f"agreed step {agree['agreed']}; " in md,
+            f"phase W (c): the fleet report:\n{md[-4000:]}")
+    lanes = [e["args"]["name"] for e in
+             json.loads(report(fleet / "flight", journal,
+                               "trace"))["traceEvents"]
+             if e.get("ph") == "M" and e.get("name") == "process_name"]
+    require(lanes.count("rank 0") == 1 and lanes.count("rank 1") == 1,
+            f"phase W (c): trace lanes {lanes}")
+    merged = json.loads(report(fleet / "flight", journal, "json"))
+    healed = SCHED_ROOT / "gang"
+    healed_md = report(healed / "flight", healed / "fleet.jsonl", "md")
+    require("## Merged timeline" in healed_md,
+            f"phase W (c): the healed gang's report:\n{healed_md[-2000:]}")
+    return {"agreed_step": agree["agreed"], "trace_lanes": lanes,
+            "flights": len(list((fleet / "flight").glob("flight_*.json"))),
+            "ranks_present": merged["coverage"]["ranks_present"],
+            "healed_gang_flights": len(list(
+                (healed / "flight").glob("flight_*.json"))),
+            "markdown_bytes": len(md)}
+
+
+def run_control_plane_phase(gpu: str) -> None:
+    """Phase W: the fleet simulator and the ledger's readers, each in a
+    child process (the simulator patches process-wide clock seams), after
+    phase V, whose ledger (b) reads.  No kernel launches: the launch
+    counts of this process are the same after as before."""
+    t0 = time.perf_counter()
+    before = kernels.launch_counts()
+    shutil.rmtree(SIM_ROOT, ignore_errors=True)
+    SIM_ROOT.mkdir(parents=True)
+    tools_stay_torch_free()
+    result = {"battery": check_battery(), "why": check_why(),
+              "report": check_reports()}
+    after = kernels.launch_counts()
+    require(after == before, f"phase W: launches {before} -> {after}")
+    result.update(launches={k: after[k] - before[k] for k in after},
+                  wall_s=time.perf_counter() - t0, gpu=gpu)
+    print(json.dumps({"control_plane_path": result}), flush=True)
+    print(f"control plane: the 10,000-rank battery (four storms, each "
+          f"twice) in {result['battery']['wall_s']:.2f} s of host wall "
+          f"time on the card's machine ({gpu})", flush=True)
+
+
 # --- phase S: serving lm_base ---------------------------------------------
 
 def host_argv(steps: int, log_dir: str, log_every: int, *extra) -> list:
@@ -3682,6 +3867,8 @@ def main() -> int:
     lap("U")
     by_path.update(run_side_and_scheduling_phases(gpu))
     lap("C H J V")
+    run_control_plane_phase(gpu)
+    lap("W")
     by_path.update(run_host_fed_phase(gpu))
     lap("Q")
     by_path.update(run_remat_phase(gpu))

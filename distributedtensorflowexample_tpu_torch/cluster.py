@@ -22,8 +22,6 @@ import dataclasses
 import json
 import os
 
-import torch.distributed as dist
-
 from distributedtensorflowexample_tpu_torch.config import RunConfig
 
 #: backend per device type (there is no flag for it)
@@ -107,6 +105,9 @@ def maybe_initialize_distributed(info: ClusterInfo, device: str) -> None:
     Idempotent, like the JAX function: a group the caller initialized
     (``gloo`` ranks on one card, a file store in tests) is kept as it
     is."""
+    # Imported here, so that resilience/fleet.py (which imports
+    # tf_config_env) and the simulator built on it stay torch-free.
+    import torch.distributed as dist
     if dist.is_initialized() or not info.is_distributed:
         return
     dist.init_process_group(

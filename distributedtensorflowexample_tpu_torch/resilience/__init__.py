@@ -29,24 +29,42 @@ recovery (the JAX package's ``resilience/``, in import order):
   multi-job queue admitted against declared (or measured) cost, packed
   onto gang slots, with elastic shrink/grow-on-recovery and loss-free
   SLO preemption as policy (``tools.schedule``).
+
+The names below are exported lazily (PEP 562): ``faults``,
+``snapshot`` and ``shardstore`` import torch, while ``scheduler``,
+``remediate``, ``fleet`` and ``supervisor`` do not, and the fleet
+simulator (``sim/``) and the ledger's readers import those four alone.
 """
 
-from distributedtensorflowexample_tpu_torch.resilience.faults import (  # noqa: F401
-    FAULT_KINDS, FaultInjectionHook, FaultPlan, FaultSpec, FaultyBatches,
-    MetricsTapeHook, NaNGuardHook, mark_host_down, tear_journal)
-from distributedtensorflowexample_tpu_torch.resilience.fleet import (  # noqa: F401
-    FleetSupervisor, GangResult, RankLossRefused,
-    RankLossStructurallyIllegal, RankLostError)
-from distributedtensorflowexample_tpu_torch.resilience.remediate import (  # noqa: F401
-    HEAL_EVENTS, AnomalyEvent, FleetTarget, Guardrails, HealRule,
-    HealthWatcher, LedgerWatcher, Remediator, ServeWatcher,
-    make_evict_actuator, make_quarantine_actuator,
-    make_rollback_actuator, make_slo_actuator, run_remediated)
-from distributedtensorflowexample_tpu_torch.resilience.scheduler import (  # noqa: F401
-    Job, Scheduler, load_queue)
-from distributedtensorflowexample_tpu_torch.resilience.shardstore import (  # noqa: F401
-    ShardLayout, ShardSnapshotHook, ShardStore, quorum_valid_steps)
-from distributedtensorflowexample_tpu_torch.resilience.snapshot import (  # noqa: F401
-    SnapshotHook, SnapshotStore, newest_common_step, valid_steps)
-from distributedtensorflowexample_tpu_torch.resilience.supervisor import (  # noqa: F401
-    RetryPolicy, SupervisedResult, Supervisor, Task, TaskQueue)
+import importlib
+
+_EXPORTS = {
+    "faults": ("FAULT_KINDS", "FaultInjectionHook", "FaultPlan",
+               "FaultSpec", "FaultyBatches", "MetricsTapeHook",
+               "NaNGuardHook", "mark_host_down", "tear_journal"),
+    "fleet": ("FleetSupervisor", "GangResult", "RankLossRefused",
+              "RankLossStructurallyIllegal", "RankLostError"),
+    "remediate": ("HEAL_EVENTS", "AnomalyEvent", "FleetTarget",
+                  "Guardrails", "HealRule", "HealthWatcher",
+                  "LedgerWatcher", "Remediator", "ServeWatcher",
+                  "make_evict_actuator", "make_quarantine_actuator",
+                  "make_rollback_actuator", "make_slo_actuator",
+                  "run_remediated"),
+    "scheduler": ("Job", "Scheduler", "load_queue"),
+    "shardstore": ("ShardLayout", "ShardSnapshotHook", "ShardStore",
+                   "quorum_valid_steps"),
+    "snapshot": ("SnapshotHook", "SnapshotStore", "newest_common_step",
+                 "valid_steps"),
+    "supervisor": ("RetryPolicy", "SupervisedResult", "Supervisor", "Task",
+                   "TaskQueue"),
+}
+_HOME = {name: mod for mod, names in _EXPORTS.items() for name in names}
+
+__all__ = sorted(_HOME)
+
+
+def __getattr__(name):
+    if name in _HOME:
+        return getattr(importlib.import_module(f"{__name__}.{_HOME[name]}"),
+                       name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -294,7 +294,7 @@ class FleetSupervisor:
         # child writes its own run rows there) and written by the fleet
         # itself (gang rows + the resume_agreement annotation) — one
         # RUNS.jsonl holding the whole drill, queryable with
-        # tools/obs_query.py.  None = the workdir default; "" disables.
+        # tools.obs_query.  None = the workdir default; "" disables.
         self.ledger_path = (os.path.join(self.workdir, "RUNS.jsonl")
                             if ledger_path is None else ledger_path)
         # Live scrape (obs/serve.py): with http=True each rank gets an

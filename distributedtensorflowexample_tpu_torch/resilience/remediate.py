@@ -99,9 +99,9 @@ from distributedtensorflowexample_tpu_torch.obs import metrics as obs_metrics
 
 # The heal_* ledger-row schema: every decision class the remediator can
 # take, written with src="heal" plus a "job" scope field.
-# The JAX package's tools/obs_query.py `why` verb renders exactly this
-# set, so it stays the JAX package's tuple (tests/test_torch_remediate.py
-# holds the two equal).
+# The `why` verb of tools.obs_query (and of the JAX package's
+# tools/obs_query.py) renders exactly this set, so it stays the JAX
+# package's tuple (tests/test_torch_remediate.py holds the two equal).
 HEAL_EVENTS = (
     "heal_detect",            # anomaly folded into the policy engine
     "heal_evict",             # loss-free gang stop (TERM→143→resume)

@@ -79,9 +79,10 @@ from distributedtensorflowexample_tpu_torch.utils.signals import sigterm_flag
 
 # The sched_* ledger-row schema: every decision class the scheduler can
 # take, written with src="sched" plus a "job" field (and queue-level
-# rows with job=None).  The JAX package's tools/obs_query.py `why` verb
-# renders exactly this set, so it stays the JAX package's tuple
-# (tests/test_torch_scheduler.py holds the two equal).
+# rows with job=None).  The `why` verb of tools.obs_query (and of the
+# JAX package's tools/obs_query.py) renders exactly this set, so it
+# stays the JAX package's tuple (tests/test_torch_scheduler.py holds the
+# two equal).
 SCHED_EVENTS = (
     "sched_submit",       # job registered (kind, priority, ranks, argv)
     "sched_admit",        # admitted: predicted cost + its source
@@ -98,7 +99,7 @@ SCHED_EVENTS = (
     "sched_queue_done",   # queue drained; outcome counts
 )
 
-# The tick-loop sleep seam: a simulator (the JAX package's sim/clock.py)
+# The tick-loop sleep seam: the fleet simulator (sim/clock.py)
 # swaps this for a virtual sleep that advances the simulated clock and
 # fires due world events, so the REAL policy loop below runs unmodified
 # at fleet scale.  All in-loop clock reads go through
