@@ -25,10 +25,13 @@ by the heartbeat watchdog, and a two-rank gang restarted from its agreed
 snapshot step, and that the control plane schedules and heals on it: a
 config-3 job evicted by a more urgent one and resumed bitwise, a wedged
 job quarantined, a damaged ZeRO-3 shard set reconstructed, and a slow
-rank evicted and its gang resumed bitwise, and that the same control
+rank evicted and its gang resumed bitwise, that the same control
 plane runs at fleet scale on the card's host: the simulator's four
 10,000-rank storms are deterministic, and the ledger's readers explain
-the card's eviction, quarantine and gang restart.
+the card's eviction, quarantine and gang restart, and that config 3
+trains in the N-process x M-local-rank layout: two launcher processes
+of two ranks each, one group of four, bitwise the same four ranks
+started by one process.
 
     python3 chip_smoke.py
 
@@ -150,6 +153,23 @@ J. the SIGTERM drill on the card: ``trainer_sync_mnist`` in a process of
    through ``parallel/launch.spawn`` (the launcher ``--num_devices N``
    uses), which forwards the signal to both ranks; run after U, beside
    C, H and V; one ``sigterm_drill`` line;
+X. (after V, beside W) the N-process x M-local-rank layout:
+   two launcher processes joined by ``TF_CONFIG`` on 127.0.0.1, each
+   starting M=2 gloo ranks on ``cuda:0`` into one group of four
+   (``parallel/launch.spawn`` with the rank offset ``process_id*M`` and
+   the TCP rendezvous at the coordinator: the layer beneath the Engine's
+   launcher, whose command line refuses two ranks on one card, as the
+   JAX package does), each rank ``Engine(spec).run()`` of config 3 with
+   the four kernels, 20 steps at B=64 a rank under cuDNN's deterministic
+   algorithms; beside them the same four ranks started by this process.
+   Every rank launches ``dequant`` 20 + the eval batches and ``ce_fwd``
+   = ``ce_bwd`` = ``sgd`` = 20 and runs 20 gradient all-reduces, the
+   four replicas are bitwise equal across both processes and bitwise
+   the one-process group's, only global rank 0 prints, and the loss is
+   finite and falls; one ``nxm_path`` line (the phase's wall seconds,
+   each rank's steps/s: gloo, host-staged, on one card).  After V, so
+   that V keeps the company it had (C, H and J); W is host work with no
+   timed gate;
 U. (after I) supervision on the card, through the port's entry points
    (``python -m distributedtensorflowexample_tpu_torch.tools.<name>``):
    (a) ``supervise --retries 2`` of config 3 with the four kernels
@@ -198,10 +218,11 @@ V. (after U, beside C, H and J) the scheduler and the heal drills on
    straggler by the fleet, one relaunch from the agreed step, both
    ranks' digests and tapes those of an uninterrupted run beside it; one
    ``scheduling_path`` line and one line for each part;
-W. (after V) the control plane at fleet scale and the ledger's readers,
-   each a ``python -m`` child process that imports neither torch nor JAX
-   (checked first; the simulator patches process-wide clock seams, so it
-   never runs in a thread of this script): (a) ``sim_run --battery``, the
+W. (after V, beside X) the control plane at fleet scale and the
+   ledger's readers, each a ``python -m`` child process that imports
+   neither torch nor JAX (checked first; the simulator patches
+   process-wide clock seams, so it never runs in a thread of this
+   script): (a) ``sim_run --battery``, the
    four 10,000-rank storms (host-loss waves, a straggler epidemic, a
    serve spike, a wedge cascade) each run twice against the port's real
    ``Scheduler`` and ``Remediator``: 0 determinism violations, 0 steps
@@ -312,7 +333,7 @@ P. params-stay-sharded serving at lm_base, full width: phase S's tree
    answered.  Launch counters 0 in both ranks.  One
    ``sharded_serving_path`` line: tokens/s, p50/p99, decode ms a step,
    bytes gathered a step, ms an all-gather, residency a rank;
-Q. (after C, H, J and V) the host-fed input path: the native loader
+Q. (after C, H, J, V, W and X) the host-fed input path: the native loader
    built (``native.available()``) and its ``gather`` and ``gather_augment``
    bitwise numpy's on the synthetic MNIST split (uint8 and float32);
    ``trainer_sync_mnist`` with ``--device_data off --pallas_ce true
@@ -377,6 +398,7 @@ import os
 import re
 import shutil
 import signal
+import socket
 import subprocess
 import sys
 import threading
@@ -431,6 +453,9 @@ HOST_CMP_STEPS = 20         # phase Q: the dequants and the copies compared
 REMAT_STEPS = 50            # phase R
 REMAT_PEAK_STEPS = 3        # phase R: the steps whose peak is read
 SHARDED_DATA_STEPS = 20     # phase SH
+NXM_PROCESSES = 2           # phase X: launcher processes
+NXM_LOCAL = 2               # phase X: gloo ranks each launcher starts
+NXM_STEPS = 20              # phase X
 TELEMETRY_STEPS = 60        # phase T
 Z3_RESUME_STEPS = 40        # phase I': 20 steps, then resumed to 40
 SUPERVISED_STEPS = 1000     # phase U (a): SIGTERM after the step-100 line
@@ -1753,6 +1778,120 @@ def run_drill_phase(gpu: str) -> tuple:
                                              str(log_dir)])
         out = {name: run.result() for name, run in runs.items()}
     return json.dumps({"sigterm_drill": dict(out, gpu=gpu)}) + "\n", {}
+
+
+def nxm_argv() -> list:
+    """Phase X's config 3: the four kernels, ``--num_devices`` the global
+    rank count."""
+    return ["--device", "cuda", "--dataset", "synthetic", "--dequant_impl",
+            "pallas", "--pallas_ce", "true", "--fused_optimizer", "true",
+            "--train_steps", str(NXM_STEPS), "--batch_size", str(BATCH),
+            "--log_every", "10", "--resume", "false", "--log_dir", "",
+            "--num_devices", str(NXM_PROCESSES * NXM_LOCAL)]
+
+
+#: What phase X keeps of each rank's run.
+NXM_KEYS = ("rank", "steps", "all_reduces", "launches", "loss_tape",
+            "params_digest", "stats_digest", "text", "steps_per_sec",
+            "final_accuracy", "device", "num_replicas", "global_batch",
+            "eval_batches", "wall_s_incl_setup_and_eval")
+
+
+def nxm_rank(argv: list) -> dict:
+    """One of phase X's ranks: ``Engine(spec).run()`` inside the group,
+    under cuDNN's deterministic algorithms (so that two groups of the
+    same ranks can be compared bit for bit)."""
+    r = nccl_rank(argv)
+    return {k: r[k] for k in NXM_KEYS}
+
+
+def nxm_launcher(argv: list) -> None:
+    """Phase X's launcher process: ``TF_CONFIG`` names it process p of N;
+    it starts its M gloo ranks on ``cuda:0`` as the global ranks
+    ``p*M ..`` of one group of N*M over ``tcp://<coordinator>``
+    (``parallel/launch.spawn``'s rank offset and TCP rendezvous: what the
+    Engine's launcher runs, whose command line refuses M ranks on one
+    card), joins no group itself, and prints its ranks' results as one
+    JSON line."""
+    from distributedtensorflowexample_tpu_torch import cluster
+    from distributedtensorflowexample_tpu_torch.config import parse_flags
+    info = cluster.resolve(parse_flags(argv))
+    ranks = launch.spawn(
+        nxm_rank, info.num_processes * NXM_LOCAL, "gloo", (argv,),
+        timeout_s=600, local=NXM_LOCAL, offset=info.process_id * NXM_LOCAL,
+        init_method=f"tcp://{info.coordinator_address}")
+    print("NXM " + json.dumps(ranks), flush=True)
+
+
+def run_nxm_phase(gpu: str) -> tuple:
+    """Phase X: two launcher processes joined by ``TF_CONFIG`` on
+    127.0.0.1, two gloo ranks each on ``cuda:0``, config 3 with the four
+    kernels; beside them the same four ranks started by this process.
+    Returns the trainer's lines and the ``nxm_path`` line to print, and
+    the launches by path (per global rank)."""
+    from distributedtensorflowexample_tpu_torch import cluster
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    workers = [f"127.0.0.1:{port}", f"127.0.0.1:{port + 1}"]
+    argv = nxm_argv()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke.nxm_launcher(sys.argv[1:])", *argv], cwd=ROOT,
+        env=dict(os.environ, TF_CONFIG=cluster.tf_config_env(workers, pid)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for pid in range(NXM_PROCESSES)]
+    try:
+        # Through JSON, as the launchers' results come (tuples to lists).
+        one = json.loads(json.dumps(launch.spawn(
+            nxm_rank, NXM_PROCESSES * NXM_LOCAL, "gloo", (argv,),
+            timeout_s=600)))
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    ranks = []
+    for p, (out, err) in zip(procs, outs):
+        lines = [l for l in out.splitlines() if l.startswith("NXM ")]
+        require(p.returncode == 0 and len(lines) == 1,
+                f"phase X: a launcher gave exit code {p.returncode}:\n"
+                f"{(out + err)[-3000:]}")
+        ranks += json.loads(lines[0][4:])
+    world = NXM_PROCESSES * NXM_LOCAL
+    require([r["rank"] for r in ranks] == list(range(world)),
+            f"phase X: global ranks {[r['rank'] for r in ranks]}")
+    evals = ranks[0]["eval_batches"]
+    expect = {"dequant": NXM_STEPS + evals, "ce_fwd": NXM_STEPS,
+              "ce_bwd": NXM_STEPS, "sgd": NXM_STEPS}
+    check_ranks(ranks, "phase X", expect, NXM_STEPS)
+    check_ranks(one, "phase X (one process)", expect, NXM_STEPS)
+    require(ranks[0]["params_digest"] == one[0]["params_digest"]
+            and ranks[0]["loss_tape"] == one[0]["loss_tape"],
+            f"phase X: the 2 x 2 ranks ({ranks[0]['params_digest']}, "
+            f"{ranks[0]['loss_tape']}) differ from the same 4 ranks in one "
+            f"process ({one[0]['params_digest']}, {one[0]['loss_tape']})")
+    check_loss_tape(ranks[0], ranks[0]["text"])
+    require(all(r["num_replicas"] == world and r["device"] == "cuda:0"
+                for r in ranks), "phase X: a rank's mesh or card is wrong")
+    line = json.dumps({"nxm_path": {
+        "processes": NXM_PROCESSES, "ranks_per_process": NXM_LOCAL,
+        "world": world, "backend": "gloo", "device": ranks[0]["device"],
+        "steps": NXM_STEPS, "batch_per_rank": BATCH,
+        "global_batch": ranks[0]["global_batch"],
+        "steps_per_sec_by_rank": [r["steps_per_sec"] for r in ranks],
+        "one_process_steps_per_sec": one[0]["steps_per_sec"],
+        "wall_s": round(wall, 1),
+        "final_accuracy": ranks[0]["final_accuracy"],
+        "loss_tape": ranks[0]["loss_tape"],
+        "launches_by_rank": [r["launches"] for r in ranks],
+        "params_digest": ranks[0]["params_digest"],
+        "bitwise_equal_to_one_process": True, "gpu": gpu}})
+    return (ranks[0]["text"] + line + "\n",
+            {"mnist_cnn_nxm": [r["launches"] for r in ranks]})
 
 
 def run_side_and_scheduling_phases(gpu: str) -> dict:
@@ -3867,8 +4006,13 @@ def main() -> int:
     lap("U")
     by_path.update(run_side_and_scheduling_phases(gpu))
     lap("C H J V")
-    run_control_plane_phase(gpu)
-    lap("W")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        nxm = pool.submit(run_nxm_phase, gpu)
+        run_control_plane_phase(gpu)
+        nxm_text, nxm_launches = nxm.result()
+    print(nxm_text, end="", flush=True)
+    by_path.update(nxm_launches)
+    lap("W X")
     by_path.update(run_host_fed_phase(gpu))
     lap("Q")
     by_path.update(run_remat_phase(gpu))

@@ -7,3 +7,7 @@ easy to find.  Every Pallas kernel of the JAX package has a hand-written
 CUDA kernel in ``csrc/`` with its wrapper and plain PyTorch version in
 ``ops/kernels/``.
 """
+
+from distributedtensorflowexample_tpu_torch.version import __version__
+
+__all__ = ["__version__"]

@@ -1,11 +1,15 @@
+# graftlint: stdlib-only
 """Cluster-flag resolution (a copy of the JAX package's ``cluster.py``
 resolver) and the ``torch.distributed`` start-up that replaces
 ``jax.distributed.initialize``.
 
 * ``--worker_hosts``/``--task_index``, ``--coordinator_address`` with
   ``--process_id`` (or ``--task_index``), or a ``TF_CONFIG`` env var
-  resolve to (num_processes, process_id, coordinator_address): one
-  process per rank, rank = process id.
+  resolve to (num_processes, process_id, coordinator_address).  With
+  ``--num_devices`` N*M (the global rank count, as in JAX;
+  ``parallel/mesh.ranks_per_process``) each process is a launcher of M
+  ranks, global ranks ``process_id*M ..``; with M = 1 the process is the
+  rank, rank = process id.
 * ``--job_name=ps`` (and a ``TF_CONFIG`` ps or evaluator task) is accepted
   and exits with a notice: synchronous data parallelism has no parameter
   servers.
@@ -101,7 +105,9 @@ def resolve(cfg: RunConfig) -> ClusterInfo:
 def maybe_initialize_distributed(info: ClusterInfo, device: str) -> None:
     """``torch.distributed.init_process_group`` over
     ``tcp://<coordinator_address>`` with this process's rank, when the
-    cluster has more than one process and no group exists yet.
+    cluster has more than one process and no group exists yet (one rank
+    per process; the N x M launcher joins no group itself and its ranks
+    join through ``parallel/launch.spawn``).
     Idempotent, like the JAX function: a group the caller initialized
     (``gloo`` ranks on one card, a file store in tests) is kept as it
     is."""

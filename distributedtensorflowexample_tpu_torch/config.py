@@ -1,3 +1,4 @@
+# graftlint: stdlib-only
 """Run configuration and the reference-compatible CLI flag surface.
 
 A copy of the JAX package's ``config.py``: the same ``RunConfig`` fields,

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from distributedtensorflowexample_tpu_torch.refusal import ModeRefusal
+
 DEVICES = ("cuda", "cpu")
 
 
@@ -45,8 +47,8 @@ def resolve_device(name: str, local_rank: int = 0) -> torch.device:
         require_cuda()
         visible = torch.cuda.device_count()
         if not 0 <= local_rank < visible:
-            raise ValueError(f"--device cuda: card {local_rank} requested, "
-                             f"{visible} visible")
+            raise ModeRefusal(f"--device cuda: card {local_rank} "
+                              f"requested, {visible} visible")
         torch.cuda.set_device(local_rank)
         return torch.device("cuda", local_rank)
     return torch.device("cpu")

@@ -11,6 +11,12 @@ yet, and then either
   process group yet: ``parallel/launch.py``; on ``cuda`` 0 means every
   visible card), each of which runs this same method inside the group and
   sends back its summary, rank 0's being the one returned; or
+* under the cluster flags with M = ``--num_devices / num_processes`` > 1
+  (``parallel/mesh.ranks_per_process``; ``--num_devices`` is the global
+  rank count, as in JAX), is a launcher: it starts its M ranks, the
+  global ranks ``process_id*M ..``, into the one group of N*M ranks over
+  ``tcp://<coordinator_address>``, joins no group itself and returns its
+  first rank's summary; or
 * runs one rank: joins or takes the process group
   (``cluster.maybe_initialize_distributed``), places itself on its card
   (``parallel/mesh.py``), checks that every rank was started with the
@@ -113,7 +119,7 @@ from distributedtensorflowexample_tpu_torch.parallel.async_ps import (
 from distributedtensorflowexample_tpu_torch.parallel.bucketing import (
     BucketPlan, resolve_bucket_bytes)
 from distributedtensorflowexample_tpu_torch.parallel.mesh import (
-    ONE_RANK, Mesh, local_world_size, make_mesh)
+    ONE_RANK, Mesh, local_world_size, make_mesh, ranks_per_process)
 from distributedtensorflowexample_tpu_torch.parallel.sync import (
     make_indexed_train_step, make_resident_eval, make_train_step)
 from distributedtensorflowexample_tpu_torch.parallel.sync import (
@@ -284,8 +290,8 @@ def _refuse_for_mode(cfg: RunConfig, model: str, bucket_bytes,
 def _refuse_unported(cfg: RunConfig, info: cluster.ClusterInfo) -> None:
     """Named refusals checked before any data is loaded or any rank is
     started: a bad dtype, knobs of the other sync mode, checkpoints with
-    no ``--log_dir``, and the layout the port does not run yet (N
-    processes of M local devices)."""
+    no ``--log_dir``, and a ``--num_devices`` that is not the rank count
+    of a group the caller already initialized."""
     if cfg.dtype not in _DTYPES:
         raise ValueError(f"unknown dtype {cfg.dtype!r} (one of "
                          f"{tuple(_DTYPES)})")
@@ -298,22 +304,23 @@ def _refuse_unported(cfg: RunConfig, info: cluster.ClusterInfo) -> None:
         raise ModeRefusal(
             "--checkpoint_every > 0 writes checkpoints under --log_dir, "
             "which is empty; pass a --log_dir (or --checkpoint_every 0)")
-    processes = (info.num_processes if info.is_distributed else
-                 dist.get_world_size() if dist.is_initialized() else 0)
-    if processes and cfg.num_devices not in (0, processes):
-        raise ModeRefusal(
-            f"--num_devices {cfg.num_devices} across {processes} processes: "
-            f"the PyTorch package runs one rank per process on one device "
-            f"(--num_devices 0 or {processes}); the N-process x M-local-"
-            f"device layout is not ported to the PyTorch package yet")
+    if dist.is_initialized():
+        world = dist.get_world_size()
+        if cfg.num_devices not in (0, world):
+            raise ModeRefusal(
+                f"--num_devices {cfg.num_devices} inside a process group of "
+                f"{world} ranks: the group is the mesh (--num_devices 0 or "
+                f"{world})")
 
 
 def _expected_ranks(cfg: RunConfig, info: cluster.ClusterInfo) -> int:
-    """The rank count a run will have, before any rank is started."""
-    if info.is_distributed:
-        return info.num_processes
+    """The global rank count a run will have, before any rank is started:
+    the caller's group, N*M under the cluster flags, or the local ranks."""
     if dist.is_initialized():
         return dist.get_world_size()
+    if info.is_distributed:
+        return info.num_processes * ranks_per_process(
+            cfg.num_devices, info.num_processes, cfg.device)
     return local_world_size(cfg.num_devices, cfg.device)
 
 
@@ -476,10 +483,12 @@ def _uses_kernels(cfg: RunConfig) -> bool:
 
 
 def _build_kernels_once(cfg: RunConfig, mesh: Mesh) -> None:
-    """Rank 0 compiles the kernels while the others wait (one all-gather
-    as the barrier), so N ranks do not run N compiles of each source."""
+    """The first rank of each host compiles the kernels into that host's
+    build directory while the others wait (one all-gather as the
+    barrier), so N ranks do not run N compiles of each source, and two
+    launchers on one host never compile at once."""
     if mesh.grouped and mesh.device.type == "cuda" and _uses_kernels(cfg):
-        if mesh.rank == 0:
+        if mesh.host_rank == 0:
             kbuild.build()
         mesh.all_gather_int(0)
 
@@ -505,17 +514,38 @@ def _stats_digest(state) -> str:
     return h.hexdigest()[:16]
 
 
-def _local_rank_run(spec: "RunSpec") -> dict:
+def _local_rank_run(spec: "RunSpec", offset: int | None = None) -> dict:
     """One local rank (``parallel/launch.spawn``'s child): the run inside
-    the group, plus this process's kernel launch counts."""
+    the group, plus this process's kernel launch counts.  Under the N x M
+    layout (``offset``: the launcher's first global rank) the rank stamps
+    its global rank in ``OBS_RANK`` (a launcher's inherited one would
+    give its M ranks one id, and their flights and ledger rows would
+    collide), and only the launcher's first rank touches the
+    supervisor's one ``SUPERVISE_HEARTBEAT`` file of the process."""
+    if offset is not None:
+        rank = dist.get_rank()
+        os.environ["OBS_RANK"] = str(rank)
+        if rank != offset:
+            os.environ.pop("SUPERVISE_HEARTBEAT", None)
     return dict(Engine(spec).run(), launches=launch_counts())
 
 
-def _run_local_ranks(spec: "RunSpec", ranks: int) -> dict:
-    results = spawn(_local_rank_run, ranks,
-                    cluster.BACKENDS[spec.config.device], args=(spec,))
+def _run_local_ranks(spec: "RunSpec", ranks: int,
+                     info: cluster.ClusterInfo | None = None) -> dict:
+    """Start ``ranks`` local ranks and return the first one's summary,
+    with every local rank's counts and digests under ``ranks``.  With
+    ``info`` (the cluster flags) they are this process's M ranks of the
+    global group of ``num_processes * ranks``."""
+    backend = cluster.BACKENDS[spec.config.device]
+    if info is None:
+        results = spawn(_local_rank_run, ranks, backend, args=(spec,))
+    else:
+        offset = info.process_id * ranks
+        results = spawn(_local_rank_run, info.num_processes * ranks, backend,
+                        args=(spec, offset), local=ranks, offset=offset,
+                        init_method=f"tcp://{info.coordinator_address}")
     summary = dict(results[0])
-    summary["ranks"] = [{k: r[k] for k in ("launches", "all_reduces",
+    summary["ranks"] = [{k: r[k] for k in ("rank", "launches", "all_reduces",
                                           "collectives", "params_digest",
                                           "stats_digest")}
                         for r in results]
@@ -553,11 +583,16 @@ class Engine:
         """What this spec resolves to (the JAX Engine's ``describe``):
         mode, update layout, the mode's collective budget, bucket cap and
         hook stack, with the same flag refusals, and nothing built.  The
-        rank count is ``--num_devices``, or every visible card on
-        ``cuda`` (one rank on ``cpu``)."""
+        rank count is ``--num_devices`` (the global N*M under the cluster
+        flags), or every visible card on ``cuda`` (one rank on ``cpu``),
+        on each process under the cluster flags."""
         cfg = self.spec.config
-        num_replicas = cfg.num_devices or (
-            torch.cuda.device_count() if cfg.device == "cuda" else 1)
+        info = cluster.resolve(cfg)
+        num_replicas = (
+            info.num_processes * ranks_per_process(
+                cfg.num_devices, info.num_processes, cfg.device)
+            if info.is_distributed else cfg.num_devices or (
+                torch.cuda.device_count() if cfg.device == "cuda" else 1))
         bucket_bytes, mode = _resolve_flags(cfg, num_replicas,
                                             self.token_data)
         hooks = []
@@ -727,9 +762,12 @@ class Engine:
         bucket_bytes, mode = _resolve_flags(cfg, ranks, self.token_data)
         update_layout = mode.update_layout
         _refuse_for_mode(cfg, spec.model, bucket_bytes, ranks)
-        if (not info.is_distributed and not dist.is_initialized()
-                and ranks > 1):
-            return _run_local_ranks(spec, ranks)
+        if not dist.is_initialized():
+            if info.is_distributed and ranks > info.num_processes:
+                return _run_local_ranks(spec, ranks // info.num_processes,
+                                        info)
+            if not info.is_distributed and ranks > 1:
+                return _run_local_ranks(spec, ranks)
         cluster.maybe_initialize_distributed(info, cfg.device)
         mesh = make_mesh(cfg.device)
         device = mesh.device

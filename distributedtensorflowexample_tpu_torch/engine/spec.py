@@ -1,3 +1,4 @@
+# graftlint: stdlib-only
 """The replication modes (the JAX package's ``engine/spec.py``), stdlib
 only.
 

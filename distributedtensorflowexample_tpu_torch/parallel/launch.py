@@ -1,16 +1,24 @@
-"""Start N ranks on this host, one process each, joined by one process
-group: the engine's ``--num_devices N`` (``engine/engine.py``) and the
-harness of the multi-rank checks (``chip_smoke.py``, the tests).
+"""Start ranks on this host, one process each, joined by one process
+group: the engine's ``--num_devices N`` (``engine/engine.py``), its
+N-process x M-local-rank layout under the cluster flags, and the harness
+of the multi-rank checks (``chip_smoke.py``, the tests).
 
-:func:`spawn` runs ``fn(*args)`` in ``world`` fresh interpreters through
+:func:`spawn` runs ``fn(*args)`` in fresh interpreters through
 ``torch.multiprocessing.spawn`` (the ``spawn`` start method: a parent
 holding CUDA or OpenMP threads must not fork; a rank that fails gets the
-other ranks terminated).  Each child takes an equal part of the caller's
-intra-op threads, joins the group over a file store in a temporary
-directory (no TCP port to collide with another run), runs ``fn`` and puts
-its result on a queue.  A rank that raises puts its exception there too,
-and the caller gets the first one raised, with the rank's traceback
-attached.  ``fn`` and its arguments are pickled, so ``fn`` is a
+other ranks terminated), one per local rank.  Each child takes an equal
+part of the caller's intra-op threads, joins the group, runs ``fn`` and
+puts its result on a queue.  By default the call starts the whole group,
+``world`` ranks numbered from 0, over a file store in a temporary
+directory (no TCP port to collide with another run).  Given ``local``,
+``offset`` and ``init_method``, it starts only ``local`` ranks, numbered
+``offset .. offset + local - 1``, into a group of ``world`` ranks that
+other callers (processes, hosts) fill: the N x M layout, where process p
+starts global ranks ``p*M .. p*M + M - 1`` and every rank joins over
+``tcp://<coordinator_address>``, the store that global rank 0 hosts.
+The caller itself joins no group.  A rank that raises puts its exception
+there too, and the caller gets the first one raised, with the rank's
+traceback attached.  ``fn`` and its arguments are pickled, so ``fn`` is a
 module-level function.
 
 Preemption: a SIGTERM to the caller (on its main thread) is forwarded to
@@ -40,9 +48,10 @@ from distributedtensorflowexample_tpu_torch.utils.signals import (
 PREEMPTED = 143
 
 
-def _rank_main(rank: int, world: int, backend: str, init_method: str,
-               threads: int, fn, args, queue) -> None:
+def _rank_main(local: int, offset: int, world: int, backend: str,
+               init_method: str, threads: int, fn, args, queue) -> None:
     torch.set_num_threads(threads)
+    rank = offset + local
     dist.init_process_group(backend, init_method=init_method,
                             world_size=world, rank=rank)
     try:
@@ -63,13 +72,21 @@ def _rank_main(rank: int, world: int, backend: str, init_method: str,
 
 
 def spawn(fn, world: int, backend: str, args: tuple = (),
-          timeout_s: float | None = None) -> list:
-    """``[fn(*args) on rank 0, ..., on rank world-1]``, each computed in
-    its own process inside a ``backend`` group of ``world`` ranks."""
+          timeout_s: float | None = None, *, local: int | None = None,
+          offset: int = 0, init_method: str | None = None) -> list:
+    """``[fn(*args) on rank offset, ..., on rank offset+local-1]``, each
+    computed in its own process inside a ``backend`` group of ``world``
+    ranks.  ``local`` defaults to ``world`` (the whole group, over a file
+    store of its own); with ``init_method`` the ranks join that
+    rendezvous instead."""
+    local = world if local is None else local
+    if not 0 <= offset <= world - local:
+        raise ValueError(f"ranks {offset}..{offset + local - 1} do not fit "
+                         f"a group of {world}")
     queue = mp.get_context("spawn").SimpleQueue()
     # The ranks share this host's cores: an equal part of the caller's
     # intra-op threads each (idle OpenMP threads spin on the others).
-    threads = max(1, torch.get_num_threads() // world)
+    threads = max(1, torch.get_num_threads() // local)
     results, errors, preempted = {}, [], []
     procs: list = []
     terminated = []
@@ -80,7 +97,7 @@ def spawn(fn, world: int, backend: str, args: tuple = (),
         while not queue.empty():
             rank, ok, out = queue.get()
             if ok:
-                results[rank] = out
+                results[rank - offset] = out
             elif ok is None:
                 preempted.append(rank)
             else:
@@ -95,9 +112,9 @@ def spawn(fn, world: int, backend: str, args: tuple = (),
     deadline = None if timeout_s is None else time.monotonic() + timeout_s
     with tempfile.TemporaryDirectory(prefix="ranks-") as tmp, \
             installed_signal_handler(signal.SIGTERM, forward):
-        ranks = mp.spawn(_rank_main, nprocs=world, join=False, args=(
-            world, backend, "file://" + os.path.join(tmp, "store"), threads,
-            fn, args, queue))
+        store = init_method or "file://" + os.path.join(tmp, "store")
+        ranks = mp.spawn(_rank_main, nprocs=local, join=False, args=(
+            offset, world, backend, store, threads, fn, args, queue))
         procs.extend(ranks.processes)
         if terminated:              # the signal came while they started
             forward(signal.SIGTERM, None)
@@ -108,7 +125,7 @@ def spawn(fn, world: int, backend: str, args: tuple = (),
                     for p in ranks.processes:
                         p.kill()
                         p.join()
-                    raise TimeoutError(f"{world} ranks sent no result "
+                    raise TimeoutError(f"{local} ranks sent no result "
                                        f"within {timeout_s} s")
         except ProcessException as failed:
             drain()
@@ -126,4 +143,4 @@ def spawn(fn, world: int, backend: str, args: tuple = (),
         drain()
     if preempted:
         raise SystemExit(PREEMPTED)
-    return [results[r] for r in range(world)]
+    return [results[r] for r in range(local)]

@@ -2,6 +2,11 @@
 ``parallel/mesh.py``): one rank per process, each on its own device,
 joined by the default ``torch.distributed`` process group.
 
+``--num_devices`` is the size of the GLOBAL mesh, as in JAX: under the
+cluster flags N processes each start M = ``--num_devices / N`` ranks
+(:func:`ranks_per_process`), and process p's ranks are the global ranks
+``p*M .. p*M + M - 1``, the JAX mesh's process-grouped device order.
+
 Where the JAX mesh lets XLA insert the psum, the port calls the
 collectives it needs by hand, on the rank's device:
 
@@ -22,8 +27,12 @@ collectives it needs by hand, on the rank's device:
 kind (``all-reduce``, ``reduce-scatter``, ``all-gather``): the port's
 counterpart of the JAX package's compiled-program contracts, held to
 each mode's budget per step (``engine/spec.MODES``).  ``all_reduces``
-is the first of them.  Metrics, the eval's correct count, checkpoints
-and the eval's parameter gathers pass ``counted=False``.  A run with no
+is the first of them.  With ``Mesh.order`` set to a list, each counted
+collective is also appended to it in issue order, as its kind and its
+payload's dtype (the collective contracts of
+``analysis/collective_lint.py`` read the schedule there).  Metrics, the
+eval's correct count, checkpoints and the eval's parameter gathers pass
+``counted=False``.  A run with no
 process group is one rank (:data:`ONE_RANK`, or an ungrouped
 ``Mesh(device)``), whose collectives are the identity.
 
@@ -63,7 +72,8 @@ class Mesh:
     (the world size), ``device``, whether a process group backs it
     (``grouped``; a one-rank group still runs its collectives), and the
     number of distinct devices its ranks run on (``num_chips``; set by
-    :func:`make_mesh`)."""
+    :func:`make_mesh`), and this rank's index among the ranks of its
+    host (``host_rank``; on ``cuda`` set by :func:`make_mesh`)."""
 
     def __init__(self, device: torch.device, rank: int = 0, size: int = 1,
                  grouped: bool = False):
@@ -72,7 +82,9 @@ class Mesh:
         self.size = size
         self.grouped = grouped
         self.num_chips = size
+        self.host_rank = rank
         self.collectives = dict.fromkeys(COLLECTIVE_KINDS, 0)
+        self.order: list | None = None
 
     @property
     def is_chief(self) -> bool:
@@ -82,8 +94,11 @@ class Mesh:
     def all_reduces(self) -> int:
         return self.collectives["all-reduce"]
 
-    def _count(self, kind: str, counted: bool) -> None:
+    def _count(self, kind: str, counted: bool,
+               payload: torch.Tensor) -> None:
         self.collectives[kind] += counted
+        if counted and self.order is not None:
+            self.order.append((kind, payload.dtype))
 
     def all_reduce(self, flat: torch.Tensor,
                    counted: bool = True) -> torch.Tensor:
@@ -93,7 +108,7 @@ class Mesh:
         ``counted=False``."""
         if self.grouped:
             dist.all_reduce(flat)
-            self._count("all-reduce", counted)
+            self._count("all-reduce", counted, flat)
         return flat
 
     def reduce_scatter(self, flat: torch.Tensor,
@@ -104,7 +119,7 @@ class Mesh:
             return flat
         row = flat.new_empty(flat.numel() // self.size)
         dist.reduce_scatter_tensor(row, flat.contiguous())
-        self._count("reduce-scatter", counted)
+        self._count("reduce-scatter", counted, flat)
         return row
 
     def all_gather_into(self, row: torch.Tensor, counted: bool = True,
@@ -118,7 +133,7 @@ class Mesh:
             full = row.new_empty(row.numel() * self.size)
             work = dist.all_gather_into_tensor(full, row.contiguous(),
                                                async_op=async_op)
-            self._count("all-gather", counted)
+            self._count("all-gather", counted, row)
         return _Pending(full, work) if async_op else full
 
     def broadcast(self, flat: torch.Tensor) -> torch.Tensor:
@@ -194,6 +209,27 @@ def local_world_size(num_devices: int, device: str) -> int:
     return num_devices if num_devices > 0 else max(1, visible)
 
 
+def ranks_per_process(num_devices: int, num_processes: int,
+                      device: str) -> int:
+    """M, the ranks each of ``num_processes`` cluster processes starts
+    when ``--num_devices`` is the global rank count N*M (the JAX meaning:
+    ``make_mesh(num_devices)`` over every process's devices).  0 is every
+    visible card on ``cuda`` and one rank on ``cpu``, as the JAX default
+    device count; on ``cuda`` an M above the visible cards raises the JAX
+    ``ValueError`` (:func:`local_world_size`).  A count that N does not
+    divide is refused by name: the JAX package has no clean behaviour
+    there (its ``make_mesh`` takes the first ``num_devices`` devices in
+    process order, so some processes would own no device of the mesh and
+    still be asked to feed a slice of the batch)."""
+    if num_devices % num_processes:
+        raise ModeRefusal(
+            f"--num_devices {num_devices} across {num_processes} processes: "
+            f"--num_devices is the global rank count N*M, and each process "
+            f"starts the same number M of ranks; pass a multiple of "
+            f"{num_processes} (or 0: every visible card on each process)")
+    return local_world_size(num_devices // num_processes, device)
+
+
 def host_names(backend: str) -> list[str]:
     """Every rank's host name, in rank order.  Over the default group when
     it is ``gloo``; under NCCL, whose collectives need each rank's card
@@ -237,12 +273,15 @@ def make_mesh(device: str) -> Mesh:
     if not dist.is_initialized():
         return Mesh(resolve_device(device))
     rank, world = dist.get_rank(), dist.get_world_size()
-    local = 0
+    local, host_rank = 0, rank
     if device == "cuda":
         backend = dist.get_backend()
-        local = card_of(rank, host_names(backend), backend)
+        hosts = host_names(backend)
+        local = card_of(rank, hosts, backend)
+        host_rank = hosts[:rank].count(hosts[rank])
     mesh = Mesh(resolve_device(device, local), rank=rank, size=world,
                 grouped=True)
+    mesh.host_rank = host_rank
     if device == "cuda":
         card = zlib.crc32(f"{socket.gethostname()}/cuda:{local}".encode())
         mesh.num_chips = len(set(mesh.all_gather_int(card)))

@@ -62,10 +62,16 @@ class Zero3Layout:
     """What is static about one ZeRO-3 layout: the bucket plan over the
     optimizer's ``slices`` (``{name: (offset, shape)}``) and the mesh
     size.  ``init_rows`` takes the full flat parameters to this rank's
-    rows; :func:`materialized` gathers them back."""
+    rows; :func:`materialized` gathers them back.  ``one_rank`` admits
+    a one-rank mesh, whose row of a bucket is the whole bucket and whose
+    gathers are the identity: the params-stay-sharded serving engine at
+    ``serve_lm --sharded_mesh 1``; training refuses it (one device has
+    nothing to shard)."""
 
-    def __init__(self, slices: dict, bucket_bytes: int, mesh: Mesh):
-        if mesh is None or mesh.size <= 1:
+    def __init__(self, slices: dict, bucket_bytes: int, mesh: Mesh,
+                 one_rank: bool = False):
+        if mesh is None or mesh.size < 1 or (mesh.size == 1
+                                             and not one_rank):
             raise ValueError(
                 "ZeRO-3 param sharding needs a multi-device data mesh "
                 "(there is nothing to shard on one device) — callers "

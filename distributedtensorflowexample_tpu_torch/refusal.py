@@ -1,3 +1,4 @@
+# graftlint: stdlib-only
 """The one shape every mode-legality refusal goes through.
 
 A copy of the JAX package's ``refusal.py``.  An illegal knob combination

@@ -1,3 +1,4 @@
+# graftlint: stdlib-only
 """Gang supervision: fleet-level fault tolerance for multi-process runs
 (the JAX package's ``resilience/fleet.py``; pure Python over the port's
 ``cluster.tf_config_env``, ``resilience/snapshot.py`` and ``obs/``, with

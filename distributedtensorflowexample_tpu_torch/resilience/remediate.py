@@ -1,3 +1,4 @@
+# graftlint: stdlib-only
 """Anomaly-driven remediation: the policy engine that closes the loop
 from the detectors to the actuators (the JAX package's
 ``resilience/remediate.py``; pure Python over the port's ``obs/`` and
@@ -980,6 +981,13 @@ def make_autoscale_actuator(get_replicas, set_replicas, *,
 
 # --- the self-healing fleet runner -----------------------------------------
 
+def _current(ev: AnomalyEvent, since: float) -> bool:
+    """Whether ``ev`` was read from a file written at or after ``since``
+    (events with no ``updated_unix``, a ledger row's, always are)."""
+    written = (ev.detail or {}).get("updated_unix")
+    return not isinstance(written, (int, float)) or written >= since
+
+
 def run_remediated(make_fleet, argv: list[str], remediator: Remediator,
                    watchers: list, *, target: FleetTarget | None = None,
                    name: str = "", snapshot_dir_template: str = "",
@@ -997,6 +1005,14 @@ def run_remediated(make_fleet, argv: list[str], remediator: Remediator,
     FaultPlans (tools/faultline.py) stay cleared across the new
     FleetSupervisor incarnation — the same "a retry models recovered
     hardware" semantics an in-fleet restart has.
+
+    A detection read from a health file last written before the running
+    launch started is the previous incarnation's, which the new ranks
+    have not overwritten yet: it is not observed (:func:`_current`).
+    Otherwise a relaunch whose start-up (the agreement pass, the ranks'
+    imports) outlasts the cooldown is evicted before it starts, for the
+    condition its predecessor was evicted for.  The JAX package's
+    ``run_remediated`` observes it.
 
     Returns ``{"results": [GangResult...], "healed": int,
     "timeline": [(wall_ts, what)...], "status": <final>}``."""
@@ -1016,7 +1032,8 @@ def run_remediated(make_fleet, argv: list[str], remediator: Remediator,
         # the drill's zero-lost-steps proof reads all of them).
         out_dir = (os.path.join(stdout_dir, f"launch{launch}")
                    if stdout_dir else None)
-        timeline.append((obs_metrics._wall(), f"launch{launch}"))
+        started = obs_metrics._wall()
+        timeline.append((started, f"launch{launch}"))
         box: list = []
 
         def _run(fleet=fleet, extra=extra, launch=launch,
@@ -1037,7 +1054,8 @@ def run_remediated(make_fleet, argv: list[str], remediator: Remediator,
         while t.is_alive():
             for w in watchers:
                 for ev in w.poll():
-                    remediator.observe(ev)
+                    if _current(ev, started):
+                        remediator.observe(ev)
             time.sleep(poll_s)
         t.join()
         # Post-mortem polls: a NaN child dies fast, but its health.json
@@ -1046,7 +1064,8 @@ def run_remediated(make_fleet, argv: list[str], remediator: Remediator,
         for _ in range(drain_polls):
             for w in watchers:
                 for ev in w.poll():
-                    remediator.observe(ev)
+                    if _current(ev, started):
+                        remediator.observe(ev)
         res = box[0] if box else None
         if isinstance(res, BaseException):
             raise res

@@ -1,3 +1,4 @@
+# graftlint: stdlib-only
 """Ledger-driven control plane: a journaled multi-run scheduler with
 elastic autoscaling and loss-free SLO preemption (the JAX package's
 ``resilience/scheduler.py``; pure Python over the port's fleet,

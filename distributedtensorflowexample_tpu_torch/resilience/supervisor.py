@@ -1,3 +1,4 @@
+# graftlint: stdlib-only
 """Supervised recovery: heartbeat watchdog, bounded retries with jittered
 exponential backoff, and a journaled priority task queue (the JAX
 package's ``resilience/supervisor.py``; pure Python, so the port's copy

@@ -222,7 +222,9 @@ def promote_sharded(snapshot_dir: str, size: str, *, mesh,
     ``Zero3Layout.init_rows`` at ``bucket_bytes`` (default: the
     manifest's, else ``--bucket_grads auto``'s cap).  ``mesh_size``
     (``--sharded_mesh``) wider than the group's ranks is refused by name.
-    The snapshot is read on the host; only the rows reach the device."""
+    A one-rank ``mesh`` (``--sharded_mesh 1``, no group) holds every
+    bucket whole.  The snapshot is read on the host; only the rows reach
+    the device."""
     D = int(mesh_size or mesh.size)
     if D > mesh.size:
         raise ModeRefusal(
@@ -242,7 +244,7 @@ def promote_sharded(snapshot_dir: str, size: str, *, mesh,
                 f"training-side conversion, or serve at the snapshot's "
                 f"mesh size")
         bb = int(meta["bucket_bytes"])
-        layout = Zero3Layout(opt.slices, bb, mesh)
+        layout = Zero3Layout(opt.slices, bb, mesh, one_rank=True)
         rows = [full.view(D, -1)[mesh.rank].clone()
                 for full in opt.params_rows]
     else:
@@ -252,7 +254,7 @@ def promote_sharded(snapshot_dir: str, size: str, *, mesh,
                 f"each rank holds one row; run {D} ranks")
         bb = int(bucket_bytes or meta.get("bucket_bytes")
                  or DEFAULT_BUCKET_BYTES)
-        layout = Zero3Layout(opt.slices, bb, mesh)
+        layout = Zero3Layout(opt.slices, bb, mesh, one_rank=True)
         rows = layout.init_rows(opt.params_flat, mesh.rank)
     model = _serving_model(state)
     with torch.no_grad():

@@ -28,9 +28,11 @@ It runs on the CUDA card unless ``--device cpu`` is given (no card:
   config, ``run_end`` with the rc) and the live scrape
   (``OBS_HTTP_PORT``), armed in the process that runs the batcher.
 
-``--sharded_mesh D`` (D >= 2) serves with the parameters left sharded:
+``--sharded_mesh D`` (D >= 1) serves with the parameters left sharded:
 D ranks start through ``parallel/launch.spawn`` (gloo on the CPU, and for
-more ranks than visible cards, which share a card; NCCL across cards),
+more ranks than visible cards, which share a card; NCCL across cards;
+D = 1 is the sharded engine in this process on a one-rank mesh, whose
+gathers are the identity, as the JAX tool's one-device mesh),
 each promotes its 1/D rows (``promote.promote_sharded``) into a
 ``serving/sharded.ShardedDecodeEngine``; rank 0 runs the queue, the
 batcher, the load generator and the front end, the others follow its
@@ -316,7 +318,8 @@ def _sharded_rank(args, snapshot: str, slots: int, slo_ms: float,
         t0 = time.monotonic()
         kernels.reset_launch_counts()
         mesh = make_mesh(args.device)
-        os.environ.setdefault("OBS_RANK", str(mesh.rank))
+        if mesh.size > 1:
+            os.environ.setdefault("OBS_RANK", str(mesh.rank))
         if mesh.rank == 0:
             _arm_obs(args, snapshot, slots, slo_ms)
         pm = promote_sharded(snapshot, args.size, mesh=mesh,
@@ -357,7 +360,9 @@ def _sharded_rank(args, snapshot: str, slots: int, slo_ms: float,
 
 def _main_sharded(args, snapshot: str, slots: int, slo_ms: float,
                   port: int) -> int:
-    """``--sharded_mesh D``: the by-name refusals, then D ranks."""
+    """``--sharded_mesh D``: the by-name refusals, then D ranks.  D = 1
+    runs the sharded engine in this process on a one-rank mesh (no
+    process group, no spawn), whose collectives are the identity."""
     import torch
 
     from distributedtensorflowexample_tpu_torch.device import resolve_device
@@ -367,11 +372,11 @@ def _main_sharded(args, snapshot: str, slots: int, slo_ms: float,
         check_slots)
     D = args.sharded_mesh
     try:
-        if D < 2:
+        if D < 1:
             raise ModeRefusal(
-                f"--sharded_mesh {D}: one rank holds every parameter, "
-                f"there is nothing to shard — serve replicated "
-                f"(--sharded_mesh 0) or shard over D >= 2 ranks")
+                f"--sharded_mesh {D}: a mesh has at least one rank — "
+                f"serve replicated (--sharded_mesh 0) or shard over "
+                f"D >= 1 ranks")
         check_slots(slots, D)
         resolve_device(args.device)
         _init_if_missing(args, snapshot)
@@ -381,8 +386,11 @@ def _main_sharded(args, snapshot: str, slots: int, slo_ms: float,
     backend = ("nccl" if args.device == "cuda"
                and torch.cuda.device_count() >= D else "gloo")
     try:
-        ranks = spawn(_sharded_rank, D, backend,
-                      args=(args, snapshot, slots, slo_ms, port))
+        if D == 1:
+            ranks = [_sharded_rank(args, snapshot, slots, slo_ms, port)]
+        else:
+            ranks = spawn(_sharded_rank, D, backend,
+                          args=(args, snapshot, slots, slo_ms, port))
     except ModeRefusal as e:
         print(f"serve_lm: refused: {e}", file=sys.stderr, flush=True)
         return 2

@@ -1,4 +1,4 @@
-"""The port's resilience drivers (the JAX package's ``tools/`` scripts of
+"""The port's command-line tools (the JAX package's ``tools/`` scripts of
 the same names), each run as ``python -m
 distributedtensorflowexample_tpu_torch.tools.<name>``:
 
@@ -12,5 +12,9 @@ distributedtensorflowexample_tpu_torch.tools.<name>``:
 - ``schedule`` — a journaled queue of jobs over gang slots
   (``resilience/scheduler.py``);
 - ``heal_drill`` — measured self-healing drills (MTTD, MTTR, steps
-  lost) per fault class.
+  lost) per fault class;
+- ``sim_run``, ``obs_query``, ``obs_report`` — the fleet simulator and
+  the ledger's and flights' readers;
+- ``graftlint`` — the repo-invariant source rules and the collective
+  contracts (``analysis/``).
 """

@@ -1,3 +1,4 @@
+# graftlint: stdlib-only
 """obs_query — cross-run queries over the run ledger: list runs, show
 one, diff two, and explain a job's scheduler decisions (the JAX
 package's ``tools/obs_query.py`` on the port's ``obs/``; its output is

@@ -1,3 +1,4 @@
+# graftlint: stdlib-only
 """obs_report — render flight-recorder telemetry as OUTAGE_r*-style markdown
 (the JAX package's ``tools/obs_report.py`` on the port's ``obs/``; its
 output is byte-identical to the JAX tool's on the same files).

@@ -1,3 +1,4 @@
+# graftlint: stdlib-only
 """schedule — the ledger-driven control plane: run a queue of
 heterogeneous jobs (train / bench / faultline drill / serving load
 tests) on gang slots with elastic autoscaling and loss-free SLO

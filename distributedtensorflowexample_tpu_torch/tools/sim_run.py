@@ -1,3 +1,4 @@
+# graftlint: stdlib-only
 """sim_run — scenario in, evidence out: run the deterministic fleet
 simulator (``sim/``) against the port's REAL scheduler + remediator and
 land the full record kit (the JAX package's ``tools/sim_run.py`` on the

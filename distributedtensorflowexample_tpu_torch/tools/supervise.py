@@ -1,3 +1,4 @@
+# graftlint: stdlib-only
 """Run any entrypoint under the resilience supervisor (heartbeat watchdog,
 jittered backoff, bounded retries, journaled attempts) — the JAX
 package's ``tools/supervise.py``, generic mode:

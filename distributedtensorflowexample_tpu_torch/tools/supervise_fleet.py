@@ -1,3 +1,4 @@
+# graftlint: stdlib-only
 """Run an N-rank gang under the fleet supervisor (resilience/fleet.py):
 per-rank heartbeats, whole-gang teardown on any rank loss, gang restart
 from the agreed (maximum common valid) snapshot step — the JAX package's

@@ -1,7 +1,7 @@
 """Config 5 — multi-host data-parallel CIFAR-10 ResNet-20 on the port
 (the JAX package's ``trainers/trainer_multiworker_cifar.py``): config 4's
-defaults with the ``worker`` role, one process per rank joined by the
-cluster flags.
+defaults with the ``worker`` role, one process per host joined by the
+cluster flags (one rank each, or M with ``--num_devices`` N*M).
 
     # on host a (rank 0) and host b (rank 1):
     python -m distributedtensorflowexample_tpu_torch.trainers.trainer_multiworker_cifar \

@@ -11,7 +11,9 @@ CPU).  Sync data parallelism over N ranks, one process each:
 0 = every visible card; N gloo ranks with ``--device cpu``), and the
 cluster flags (``--coordinator_address``/``--num_processes``/
 ``--process_id``, ``--worker_hosts``/``--task_index``, ``TF_CONFIG``)
-join a process started per rank.  ``--batch_size`` is per rank (the
+join N processes; ``--num_devices`` is then the global rank count N*M,
+each process starting M ranks (0: every visible card of each process,
+one rank on ``cpu``).  ``--batch_size`` is per rank (the
 global batch is N times it) and ``--replicas_to_aggregate R`` takes R of
 the N rank gradients per step, as in the JAX package.
 """

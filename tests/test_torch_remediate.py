@@ -13,6 +13,7 @@ stdlib and file IO, except the rollback stores (the softmax state).
 
 import json
 import os
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -362,3 +363,65 @@ def test_slo_and_autoscale_actuators_act_as_in_jax(kind, offered, current):
         got[pkg] = (scale(ev), tighten(ev), tighten(ev), dict(box))
     assert got["port"] == got["jax"]
     assert np.isfinite(got["port"][3]["slo"])
+
+
+_STALE_CHILD = """
+import json, os, signal, sys, time
+signal.signal(signal.SIGTERM, lambda s, f: sys.exit(143))
+if int(os.environ.get("SUPERVISE_ATTEMPT", "0")) == 0:
+    # the fleet's aggregate health: rank 0 straggles
+    with open(sys.argv[1], "w") as f:
+        json.dump({"version": 1, "kind": "fleet", "stragglers": [0],
+                   "skew": {"why": {"0": "lag 10 steps"}},
+                   "updated_unix": time.time()}, f)
+    time.sleep(60)
+time.sleep(1.5)      # a relaunch slower than the cooldown to start
+"""
+
+
+@pytest.mark.parametrize("pkg", sorted(PACKAGES))
+def test_a_relaunch_is_not_evicted_for_its_predecessors_health(tmp_path,
+                                                              pkg):
+    """The first launch's fleet health names rank 0 a straggler, and the
+    gang is evicted for it; the relaunch runs clean but takes longer
+    than the cooldown and has not rewritten the fleet's health file (on
+    the card a relaunch's agreement pass and start-up took ~29 s against
+    a 30 s cooldown).  The port's ``run_remediated`` does not observe a
+    file written before the running launch started: one heal, status
+    ok.  The JAX package's observes it once the cooldown has run out and
+    evicts the relaunch too, up to ``max_heals``."""
+    rem_mod, sup_mod = PACKAGES[pkg]
+    fleet_mod = __import__(rem_mod.__name__.rsplit(".", 1)[0] + ".fleet",
+                           fromlist=["FleetSupervisor"])
+    child = tmp_path / "child.py"
+    child.write_text(_STALE_CHILD)
+    workdir = str(tmp_path / "fleet")
+    journal = sup_mod.Journal(os.path.join(workdir, "fleet.jsonl"))
+    ledger = os.path.join(workdir, "RUNS.jsonl")
+
+    def make_fleet():
+        return fleet_mod.FleetSupervisor(
+            1, policy=sup_mod.RetryPolicy(retries=0, backoff_base_s=0.01),
+            journal=journal, kill_grace_s=5.0, poll_s=0.02, seed=0,
+            workdir=workdir, ledger_path=ledger)
+
+    target = rem_mod.FleetTarget()
+    rem = rem_mod.Remediator(
+        journal=journal, ledger_path=ledger, scope="drill",
+        actuators={"evict": rem_mod.make_evict_actuator(target)},
+        guardrails=rem_mod.Guardrails(flap_n=2, cooldown_s=0.5, budget=4,
+                                      flap_window_s=30.0))
+    aggregate = str(tmp_path / "fleet_health.json")
+    watchers = [rem_mod.HealthWatcher(
+        os.path.join(workdir, "health_rank*.json"), fleet_health=aggregate,
+        scope="drill")]
+    out = rem_mod.run_remediated(
+        make_fleet, [sys.executable, str(child), aggregate], rem, watchers,
+        target=target, name="drill", poll_s=0.1, max_heals=2)
+    evicts = [r for r in _rows(ledger) if r.get("event") == "heal_evict"]
+    if pkg == "port":
+        assert (out["status"], out["healed"], len(evicts)) == ("ok", 1, 1)
+        assert [r.status for r in out["results"]] == ["evicted", "ok"]
+    else:
+        assert (out["status"], out["healed"], len(evicts)) == (
+            "evicted", 2, 3)

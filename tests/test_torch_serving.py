@@ -689,16 +689,18 @@ def test_request_front_answers_as_in_process(engine):
 
 
 def test_unported_modes_refused_by_name(tmp_path, monkeypatch, capsys):
-    """What stays refused by name: a one-rank --sharded_mesh, a slot
-    count the ranks do not divide, a row-layout snapshot with no geometry
-    in its manifest.  The run ledger is served (OBS_LEDGER: a run_start
-    and a run_end row)."""
+    """What stays refused by name: a negative --sharded_mesh (one rank,
+    --sharded_mesh 1, now serves), a slot count the ranks do not divide,
+    a row-layout snapshot with no geometry in its manifest.  The run
+    ledger is served (OBS_LEDGER: a run_start and a run_end row)."""
     from distributedtensorflowexample_tpu_torch.obs import ledger as obs_ledger
     d = str(tmp_path / "snaps")
     argv = ["--device", "cpu", "--snapshot", d, "--init_if_missing",
             "--drive", "1"]
-    assert serve_lm.main(argv + ["--sharded_mesh", "1"]) == 2
-    assert "--sharded_mesh 1" in capsys.readouterr().err
+    assert serve_lm.main(argv + ["--sharded_mesh", "-1"]) == 2
+    assert "--sharded_mesh -1" in capsys.readouterr().err
+    assert serve_lm.main(argv + ["--sharded_mesh", "1"]) == 0
+    assert "sharded D=1" in capsys.readouterr().err
     assert serve_lm.main(argv + ["--sharded_mesh", "2", "--slots", "3"]) == 2
     assert "--slots 3" in capsys.readouterr().err
     runs = str(tmp_path / "runs.jsonl")
@@ -715,3 +717,71 @@ def test_unported_modes_refused_by_name(tmp_path, monkeypatch, capsys):
                                        "update_layout": "zero3_rows"})
     with pytest.raises(ValueError, match="mesh_size"):
         promote(d, SIZE)
+
+
+def test_sharded_mesh_one_serves_the_replicated_tokens(jax_side, engine,
+                                                       tmp_path):
+    """``serve_lm --sharded_mesh 1``: the params-stay-sharded engine on a
+    one-rank mesh (no group; its gathers are the identity).  Its greedy
+    tokens are bitwise the replicated engine's, and equal to the JAX
+    ``DecodeEngine``'s under the rule of
+    ``test_greedy_tokens_match_jax_engine``.  The JAX tool's own
+    ``--sharded_mesh 1`` raises in ``Zero3Layout`` (a one-device mesh
+    "has nothing to shard"), so its tokens are the JAX replicated
+    engine's, which its sharded engine equals at D >= 2.  Through the
+    CLI, a drive's tokens at D = 1 are those of D = 0 on the same
+    snapshot."""
+    from distributedtensorflowexample_tpu_torch.parallel.mesh import Mesh
+    from distributedtensorflowexample_tpu_torch.serving.promote import (
+        promote_sharded)
+    from distributedtensorflowexample_tpu_torch.serving.sharded import (
+        ShardedDecodeEngine)
+    jmodel, params, jeng = jax_side
+    d = str(tmp_path / "snaps")
+    state = template_state(SIZE, torch.device("cpu"))
+    convert.load_into_state(state, params)
+    SnapshotStore(d).save(state, meta={"model": SIZE,
+                                       "update_layout": "tree"})
+    pm = promote_sharded(d, SIZE, mesh=Mesh(torch.device("cpu")),
+                         mesh_size=1)
+    assert pm.layout.num_devices == 1
+    one = ShardedDecodeEngine(pm.model, pm.rows, pm.layout,
+                              mesh=Mesh(torch.device("cpu")), slots=SLOTS,
+                              cache_len=CACHE)
+    assert one.params_residency()["frac_per_device"] == 1.0
+    for slot, prompt in enumerate(([5, 9, 17, 3, 88, 120, 7], [200, 1, 42],
+                                   [7, 7, 99, 14, 2, 64, 31, 8, 150])):
+        got = _engine_greedy(one, slot, prompt, 8)
+        one.set_slot(slot, 0, 0)
+        assert got == _engine_greedy(engine, slot, prompt, 8)
+        engine.set_slot(slot, 0, 0)
+        want = _engine_greedy(jeng, slot, prompt, 8)
+        if got != want:
+            i = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+            seq = jnp.asarray([list(prompt) + want[:i]], jnp.int32)
+            logits = _no_excess(lambda p, t: jmodel.apply({"params": p}, t),
+                                jax.tree.map(jnp.asarray, params), seq)
+            top2 = np.sort(np.asarray(logits[0, -1]))[-2:]
+            assert top2[1] - top2[0] < ATOL, (slot, i, got, want)
+    with pytest.raises(ValueError, match="nothing to shard"):
+        _jax_one_device_layout(params)
+    drives = {}
+    for mesh in ("0", "1"):
+        results = str(tmp_path / f"drive{mesh}.jsonl")
+        assert serve_lm.main(["--device", "cpu", "--snapshot", d,
+                              "--slots", str(SLOTS), "--max_len", str(CACHE),
+                              "--drive", "6", "--clients", "3",
+                              "--drive_max_new", "5", "--sharded_mesh",
+                              mesh, "--results", results]) == 0
+        drives[mesh] = loadgen.DriveFile(results).done_ids()
+    assert len(drives["1"]) == 6 and drives["1"] == drives["0"]
+
+
+def _jax_one_device_layout(params):
+    """What the JAX tool's ``--sharded_mesh 1`` reaches: a
+    ``Zero3Layout`` over a one-device mesh."""
+    from distributedtensorflowexample_tpu.parallel.mesh import (
+        make_mesh as jax_make_mesh)
+    from distributedtensorflowexample_tpu.parallel.zero3 import (
+        Zero3Layout as JaxZero3Layout)
+    return JaxZero3Layout(params, 16 << 10, jax_make_mesh(1))

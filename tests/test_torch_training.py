@@ -273,9 +273,11 @@ def test_cli_converges_on_cpu(small_torch_mnist, tmp_path, capsys):
     ["--fused_optimizer", "true", "--momentum", "0"],
     # weight decay is ported; the fused apply still has no decay term
     ["--fused_optimizer", "true", "--weight_decay", "0.1"],
-    # 2 processes x 2 local devices: refused before any group is joined
+    # 2 processes x M local ranks runs (tests/test_torch_nxm.py); a
+    # global --num_devices the 2 processes do not divide is refused
+    # before any group is joined
     ["--coordinator_address", "localhost:1", "--num_processes", "2",
-     "--process_id", "0", "--num_devices", "4"],
+     "--process_id", "0", "--num_devices", "3"],
     # refused before any rank is started
     ["--data_sharding", "sharded", "--num_devices", "2", "--dequant_impl",
      "pallas"],
