@@ -31,7 +31,9 @@ plane runs at fleet scale on the card's host: the simulator's four
 the card's eviction, quarantine and gang restart, and that config 3
 trains in the N-process x M-local-rank layout: two launcher processes
 of two ranks each, one group of four, bitwise the same four ranks
-started by one process.
+started by one process, and that the port's measurement tools measure
+the card and its host: the collectives' fit, the host loader against
+numpy, the input path's variants bitwise, and their records' trajectory.
 
     python3 chip_smoke.py
 
@@ -236,6 +238,27 @@ W. (after V, beside X) the control plane at fleet scale and the
    step, ``--format trace`` parses with one lane per rank, and phase V
    (c)'s healed gang renders too.  This process's launch counts are the
    same after W as before; one ``control_plane_path`` line;
+Y. (after V, beside W and X) the port's measurement tools, each a
+   ``python -m`` child process writing its record into
+   ``build/chip_smoke_measure/records`` (named ``_r16``): (a)
+   ``bench_collectives --backend gloo --submeshes 2,4``, every kind at 4
+   KiB-4 MiB through ``parallel/mesh.Mesh`` (``all_to_all`` through
+   ``dist.all_to_all_single``) on ranks sharing the one card, host-staged;
+   each kind at each size fitted or named unmeasured with its error, and
+   ``resilience/scheduler.load_collective_fit`` reads the psum fit at 2
+   and at 4 back; NCCL at 2 ranks, 4 KiB-256 MiB, only where 2 cards
+   are visible (else the line says ``nccl unmeasured``); (b)
+   ``bench_input`` on the host,
+   its four stages bit-identical to numpy before they are timed; (c)
+   ``ab_augment`` (B=128, 195 steps a window, the 50,000-row synthetic
+   split resident as uint8): base, selmm, selmm_oh, noaug and kernel,
+   each bitwise base before it is timed; the kernel variant launches
+   ``dequant`` once a step (4 x 195), the others no kernel; (a), (b)
+   and (c) side by side, then (d)
+   ``bench_ratchet --trajectory`` and ``obs_query trajectory`` over the
+   records: one row per family, the same rows from both, and
+   ``predict_cost`` prices a job from the trajectory; one
+   ``measure_path`` line;
 L. the replication modes on the two gloo ranks, under cuDNN's
    deterministic algorithms: config 3 (``trainer_sync_mnist``, B=64 per
    rank, the dequant and CE kernels, plain momentum SGD: the fused apply
@@ -250,14 +273,14 @@ L. the replication modes on the two gloo ranks, under cuDNN's
    ``modes_path`` line with steps/s per mode and the host-staged ms per
    collective of each kind at 3,274,634 float32;
 M. lm_base at full width on the two gloo ranks (B=16 x T=128 per rank,
-   ``--remat block``, lr 0.02, the CE pair), 6 steps in each of
+   ``--remat block``, lr 0.02, the CE pair), 4 steps in each of
    ``sync_dp``, ``bucketed`` (auto), ``zero1`` and ``zero3`` with the
    gathers overlapped and serial: the loss tapes within 1e-5 relative of
    ``sync_dp``'s, the budgets per step, B per mode, each rank's
    ``torch.cuda.memory_allocated`` by its state after init (and the
    state's own tensor bytes) and its peak over the steps
    (``torch.cuda.max_memory_allocated``, both above what was allocated
-   before the state), against sync_dp's, steps/s over the last 5
+   before the state), against sync_dp's, steps/s over the last 3
    steps; then one ``lm_modes_path`` line (and the ms per collective at
    57,289,728 float32);
 N. config 4's ResNet-20 in async mode on the two gloo ranks (B=128 per
@@ -333,7 +356,7 @@ P. params-stay-sharded serving at lm_base, full width: phase S's tree
    answered.  Launch counters 0 in both ranks.  One
    ``sharded_serving_path`` line: tokens/s, p50/p99, decode ms a step,
    bytes gathered a step, ms an all-gather, residency a rank;
-Q. (after C, H, J, V, W and X) the host-fed input path: the native loader
+Q. (after C, H, J, V, W, X and Y) the host-fed input path: the native loader
    built (``native.available()``) and its ``gather`` and ``gather_augment``
    bitwise numpy's on the synthetic MNIST split (uint8 and float32);
    ``trainer_sync_mnist`` with ``--device_data off --pallas_ce true
@@ -372,7 +395,7 @@ T. telemetry: config 3 with the four kernels, 60 steps, with
    the ``kernels`` JSON line (each kernel's launches summed over every
    path and rank, and per path: per rank for the multi-rank paths, per
    run for phase I, per attempt for phase U, per placement for phase
-   V), then the ``ok`` line last.
+   V, per variant for phase Y), then the ``ok`` line last.
 
 Times come from ``utils/kernel_timing.py``, by CUDA events after a
 warm-up, each launch on fresh indices (dequant) or buffers (SGD) where
@@ -446,7 +469,7 @@ MR_ASYNC_STEPS = 296        # phase K, two workers: a multiple of the period
 ASYNC_PERIOD = 8
 RESUME_STEPS = 200          # phase I: 100 steps, then resumed to 200
 MODE_STEPS = 50             # phase L, each mode
-MODE_LM_STEPS = 6           # phase M, each mode
+MODE_LM_STEPS = 4           # phase M, each mode (6 until PR 15)
 ASYNC_BN_STEPS = 40         # phase N
 HOST_STEPS = 200            # phase Q: host-fed config 3
 HOST_CMP_STEPS = 20         # phase Q: the dequants and the copies compared
@@ -2661,6 +2684,207 @@ def run_control_plane_phase(gpu: str) -> None:
           f"time on the card's machine ({gpu})", flush=True)
 
 
+# --- phase Y: the port's own measurement tools -----------------------------
+
+MEASURE_ROOT = ROOT / "build" / "chip_smoke_measure"
+#: The round in the phase's record names (``_r<N>``), by which the ratchet
+#: and the trajectory order rows.
+MEASURE_ROUND = 16
+#: NCCL over NVLink shows no bandwidth term below a few MiB (4 KiB-4 MiB
+#: took 49-155 us flat on four H100s, and the fit came out degenerate), so
+#: its sweep runs to 256 MiB; gloo, host-staged, keeps the JAX tool's
+#: 4 KiB-4 MiB.
+NCCL_SIZES = "4096,65536,1048576,16777216,268435456"
+#: ab_augment: steps a timed window (half an epoch of 50,000 rows at
+#: B=128; the JAX tool's window is 195 steps too).
+AB_STEPS = 195
+
+
+def measure_record(family: str) -> Path:
+    return MEASURE_ROOT / "records" / f"{family}_r{MEASURE_ROUND}.json"
+
+
+def check_collectives(backend: str, counts: tuple, gpu: str,
+                      *extra) -> dict:
+    """Phase Y (a): ``bench_collectives --backend <backend>`` (and
+    ``extra`` flags) over every kind at the group sizes ``counts``; every
+    kind is fitted or named unmeasured with its error, and the scheduler
+    reads the psum fit of each group size back."""
+    from distributedtensorflowexample_tpu_torch.resilience.scheduler import (
+        load_collective_fit)
+    family = ("BENCH_collectives_gpu" if backend == "gloo"
+              else f"BENCH_collectives_{backend}_gpu")
+    path = measure_record(family)
+    t0 = time.perf_counter()
+    rc, out, err = run_tool("bench_collectives", "--backend", backend,
+                            "--submeshes", ",".join(map(str, counts)),
+                            "--json", str(path), *extra, timeout=900)
+    wall = time.perf_counter() - t0
+    require(rc == 0, f"phase Y (a): bench_collectives --backend {backend} "
+                     f"exit code {rc}:\n{err[-4000:]}")
+    detail = json.loads(path.read_text())["detail"]
+    require(detail["backends"] == {str(n): backend for n in counts}
+            and detail["device"]["platform"] == "gpu"
+            and gpu.startswith(detail["device"]["name"]),
+            f"phase Y (a): the record's backends and card "
+            f"{detail['backends']} {detail['device']}")
+    kinds = ("psum", "reduce_scatter", "all_gather", "all_to_all")
+    for kind in kinds:
+        for n in counts:
+            fitted = str(n) in detail["knees"].get(kind, {})
+            named = str(n) in detail["unmeasured"].get(kind, {})
+            require(fitted != named, f"phase Y (a): {kind} at {n} ranks is "
+                                     f"neither fitted nor named unmeasured")
+    fits = {}
+    for n in counts:
+        fit = load_collective_fit(str(path), n)
+        require(fit is not None and fit["fit_devices"] == n,
+                f"phase Y (a): load_collective_fit({path.name}, {n}) = "
+                f"{fit} ({detail['knees'].get('psum')})")
+        fits[str(n)] = fit
+    return {"backend": backend, "devices": list(counts),
+            "host_staged": detail["host_staged"], "knees": detail["knees"],
+            "unmeasured": detail["unmeasured"],
+            "suggested_bucket_bytes": detail["suggested_bucket_bytes"],
+            "read_back": fits, "wall_s": round(wall, 1)}
+
+
+def check_ab_augment(gpu: str) -> tuple:
+    """Phase Y (c): ``ab_augment`` on the card, every variant bitwise
+    base before it is timed (the tool asserts it); the kernel variant
+    launches the dequant kernel once a step, the others none.  Returns
+    the line's dict and the launches by variant."""
+    path = measure_record("BENCH_augment_gpu")
+    t0 = time.perf_counter()
+    rc, out, err = run_tool("ab_augment", "--steps", str(AB_STEPS),
+                            "--out", str(path), timeout=600)
+    wall = time.perf_counter() - t0
+    require(rc == 0, f"phase Y (c): ab_augment exit code {rc}:\n"
+                     f"{err[-4000:]}")
+    lines = journal_rows(path)
+    variants = [l["metric"][len("input_path_"):-len("_steps_per_sec")]
+                for l in lines]
+    require(variants == ["base", "selmm", "selmm_oh", "noaug", "kernel"],
+            f"phase Y (c): variants {variants}")
+    windows = lines[0]["detail"]["timed_windows"]
+    launches = {}
+    for v, l in zip(variants, lines):
+        d = l["detail"]
+        want = {k: 0 for k in d["launches"]}
+        if v == "kernel":
+            want["dequant"] = windows * AB_STEPS
+        require(d["bitwise_equal_to_base"] and d["launches"] == want
+                and d["device"]["platform"] == "gpu"
+                and gpu.startswith(d["device"]["name"]) and l["value"] > 0,
+                f"phase Y (c): {v} {d}")
+        launches[f"cifar_input_ab_{v}"] = [d["launches"]]
+    rates = {v: {"steps_per_sec": l["value"],
+                 "ms_per_step": l["detail"]["ms_per_step"],
+                 "repeats": l["detail"]["repeats"]}
+             for v, l in zip(variants, lines)}
+    return {"batch": lines[0]["detail"]["batch"], "steps": AB_STEPS,
+            "dequant_impl_base": lines[0]["detail"]["dequant_impl"],
+            "variants": rates, "wall_s": round(wall, 1)}, launches
+
+
+def check_bench_input() -> dict:
+    """Phase Y (b): ``bench_input`` on the card machine's host, each of
+    the four stages bit-identical to numpy before it is timed."""
+    path = measure_record("BENCH_input_cpu")
+    t0 = time.perf_counter()
+    rc, out, err = run_tool("bench_input", "--out", str(path), timeout=600)
+    wall = time.perf_counter() - t0
+    require(rc == 0, f"phase Y (b): bench_input exit code {rc}:\n"
+                     f"{err[-4000:]}")
+    lines = journal_rows(path)
+    require(len(lines) == 4 and all(
+        l["value"] > 0 and l["detail"]["device"]["platform"] == "cpu"
+        for l in lines), f"phase Y (b): {lines}")
+    return {"host": lines[0]["detail"]["device"], "stages": {
+        l["metric"]: {"value": l["value"], "unit": l["unit"],
+                      "vs_numpy": l["vs_baseline"],
+                      "repeats": l["detail"]["repeats"]} for l in lines},
+            "wall_s": round(wall, 1)}
+
+
+def check_trajectory(families: list) -> dict:
+    """Phase Y (d): ``bench_ratchet --trajectory`` and ``obs_query
+    trajectory`` over the phase's records: one row per family, the same
+    rows from both, and ``tools.schedule``'s price of a job named after
+    the input A/B family reads the trajectory."""
+    from distributedtensorflowexample_tpu_torch.resilience import (
+        scheduler as sched)
+    records = MEASURE_ROOT / "records"
+    rc, out, err = run_tool("bench_ratchet", "--records_dir", str(records),
+                            "--trajectory", "--json")
+    require(rc == 0, f"phase Y (d): bench_ratchet exit code {rc}:\n"
+                     f"{out[-2000:]}{err[-2000:]}")
+    verdict = json.loads(out)
+    traj = records / "BENCH_trajectory.json"
+    written = journal_rows(traj)
+    rc, out, err = run_tool("obs_query", "trajectory", "--records_dir",
+                            str(records), "--format", "json")
+    require(rc == 0, f"phase Y (d): obs_query trajectory exit code {rc}:\n"
+                     f"{err[-2000:]}")
+    rows = json.loads(out)
+    got = sorted(r["family"] for r in rows)
+    require(got == sorted(families) and rows == written
+            and all(r["round"] == MEASURE_ROUND for r in rows),
+            f"phase Y (d): trajectory families {got}, want "
+            f"{sorted(families)}")
+    cost = sched.predict_cost(sched.Job(job="aug", argv=["x"], steps=1000,
+                                        family="BENCH_augment"), str(traj))
+    require(cost["source"] == f"trajectory:BENCH_augment_gpu_r"
+                              f"{MEASURE_ROUND}.json",
+            f"phase Y (d): predict_cost {cost}")
+    return {"rows": len(rows), "families": got,
+            "platforms": {r["family"]: r["platforms"] for r in rows},
+            "ratchet_findings": len(verdict["findings"]),
+            "schedule_price": cost}
+
+
+def run_measure_phase(gpu: str) -> tuple:
+    """Phase Y: the port's measurement tools, each a ``python -m`` child
+    process, beside W and X and beside each other (their readings are
+    then not a quiet card's or host's): (a) ``bench_collectives`` over
+    gloo at 2 and 4 ranks on the card (then NCCL at 2 where there are 2
+    cards), (b) ``bench_input`` on the host, (c) ``ab_augment`` on the
+    card; then (d) the ratchet's trajectory and ``obs_query trajectory``
+    over their records.  Returns the lines to print and the launches by
+    path."""
+    t0 = time.perf_counter()
+    shutil.rmtree(MEASURE_ROOT, ignore_errors=True)
+    (MEASURE_ROOT / "records").mkdir(parents=True)
+    families = ["BENCH_collectives_gpu", "BENCH_input_cpu",
+                "BENCH_augment_gpu"]
+    cards = torch.cuda.device_count()
+    nccl = f"nccl unmeasured, {cards} card"
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        gloo = pool.submit(check_collectives, "gloo", (2, 4), gpu)
+        ab = pool.submit(check_ab_augment, gpu)
+        host = pool.submit(check_bench_input)
+        result = {"collectives": {"gloo": gloo.result()}}
+        if cards >= 2:
+            result["collectives"]["nccl"] = check_collectives(
+                "nccl", (2,), gpu, "--sizes", NCCL_SIZES)
+            families.append("BENCH_collectives_nccl_gpu")
+            nccl = "nccl measured at 2 ranks"
+        result["input_ab"], launches = ab.result()
+        result["host_input"] = host.result()
+    result["trajectory"] = check_trajectory(families)
+    result.update(nccl=nccl, wall_s=round(time.perf_counter() - t0, 1),
+                  gpu=gpu)
+    gloo = result["collectives"]["gloo"]["knees"]["psum"]
+    ab = result["input_ab"]["variants"]
+    text = (json.dumps({"measure_path": result}) + "\n"
+            + f"measurement tools: psum knee {gloo['2']['knee_bytes']} B at "
+              f"2 ranks, {gloo['4']['knee_bytes']} B at 4 (gloo, "
+              f"host-staged; {nccl}); input path base "
+              f"{ab['base']['steps_per_sec']:.1f}, kernel "
+              f"{ab['kernel']['steps_per_sec']:.1f} steps/s on {gpu}\n")
+    return text, launches
+
+
 # --- phase S: serving lm_base ---------------------------------------------
 
 def host_argv(steps: int, log_dir: str, log_every: int, *extra) -> list:
@@ -4006,13 +4230,16 @@ def main() -> int:
     lap("U")
     by_path.update(run_side_and_scheduling_phases(gpu))
     lap("C H J V")
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
         nxm = pool.submit(run_nxm_phase, gpu)
+        measure = pool.submit(run_measure_phase, gpu)
         run_control_plane_phase(gpu)
         nxm_text, nxm_launches = nxm.result()
-    print(nxm_text, end="", flush=True)
+        measure_text, measure_launches = measure.result()
+    print(nxm_text + measure_text, end="", flush=True)
     by_path.update(nxm_launches)
-    lap("W X")
+    by_path.update(measure_launches)
+    lap("W X Y")
     by_path.update(run_host_fed_phase(gpu))
     lap("Q")
     by_path.update(run_remat_phase(gpu))

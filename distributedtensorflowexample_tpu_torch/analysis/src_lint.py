@@ -14,7 +14,8 @@
   ``remediate.py``) and its commands (``tools/supervise.py``,
   ``supervise_fleet.py``, ``schedule.py``), the readers and the
   simulator's driver (``tools/obs_query.py``, ``obs_report.py``,
-  ``sim_run.py``), ``tools/graftlint.py`` and ``analysis/`` itself
+  ``sim_run.py``), the records' comparator (``tools/bench_ratchet.py``),
+  ``tools/graftlint.py`` and ``analysis/`` itself
   (``resilience/faults.py`` injects faults into a training process and
   imports torch).
 * ``env-registry`` / ``env-dynamic`` / ``env-dead``: every named

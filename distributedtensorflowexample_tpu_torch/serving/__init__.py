@@ -14,10 +14,10 @@
   lanes, prefix-cache sharing, speculative decoding;
 - :mod:`.loadgen`, :mod:`.frontend` — the closed-loop load generator and
   the opt-in stdlib HTTP request front;
+- :mod:`.sharded` — the params-stay-sharded engine: ZeRO-3's
+  per-bucket gathers and a slot-sharded KV cache over D ranks
+  (``serve_lm --sharded_mesh D``);
 - :mod:`.serve_lm` — the serving worker's entry point.
-
-The JAX package's params-stay-sharded engine (``serving/sharded.py``) is
-not ported yet.
 """
 
 from distributedtensorflowexample_tpu_torch.serving.engine import (  # noqa: F401

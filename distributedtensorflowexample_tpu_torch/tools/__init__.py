@@ -16,5 +16,14 @@ distributedtensorflowexample_tpu_torch.tools.<name>``:
 - ``sim_run``, ``obs_query``, ``obs_report`` — the fleet simulator and
   the ledger's and flights' readers;
 - ``graftlint`` — the repo-invariant source rules and the collective
-  contracts (``analysis/``).
+  contracts (``analysis/``);
+- ``bench_collectives`` — ``t(S) = alpha + S/beta`` fitted per
+  collective kind and group size through ``parallel/mesh.Mesh``, the
+  record ``resilience/scheduler.load_collective_fit`` reads;
+- ``bench_input`` — the native host loader against numpy, four stages,
+  bit-identical before timed;
+- ``ab_augment`` — the input path alone on the card (resident gather,
+  crop and flip, dequant) in its variants, bitwise before timed;
+- ``bench_ratchet`` — the records' comparator and trajectory
+  (``obs_query trajectory``, ``schedule --trajectory``).
 """

@@ -20,6 +20,9 @@ byte-identical to the JAX tool's on the same ledger).
   # (tools.schedule's and tools.sim_run's sched_*/heal_* rows):
   python -m distributedtensorflowexample_tpu_torch.tools.obs_query \
       why bench1 --ledger /tmp/sched/RUNS.jsonl
+  # the measurement records, per family per round:
+  python -m distributedtensorflowexample_tpu_torch.tools.obs_query \
+      trajectory --records_dir /tmp/records --format md
 
 Rows come from ``obs/ledger.py``'s RUNS.jsonl (``OBS_LEDGER``; the
 fleet supervisor writes <workdir>/RUNS.jsonl by default): ``run_start``
@@ -30,9 +33,12 @@ config keys that changed (run_start carries the resolved config), the
 final-counter deltas (run_end carries cumulative counters), loss-tail
 digests (same trajectory or not), outcome and anomaly flags.
 
-``trajectory`` is refused by name (exit 2): the JAX tool pivots the
-root ``BENCH_*``/``SCALING_*`` records, which hold the JAX package's
-TPU and CPU rates, and the port has no benchmark records yet.
+``trajectory`` pivots the records in ``--records_dir`` (``BENCH_*``,
+``SCHED_*``, ``SERVE_*``, ``HEAL_*``, ``SIM_*``, ``SCALING_*`` and
+``BASELINE_SELF.json``) into one row per family per round, through
+``tools.bench_ratchet.build_trajectory``: the rows ``tools.bench_ratchet
+--trajectory`` writes.  ``--records_dir`` is required (exit 2 without
+it): the repository's root holds the JAX package's records.
 
 Stdlib-only and read-only (it imports neither torch nor JAX): safe
 mid-outage, and ``--format json`` makes every view machine-consumable.
@@ -48,15 +54,15 @@ import sys
 from distributedtensorflowexample_tpu_torch.engine import (
     resolve_update_layout)     # torch-free half of engine/ (spec.py)
 from distributedtensorflowexample_tpu_torch.obs import ledger as obs_ledger
+from distributedtensorflowexample_tpu_torch.tools import bench_ratchet
 from distributedtensorflowexample_tpu_torch.tools.obs_report import (
     _table as _table_lines)
 
-#: ``obs_query trajectory``'s refusal (exit 2).
-TRAJECTORY_REFUSAL = (
-    "obs_query: trajectory is not ported: it pivots the root BENCH_*/"
-    "SCALING_* records through the JAX package's tools/bench_ratchet.py, "
-    "and those hold the JAX package's TPU and CPU rates, not the port's; "
-    "it waits for the port's benchmark")
+#: ``obs_query trajectory`` without ``--records_dir`` (exit 2).
+TRAJECTORY_NEEDS_DIR = (
+    "obs_query: trajectory needs --records_dir: the repository's root "
+    "holds the JAX package's records (its TPU and CPU rates), not the "
+    "port's; point it at the directory the port's tools wrote")
 
 
 def _table(headers: list[str], rows: list[list]) -> str:
@@ -504,11 +510,25 @@ def cmd_why(args) -> int:
     return 0
 
 
-# --- trajectory (refused) -------------------------------------------------
+# --- trajectory ------------------------------------------------------------
 
 def cmd_trajectory(args) -> int:
-    print(TRAJECTORY_REFUSAL, file=sys.stderr, flush=True)
-    return 2
+    if not args.records_dir:
+        print(TRAJECTORY_NEEDS_DIR, file=sys.stderr, flush=True)
+        return 2
+    rows = bench_ratchet.build_trajectory(args.records_dir)
+    if args.family:
+        rows = [r for r in rows if args.family in r["family"]]
+    md = [f"# Bench trajectory — {len(rows)} family-round row(s)", ""]
+    for row in rows:
+        rnd = "—" if row["round"] is None else f"r{row['round']:02d}"
+        md += [f"## {row['family']} {rnd} (`{row['file']}`, "
+               f"{'/'.join(row['platforms'])})", "",
+               _table(["metric", "value"],
+                      [[f"`{k}`", v]
+                       for k, v in sorted(row["metrics"].items())]), ""]
+    _emit(rows, "\n".join(md), args.format)
+    return 0
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -555,14 +575,14 @@ def main(argv: list[str] | None = None) -> int:
                                 "tools.schedule's queue")
     sp.set_defaults(fn=cmd_why)
 
-    sp = sub.add_parser("trajectory", help="the JAX tool's bench "
-                                           "trajectories (refused here: "
-                                           "the port has no benchmark "
-                                           "records yet)")
-    # The JAX verb's flags, so its command line is refused by name.
+    sp = sub.add_parser("trajectory", help="per-family per-round bench "
+                                           "metric trajectories")
     add_common(sp, ledger=False)
-    sp.add_argument("--records_dir", default="")
-    sp.add_argument("--family", default="")
+    sp.add_argument("--records_dir", default="",
+                    help="the records' directory (required: the "
+                         "repository's root holds the JAX package's)")
+    sp.add_argument("--family", default="",
+                    help="substring filter on the family")
     sp.set_defaults(fn=cmd_trajectory)
 
     args = p.parse_args(argv)

@@ -54,13 +54,14 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 
 from distributedtensorflowexample_tpu_torch.obs import recorder as obs_recorder
 from distributedtensorflowexample_tpu_torch.resilience import scheduler as sched
 from distributedtensorflowexample_tpu_torch.resilience.supervisor import (
     Journal)
+from distributedtensorflowexample_tpu_torch.tools.bench_ratchet import (
+    card_name_and_power_limit, describe_device)
 
 TOOLS = "distributedtensorflowexample_tpu_torch.tools."
 SERVE_LM = "distributedtensorflowexample_tpu_torch.serving.serve_lm"
@@ -142,32 +143,19 @@ def demo_queue(workdir: str, steps: int = 12, slow_s: float = 0.4,
     ]
 
 
-def card_name_and_power_limit() -> str | None:
-    """``nvidia-smi``'s ``name, power.limit`` of the first card, or None
-    where it cannot be read (no card, no tool).  A subprocess: this
-    process never initialises CUDA."""
-    try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60)
-    except (OSError, subprocess.SubprocessError):
-        return None
-    lines = out.stdout.strip().splitlines()
-    return lines[0].strip() if out.returncode == 0 and lines else None
-
-
 def write_record(path: str, summary: dict, devices: int,
                  device: str = "cpu") -> None:
     """Queue-completion record, bench-record dialect: one JSON line per
     metric (SCHED_queue_*), each naming the device the jobs ran on (and,
-    on the card, its name and power limit)."""
+    on the card, its name and power limit, also as ``detail.device``,
+    which ``tools.bench_ratchet`` pivots on)."""
     detail = {"platform": device, "devices": devices,
               "status": summary["status"], "counts": summary["counts"],
               "makespan_s": summary["makespan_s"],
               "evictions": summary["evictions"],
               "shrinks": summary["shrinks"], "grows": summary["grows"],
               "retries": summary["retries"], "jobs": summary["jobs"]}
+    detail["device"] = describe_device(device)
     if device == "cuda":
         detail["gpu"] = card_name_and_power_limit() or "not measured"
     done = summary["counts"].get("done", 0)

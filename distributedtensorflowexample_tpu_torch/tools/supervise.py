@@ -18,8 +18,8 @@ SIGTERM, and resume from their checkpoint on the restart.
 the temporary directory.
 
 ``--capture`` (the JAX package's journaled capture window over its root
-``bench*.py`` scripts) is refused by name: the port has no measurement
-entry points to capture yet.
+``bench*.py`` scripts) is refused by name: its queue runs ``bench.py``
+and ``bench_lm.py``, whose port comes with the port's first benchmark.
 
 Exporting OBS_PROM_DIR makes every completed task refresh
 <OBS_PROM_DIR>/supervise.prom (node-exporter textfile-collector
@@ -40,10 +40,12 @@ from distributedtensorflowexample_tpu_torch.resilience.supervisor import (
 
 #: ``supervise --capture``'s refusal (exit 2).
 CAPTURE_REFUSAL = (
-    "supervise: --capture is not ported: it runs the JAX package's "
-    "capture window over its root bench*.py scripts, and the port has no "
-    "measurement entry points yet; supervise one command with -- CMD "
-    "ARGS...")
+    "supervise: --capture is not ported: the JAX package's capture "
+    "window queues its root bench.py and bench_lm.py, and the port's "
+    "versions of those come with its first benchmark (the port's "
+    "measurement tools so far, tools.bench_collectives, bench_input, "
+    "ab_augment and bench_ratchet, run on their own); supervise one "
+    "command with -- CMD ARGS...")
 
 
 def run_command(args, argv: list[str]) -> int:
@@ -80,7 +82,7 @@ def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--capture", action="store_true",
                    help="the JAX package's capture window (refused here: "
-                        "the port has no measurement entry points yet)")
+                        "it waits for the port's bench.py and bench_lm.py)")
     p.add_argument("--retries", type=int, default=3)
     p.add_argument("--backoff_base_s", type=float, default=1.0)
     p.add_argument("--backoff_max_s", type=float, default=60.0)

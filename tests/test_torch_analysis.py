@@ -340,9 +340,10 @@ def test_port_stdlib_roots_are_the_listed_modules():
         "analysis", "analysis.env_registry", "analysis.src_lint",
         "cluster", "config", "engine.spec", "refusal",
         "resilience.fleet", "resilience.remediate", "resilience.scheduler",
-        "resilience.supervisor", "tools.graftlint", "tools.obs_query",
-        "tools.obs_report", "tools.schedule", "tools.sim_run",
-        "tools.supervise", "tools.supervise_fleet", "version"]
+        "resilience.supervisor", "tools.bench_ratchet", "tools.graftlint",
+        "tools.obs_query", "tools.obs_report", "tools.schedule",
+        "tools.sim_run", "tools.supervise", "tools.supervise_fleet",
+        "version"]
     assert src_lint.STDLIB_ROOT_PACKAGES == ("obs", "sim")
 
 
