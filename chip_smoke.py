@@ -33,7 +33,11 @@ trains in the N-process x M-local-rank layout: two launcher processes
 of two ranks each, one group of four, bitwise the same four ranks
 started by one process, and that the port's measurement tools measure
 the card and its host: the collectives' fit, the host loader against
-numpy, the input path's variants bitwise, and their records' trajectory.
+numpy, the input path's variants bitwise, and their records' trajectory,
+and that the serving bench (``tools.bench_serving``) measures lm_base on
+the card: the supervised headline, the saturation and SLO curves, the
+sharded, speculative and batched-prefill points, in a record the ratchet
+reads.
 
     python3 chip_smoke.py
 
@@ -356,6 +360,21 @@ P. params-stay-sharded serving at lm_base, full width: phase S's tree
    answered.  Launch counters 0 in both ranks.  One
    ``sharded_serving_path`` line: tokens/s, p50/p99, decode ms a step,
    bytes gathered a step, ms an all-gather, residency a rank;
+Z. (after P) the serving bench: ``tools.bench_serving --device cuda
+   --size lm_base --slots 8 --max_len 128`` as a child process on phase
+   S's snapshot, at reduced counts (32 requests a point, clients 1 and 8,
+   SLO 0 and 200 ms, one repeat, one supervised repeat, draft window 4,
+   the sharded point on 2 gloo ranks with 16 requests; at lm_base a
+   request's p50 is ~130 ms, so an SLO of 100 ms or less rejects nearly
+   every request and the knee would read near 0).  Checks, each
+   fatal: exit 0; every metric name of the JAX harness at lm_base; the
+   gap-aware ``serve_lm_base_spec_mismatch`` 0 at ``SERVE_TAU``; the
+   sharded residency 1/2 a rank and lm_base's 1/4 at D=4; every line's
+   ``detail.device`` names the card; ``tools.bench_ratchet`` reads the
+   record's 11 lines and finds nothing unexplained; no kernel launched
+   by the tool, its supervised worker or any of its ranks.  One
+   ``serving_bench`` line: the knee (best in-SLO tokens/s), the headline
+   tokens/s and p50/p99, the other instruments' values, the wall s;
 Q. (after C, H, J, V, W, X and Y) the host-fed input path: the native loader
    built (``native.available()``) and its ``gather`` and ``gather_augment``
    bitwise numpy's on the synthetic MNIST split (uint8 and float32);
@@ -4133,6 +4152,106 @@ def run_sharded_phase(gpu: str, shard_ranks: list, four: list) -> dict:
     return by_path
 
 
+# --- phase Z: the serving bench --------------------------------------------
+
+BENCH_ROOT = ROOT / "build" / "chip_smoke_bench_serving"
+#: The round in the record's name (``_r<N>``), by which the ratchet orders.
+BENCH_ROUND = 18
+BENCH_ARGV = ["--device", "cuda", "--size", LM_SIZE, "--slots",
+              str(SERVE_SLOTS), "--max_len", str(SERVE_CACHE), "--requests",
+              "32", "--clients_sweep", "1,8", "--slo_sweep_ms", "0,200",
+              "--repeats", "1", "--supervised_repeats", "1",
+              "--spec_k_sweep", "4", "--sharded_mesh", str(MR_RANKS),
+              "--sharded_requests", "16"]
+#: The JAX harness's metric names (root ``bench_serving.py``) at lm_base.
+BENCH_METRICS = tuple(f"serve_{LM_SIZE}_{m}" for m in (
+    "supervised_tokens_per_sec", "tokens_per_sec", "p99_ms",
+    "throughput_vs_slo", "sharded_tokens_per_sec",
+    "sharded_params_frac_per_device", "spec_tokens_per_sec",
+    "spec_accept_len", "spec_mismatch", "prefill_batch_amortization")) + (
+    "serve_lm_base_sharded_params_frac_per_device", "serving_bench_meta")
+
+
+def run_serving_bench_phase(gpu: str) -> dict:
+    """Phase Z; returns the launches by path (the tool's process, its
+    supervised worker, the sharded point's and the residency's ranks)."""
+    shutil.rmtree(BENCH_ROOT, ignore_errors=True)
+    record = BENCH_ROOT / "records" / f"SERVE_lm_gpu_r{BENCH_ROUND}.json"
+    record.parent.mkdir(parents=True)
+    t0 = time.perf_counter()
+    rc, out, err = run_tool(
+        "bench_serving", *BENCH_ARGV, "--snapshot", str(SERVE_SNAP),
+        "--workdir", str(BENCH_ROOT / "work"), "--json", str(record),
+        timeout=600)
+    wall = time.perf_counter() - t0
+    require(rc == 0, f"phase Z: bench_serving exit code {rc}:\n"
+                     f"{err[-4000:]}")
+    lines = journal_rows(record)
+    names = [l["metric"] for l in lines]
+    require(sorted(names) == sorted(BENCH_METRICS),
+            f"phase Z: the record's metrics {names}")
+    by = {}
+    for l in lines:
+        by.setdefault(l["metric"], []).append(l)
+    for l in lines:
+        dev = l["detail"]["device"]
+        require(dev["platform"] == "gpu" and gpu.startswith(dev["name"]),
+                f"phase Z: {l['metric']} names the device {dev}")
+    meta = by["serving_bench_meta"][0]["detail"]
+    require(meta["errors"] == {}, f"phase Z: errors {meta['errors']}")
+    spec = by[f"serve_{LM_SIZE}_spec_mismatch"][0]
+    require(spec["value"] == 0 and spec["detail"]["tau"] == SERVE_TAU,
+            f"phase Z: spec mismatch {spec['value']} at tau "
+            f"{spec['detail']['tau']} (raw {spec['detail']['mismatch_raw']})")
+    fracs = {l["detail"]["mesh_size"]: l
+             for l in by[f"serve_{LM_SIZE}_sharded_params_frac_per_device"]}
+    require(sorted(fracs) == [MR_RANKS, 4]
+            and fracs[MR_RANKS]["value"] == 1 / MR_RANKS
+            and fracs[4]["value"] == 0.25,
+            f"phase Z: residency {[(d, l['value']) for d, l in fracs.items()]}")
+    rc, out, err = run_tool("bench_ratchet", "--records_dir",
+                            str(record.parent), "--json")
+    verdict = json.loads(out) if out.strip() else {}
+    require(rc == 0 and verdict.get("records") == len(lines) - 1
+            and verdict.get("unexplained") == 0,
+            f"phase Z: bench_ratchet exit code {rc}: {out[-2000:]}"
+            f"{err[-2000:]}")
+    sup = by[f"serve_{LM_SIZE}_supervised_tokens_per_sec"][0]["detail"]
+    sharded = by[f"serve_{LM_SIZE}_sharded_tokens_per_sec"][0]["detail"]
+    launches = {"serving_bench": [meta["launches"]],
+                "serving_bench_supervised": [sup["launches"]],
+                f"{LM_SIZE}_sharded_serving_bench_gloo{MR_RANKS}":
+                    sharded["launches_by_rank"],
+                "lm_base_residency_bench_gloo4":
+                    fracs[4]["detail"]["launches_by_rank"]}
+    for path, per_rank in launches.items():
+        require(len(per_rank) >= 1 and all(
+            set(c) == set(SOURCES) and not any(c.values())
+            for c in per_rank), f"phase Z: {path} launched {per_rank}")
+    head = by[f"serve_{LM_SIZE}_tokens_per_sec"][0]
+    slo = by[f"serve_{LM_SIZE}_throughput_vs_slo"][0]
+    value = {m: by[m][0]["value"] for m in BENCH_METRICS[:-2]}
+    result = {
+        "knee_tokens_per_sec": slo["value"],
+        "knee_slo_ms": slo["detail"]["best_point_slo_ms"],
+        "tokens_per_sec": head["value"], "p50_ms": head["detail"]["p50_ms"],
+        "p99_ms": head["detail"]["p99_ms"],
+        "saturation": [(p["clients"], p["goodput_tokens_per_sec"],
+                        p["p99_ms"])
+                       for p in slo["detail"]["saturation_sweep"]],
+        "slo": [(p["slo_ms"], p["goodput_tokens_per_sec"],
+                 p["rejected_slo"]) for p in slo["detail"]["slo_sweep"]],
+        "values": value, "spec_mismatch_raw": spec["detail"]["mismatch_raw"],
+        "ratchet_findings": len(verdict["findings"]), "argv": BENCH_ARGV,
+        "wall_s": round(wall, 1), "launches": launches, "gpu": gpu}
+    print(json.dumps({"serving_bench": result}), flush=True)
+    print(f"serving bench: knee {slo['value']} tokens/s in-SLO, headline "
+          f"{head['value']} tokens/s, p50 {head['detail']['p50_ms']} ms, "
+          f"p99 {head['detail']['p99_ms']} ms ({LM_SIZE}, {SERVE_SLOTS} "
+          f"slots), {wall:.1f} s on {gpu}", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4254,6 +4373,8 @@ def main() -> int:
     lap("S")
     by_path.update(run_sharded_phase(gpu, shard_ranks, four))
     lap("P")
+    by_path.update(run_serving_bench_phase(gpu))
+    lap("Z")
     print(json.dumps({"phase_wall_s": laps,
                       "script_wall_s": round(sum(laps.values()), 1),
                       "gpu": gpu}), flush=True)

@@ -256,14 +256,8 @@ def promote_sharded(snapshot_dir: str, size: str, *, mesh,
                  or DEFAULT_BUCKET_BYTES)
         layout = Zero3Layout(opt.slices, bb, mesh, one_rank=True)
         rows = layout.init_rows(opt.params_flat, mesh.rank)
-    model = _serving_model(state)
-    with torch.no_grad():
-        # Placeholders made on the device: moving an expanded tensor
-        # would materialize it at full size.
-        for p in model.parameters():
-            p.data = torch.zeros((), device=mesh.device).expand(p.shape)
+    model = _placeholders(_serving_model(state), mesh.device)
     del state, opt                   # the full host copy goes here
-    model = model.to(mesh.device)
     rows = [r.to(mesh.device) for r in rows]
     _log(f"promoted snapshot step {step} ({layout_name}, rows sharded at "
          f"1/{D}, bucket_bytes {bb}) from "
@@ -271,6 +265,32 @@ def promote_sharded(snapshot_dir: str, size: str, *, mesh,
     return ShardedPromotion(model=model, rows=rows, layout=layout,
                             step=int(step), source_layout=layout_name,
                             manifest=man)
+
+
+@torch.no_grad()
+def _placeholders(model: nn.Module, device: torch.device) -> nn.Module:
+    """``model`` on ``device`` with empty placeholder parameters, made on
+    the device: moving an expanded tensor would materialize it at full
+    size."""
+    for p in model.parameters():
+        p.data = torch.zeros((), device=device).expand(p.shape)
+        p.grad = None
+    return model.to(device)
+
+
+def shard_model(model: nn.Module, *, mesh, bucket_bytes: int) -> tuple:
+    """``(rows, layout)``: ``model``'s parameters cut into this rank's row
+    of each bucket of a ``Zero3Layout`` over ``mesh`` at ``bucket_bytes``,
+    on the mesh's device, with the model's parameters left as placeholders
+    there — :func:`promote_sharded`'s conversion for a model made in
+    memory rather than read from a snapshot."""
+    opt = MomentumSGD(model, lambda count: np.float32(0.1), 0.0,
+                      fused=False)
+    layout = Zero3Layout(opt.slices, bucket_bytes, mesh, one_rank=True)
+    rows = layout.init_rows(opt.params_flat, mesh.rank)
+    del opt
+    _placeholders(model, mesh.device)
+    return [r.to(mesh.device) for r in rows], layout
 
 
 def init_lm_snapshot(snapshot_dir: str, size: str, seed: int = 0) -> int:

@@ -225,6 +225,7 @@ def _serve(args, batcher, served: dict, device, term, t0: float,
     drive's clients, the batcher loop, the stats; returns the rc.
     ``served``: the snapshot facts the stats carry (step, layout)."""
     from distributedtensorflowexample_tpu_torch.obs import ledger as obs_ledger
+    from distributedtensorflowexample_tpu_torch.ops import kernels
     from distributedtensorflowexample_tpu_torch.serving.frontend import (
         RequestFront)
     from distributedtensorflowexample_tpu_torch.serving.loadgen import (
@@ -282,10 +283,13 @@ def _serve(args, batcher, served: dict, device, term, t0: float,
     if front is not None:
         front.stop()
     stats = batcher.stats()
+    # ``launches``: this process's kernel launches so far (none of the
+    # port's kernels is on the serving path).
     stats.update(snapshot_step=served["step"],
                  snapshot_layout=served["layout"], size=args.size,
                  preempted=preempted, drive=gen_summary or None,
-                 platform=device.type, **served.get("extra", {}))
+                 platform=device.type, launches=kernels.launch_counts(),
+                 **served.get("extra", {}))
     if args.stats:
         _write_stats(args.stats, stats)
     print(json.dumps(stats, sort_keys=True), flush=True)

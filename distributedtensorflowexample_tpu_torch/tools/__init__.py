@@ -25,5 +25,9 @@ distributedtensorflowexample_tpu_torch.tools.<name>``:
 - ``ab_augment`` — the input path alone on the card (resident gather,
   crop and flip, dequant) in its variants, bitwise before timed;
 - ``bench_ratchet`` — the records' comparator and trajectory
-  (``obs_query trajectory``, ``schedule --trajectory``).
+  (``obs_query trajectory``, ``schedule --trajectory``);
+- ``bench_serving`` — the serving bench: the supervised ``serve_lm``
+  headline, the saturation and SLO curves, the sharded, speculative and
+  batched-prefill points, in a ``SERVE_*`` record (``--device cpu`` on
+  the host; the card by default; ``tests/test_torch_bench_serving.py``).
 """
