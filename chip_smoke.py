@@ -37,7 +37,10 @@ numpy, the input path's variants bitwise, and their records' trajectory,
 and that the serving bench (``tools.bench_serving``) measures lm_base on
 the card: the supervised headline, the saturation and SLO curves, the
 sharded, speculative and batched-prefill points, in a record the ratchet
-reads.
+reads, and that the headline harness (``tools.bench``) and the
+weak-scaling harness (``tools.bench_scaling``) measure the card: six
+lines with the headline last, each of its kernel variants launching its
+kernel once a step, and the 1 -> 2 rank efficiency over gloo.
 
     python3 chip_smoke.py
 
@@ -375,6 +378,26 @@ Z. (after P) the serving bench: ``tools.bench_serving --device cuda
    by the tool, its supervised worker or any of its ranks.  One
    ``serving_bench`` line: the knee (best in-SLO tokens/s), the headline
    tokens/s and p50/p99, the other instruments' values, the wall s;
+HB. (after Z) the headline and weak-scaling harnesses: ``tools.bench
+   --device cuda --tiny`` as a child process (the shrunken sizes of
+   ``tools.bench.TINY``: 256-row splits, B=64, two repeats, the headline
+   sweep's first point plus one, the A/B's ``pallas`` arm alone).
+   Checks, each fatal: exit 0; the provisional line first, then the six
+   JAX metric lines with the headline last, unit ``steps/sec/chip``;
+   every line's ``detail.device`` names this card; every line's
+   launches equal its ``kernel_steps`` (the steps, warm-up included,
+   its builds ran with each kernel requested): ``dequant`` > 0 on the
+   headline (its ``pallas`` A/B arm) and 0 elsewhere, ``ce_fwd`` =
+   ``ce_bwd`` > 0 on the ``pallas_ce`` line alone, ``sgd`` > 0 on the
+   ``fused_sgd`` line alone; ``vs_roofline`` > 0 on the headline,
+   ResNet-20 and softmax lines; ResNet-20's ``mfu`` in (0, 1].  Then
+   ``tools.bench_scaling --device cuda --max_devices 2`` (B=64 a rank):
+   the per-count lines at 1 and 2 ranks and the
+   ``sync_sgd_weak_scaling`` line, ``efficiency_1_to_2``, over
+   ``gloo``, ``host_staged``, one card; 2 ranks' all-reduce bytes a step
+   = 4 x config 3's 3,274,634 parameters; no kernel launched (the
+   affine dequant).  One ``bench_path`` line: each line's steps/s and
+   the kernel launches, the efficiency, the wall s;
 Q. (after C, H, J, V, W, X and Y) the host-fed input path: the native loader
    built (``native.available()``) and its ``gather`` and ``gather_augment``
    bitwise numpy's on the synthetic MNIST split (uint8 and float32);
@@ -4252,6 +4275,109 @@ def run_serving_bench_phase(gpu: str) -> dict:
     return launches
 
 
+# --- phase HB: the headline and weak-scaling harnesses ---------------------
+
+#: ``tools.bench``'s metric lines in emission order (the headline last) and
+#: the kernels each line's builds request (its ``kernel_steps``).
+HB_LINES = {
+    "cifar_resnet20_steps_per_sec_per_chip": (),
+    "mnist_cnn_async_steps_per_sec_per_chip": (),
+    "mnist_softmax_steps_per_sec_per_chip": (),
+    "mnist_cnn_sync_pallas_ce_steps_per_sec_per_chip": ("ce_fwd", "ce_bwd"),
+    "mnist_cnn_sync_fused_sgd_steps_per_sec_per_chip": ("sgd",),
+    "mnist_cnn_sync_steps_per_sec_per_chip": ("dequant",),
+}
+HB_SCALING_ARGV = ["--device", "cuda", "--max_devices", str(MR_RANKS),
+                   "--batch_per_chip", str(BATCH), "--unroll", "8",
+                   "--steps", "16"]
+
+
+def json_lines(text: str) -> list:
+    return [json.loads(l) for l in text.splitlines() if l.startswith("{")]
+
+
+def run_bench_phase(gpu: str) -> dict:
+    """Phase HB; returns the launches by path: ``bench:<line>`` (one
+    process each) and ``bench:sync_scaling_<N>`` (per rank)."""
+    t0 = time.perf_counter()
+    rc, out, err = run_tool("bench", "--device", "cuda", "--tiny",
+                            timeout=300)
+    bench_s = time.perf_counter() - t0
+    require(rc == 0, f"phase HB: tools.bench exit code {rc}:\n"
+                     f"{err[-4000:]}")
+    lines = json_lines(out)
+    require(lines and lines[0]["detail"].get("provisional") is True,
+            f"phase HB: first line {lines[:1]}")
+    lines = lines[1:]
+    require([l["metric"] for l in lines] == list(HB_LINES),
+            f"phase HB: lines {[l['metric'] for l in lines]}")
+    launches, rates = {}, {}
+    for l in lines:
+        d, metric = l["detail"], l["metric"]
+        dev = d["device"]
+        require(l["unit"] == "steps/sec/chip" and l["value"] > 0
+                and dev["platform"] == "gpu" and gpu.startswith(dev["name"]),
+                f"phase HB: {metric}: {l['value']} {l['unit']} on {dev}")
+        want = HB_LINES[metric]
+        require(d["launches"] == d["kernel_steps"] and all(
+            (d["launches"][k] > 0) == (k in want) for k in SOURCES),
+            f"phase HB: {metric} launched {d['launches']}, its steps with "
+            f"each kernel {d['kernel_steps']}")
+        if "roofline_probe" in d or metric.startswith(("cifar", "mnist_soft")):
+            require(d.get("vs_roofline", 0) > 0,
+                    f"phase HB: {metric} vs_roofline {d.get('vs_roofline')}")
+        name = metric.replace("_steps_per_sec_per_chip", "")
+        launches[f"bench:{name}"] = [d["launches"]]
+        rates[name] = l["value"]
+    head = lines[-1]["detail"]
+    require(head.get("vs_roofline", 0) > 0 and "pallas" in head["dequant_ab"]
+            and "errors" not in head,
+            f"phase HB: headline {head.get('vs_roofline')} "
+            f"{head.get('dequant_ab')} {head.get('errors')}")
+    mfu = lines[0]["detail"]["mfu"]
+    require(mfu is not None and 0 < mfu <= 1, f"phase HB: ResNet-20 mfu {mfu}")
+
+    t0 = time.perf_counter()
+    rc, out, err = run_tool("bench_scaling", *HB_SCALING_ARGV, timeout=300)
+    scaling_s = time.perf_counter() - t0
+    require(rc == 0, f"phase HB: tools.bench_scaling exit code {rc}:\n"
+                     f"{err[-4000:]}")
+    lines = json_lines(out)
+    *per_count, summary = lines
+    require([l["devices"] for l in per_count] == [1, MR_RANKS]
+            and summary["metric"] == "sync_sgd_weak_scaling"
+            and summary["unit"] == f"efficiency_1_to_{MR_RANKS}"
+            and summary["value"] > 0,
+            f"phase HB: scaling lines {lines}")
+    d, two = summary["detail"], per_count[-1]
+    require(d["backend"] == "gloo" and d["host_staged"] is True
+            and d["num_chips"] == 1 and two["backend"] == "gloo",
+            f"phase HB: scaling ran over {d['backend']}, host_staged "
+            f"{d['host_staged']}, {d['num_chips']} card(s)")
+    require(two["collectives_per_step"] == {
+        "all-reduce": {"count": 1, "bytes": 4 * CNN_PARAMS}},
+        f"phase HB: collectives a step {two['collectives_per_step']}")
+    for l in per_count:
+        require(all(not any(c.values()) for c in l["launches"]),
+                f"phase HB: scaling launched {l['launches']}")
+        launches[f"bench:sync_scaling_{l['devices']}"] = l["launches"]
+    result = {"steps_per_sec_per_chip": rates,
+              "headline_dequant": head["dequant"],
+              "headline_vs_roofline": head["vs_roofline"],
+              "headline_dequant_ab": head["dequant_ab"],
+              "resnet20_mfu": mfu, "efficiency": d["efficiency"],
+              "scaling_steps_per_sec": [l["steps_per_sec"]
+                                        for l in per_count],
+              "bench_s": round(bench_s, 1),
+              "scaling_s": round(scaling_s, 1),
+              "launches": launches, "gpu": gpu}
+    print(json.dumps({"bench_path": result}), flush=True)
+    print(f"bench: headline {rates['mnist_cnn_sync']} steps/s/chip (tiny "
+          f"sizes), weak scaling 1 -> {MR_RANKS} gloo ranks "
+          f"{summary['value']} on {gpu}", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4375,6 +4501,8 @@ def main() -> int:
     lap("P")
     by_path.update(run_serving_bench_phase(gpu))
     lap("Z")
+    by_path.update(run_bench_phase(gpu))
+    lap("HB")
     print(json.dumps({"phase_wall_s": laps,
                       "script_wall_s": round(sum(laps.values()), 1),
                       "gpu": gpu}), flush=True)

@@ -216,7 +216,8 @@ def _rank_suite(bucket_bytes: int, plants: dict) -> dict:
             try:
                 for _ in range(_STEPS.get(label, 1)):
                     step(built.state, next(built.ds))
-                order = [(kind, _dtype_name(dt)) for kind, dt in mesh.order]
+                order = [(kind, _dtype_name(dt))
+                         for kind, dt, _ in mesh.order]
             finally:
                 mesh.order = None
             records.append({

@@ -28,9 +28,12 @@ kind (``all-reduce``, ``reduce-scatter``, ``all-gather``): the port's
 counterpart of the JAX package's compiled-program contracts, held to
 each mode's budget per step (``engine/spec.MODES``).  ``all_reduces``
 is the first of them.  With ``Mesh.order`` set to a list, each counted
-collective is also appended to it in issue order, as its kind and its
-payload's dtype (the collective contracts of
-``analysis/collective_lint.py`` read the schedule there).  Metrics, the
+collective is also appended to it in issue order, as its kind, its
+payload's dtype and the payload's bytes (the tensor the rank hands the
+collective: the all-reduce's buffer, the reduce-scatter's whole input,
+the all-gather's row); the collective contracts of
+``analysis/collective_lint.py`` read the schedule there, and
+``tools/bench_scaling.py`` the bytes.  Metrics, the
 eval's correct count, checkpoints and the eval's parameter gathers pass
 ``counted=False``.  A run with no
 process group is one rank (:data:`ONE_RANK`, or an ungrouped
@@ -98,7 +101,8 @@ class Mesh:
                payload: torch.Tensor) -> None:
         self.collectives[kind] += counted
         if counted and self.order is not None:
-            self.order.append((kind, payload.dtype))
+            self.order.append((kind, payload.dtype,
+                               payload.numel() * payload.element_size()))
 
     def all_reduce(self, flat: torch.Tensor,
                    counted: bool = True) -> torch.Tensor:

@@ -29,5 +29,11 @@ distributedtensorflowexample_tpu_torch.tools.<name>``:
 - ``bench_serving`` — the serving bench: the supervised ``serve_lm``
   headline, the saturation and SLO curves, the sharded, speculative and
   batched-prefill points, in a ``SERVE_*`` record (``--device cpu`` on
-  the host; the card by default; ``tests/test_torch_bench_serving.py``).
+  the host; the card by default; ``tests/test_torch_bench_serving.py``);
+- ``bench`` — the headline harness: one line per training workload,
+  config 3's steps/sec/chip last, with its roofline probe, dequant A/B,
+  MFU and each line's kernel launches (``tests/test_torch_bench.py``);
+- ``bench_scaling`` — weak-scaling efficiency over 1 -> N ranks, the
+  collective bytes a step counted through ``parallel/mesh.Mesh``
+  (``tests/test_torch_bench_scaling.py``).
 """

@@ -18,8 +18,9 @@ SIGTERM, and resume from their checkpoint on the restart.
 the temporary directory.
 
 ``--capture`` (the JAX package's journaled capture window over its root
-``bench*.py`` scripts) is refused by name: its queue runs ``bench.py``
-and ``bench_lm.py``, whose port comes with the port's first benchmark.
+``bench*.py`` scripts) is refused by name: of its queue's harnesses only
+``bench.py`` is ported (``tools.bench``); it still waits on
+``bench_lm.py``, ``bench_profile.py`` and the ``bytes_audit`` task.
 
 Exporting OBS_PROM_DIR makes every completed task refresh
 <OBS_PROM_DIR>/supervise.prom (node-exporter textfile-collector
@@ -41,11 +42,11 @@ from distributedtensorflowexample_tpu_torch.resilience.supervisor import (
 #: ``supervise --capture``'s refusal (exit 2).
 CAPTURE_REFUSAL = (
     "supervise: --capture is not ported: the JAX package's capture "
-    "window queues its root bench.py and bench_lm.py, and the port's "
-    "versions of those come with its first benchmark (the port's "
-    "measurement tools so far, tools.bench_collectives, bench_input, "
-    "ab_augment and bench_ratchet, run on their own); supervise one "
-    "command with -- CMD ARGS...")
+    "window queues its root bench.py, bench_lm.py, bench_profile.py and "
+    "the tools/bytes_audit.py task; bench.py is ported (tools.bench, run "
+    "on its own), and the capture still waits on the port's bench_lm and "
+    "bench_profile, and on its bytes_audit task, which is not ported; "
+    "supervise one command with -- CMD ARGS...")
 
 
 def run_command(args, argv: list[str]) -> int:

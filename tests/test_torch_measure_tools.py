@@ -5,6 +5,7 @@ CPU:
   ``suggest_bucket_bytes`` equal the JAX ``bench_collectives.py``
   functions on seeded points and on the degenerate cases of its own
   test; one tiny sweep (2 gloo ranks, 2 sizes, every kind) writes a
+  well-formed record, and one whose ranks report fixed times writes a
   record that both packages' ``load_collective_fit`` read alike; no
   card is refused by name;
 - ``tools.bench_input``: its four stages (each bit-identical to numpy
@@ -92,19 +93,33 @@ def test_fit_and_bucket_suggestion_equal_jax(jbc):
                for k in jbc._COLLECTIVES for n in (2, 4, 8))
 
 
-def test_tiny_cpu_sweep_reads_back_in_both_packages(tmp_path, capsys):
-    """Two gloo ranks on the host, every kind at 2 sizes: one point per
-    (kind, size), a fit per kind, and the record both packages'
-    ``load_collective_fit`` read the same."""
-    out = tmp_path / "BENCH_collectives_cpu_r16.json"
+SWEEP_SIZES = (4096, 4194304)
+FIXED_ALPHA_S, FIXED_BETA = 2.5e-4, 1.25e9
+
+
+def _fixed_time_ranks(fn, n, backend, args, timeout_s=None):
+    """``launch.spawn``'s stand-in: ``n`` ranks whose every call of every
+    kind takes ``FIXED_ALPHA_S + payload / FIXED_BETA`` seconds."""
+    colls, sizes, repeats, device = args
+    times = {c: [[FIXED_ALPHA_S
+                  + bench_collectives.payload_elems(s, n) * 4 / FIXED_BETA]
+                 * repeats for s in sizes] for c in colls}
+    return [{"rank": r, "device": device, "backend": backend,
+             "times": times, "errors": {}} for r in range(n)]
+
+
+def _sweep_record(out, capsys) -> tuple:
+    """``bench_collectives`` over 2 gloo ranks on the host, every kind at
+    :data:`SWEEP_SIZES`, 2 repeats: ``(points, summary, record)``, with
+    the structure every such run has checked."""
     assert bench_collectives.main([
-        "--device", "cpu", "--submeshes", "2", "--sizes", "4096,4194304",
-        "--repeats", "2", "--json", str(out)]) == 0
+        "--device", "cpu", "--submeshes", "2",
+        "--sizes", ",".join(map(str, SWEEP_SIZES)), "--repeats", "2",
+        "--json", str(out)]) == 0
     lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
     points, summary = lines[:-1], lines[-1]
     assert [(p["collective"], p["bytes"]) for p in points] == [
-        (c, b) for c in bench_collectives._COLLECTIVES
-        for b in (4096, 4194304)]
+        (c, b) for c in bench_collectives._COLLECTIVES for b in SWEEP_SIZES]
     assert all(p["backend"] == "gloo" and p["platform"] == "cpu"
                and not p["host_staged"] and p["latency_s"] > 0
                and len(p["repeats_s"]) == 2 for p in points)
@@ -115,12 +130,46 @@ def test_tiny_cpu_sweep_reads_back_in_both_packages(tmp_path, capsys):
     assert detail["backends"] == {"2": "gloo"} and detail["unmeasured"] == {}
     assert detail["device"] == bench_ratchet.describe_device("cpu")
     assert set(detail["knees"]) == set(bench_collectives._COLLECTIVES)
-    psum = detail["knees"]["psum"]["2"]
-    assert psum["alpha_s"] > 0 and psum["beta_bytes_per_s"] > 0
-    assert rec["value"] == psum["knee_bytes"] and rec["unit"] == "bytes"
+    for fits in detail["knees"].values():
+        fit = fits["2"]
+        # A fit is positive, or the all-None fit_latency_bandwidth gives
+        # a degenerate curve: under load a stalled small point can take
+        # as long as the large one, and two points then fit a slope <= 0.
+        assert fit == {"alpha_s": None, "beta_bytes_per_s": None,
+                       "knee_bytes": None, "r2": None} or (
+            fit["alpha_s"] > 0 and fit["beta_bytes_per_s"] > 0
+            and fit["knee_bytes"] > 0), fit
+    knee = detail["knees"]["psum"]["2"]["knee_bytes"]
+    assert rec["value"] == float(knee or 0)
+    assert rec["unit"] == ("bytes" if knee else "unavailable")
     assert detail["suggested_bucket_bytes"] == \
-        bench_collectives.suggest_bucket_bytes(psum["knee_bytes"])
+        bench_collectives.suggest_bucket_bytes(knee)
     assert len(detail["repeats"]) == 2 and detail["n_repeats"] == 2
+    return points, summary, rec
+
+
+def test_tiny_cpu_sweep_reads_back_in_both_packages(tmp_path, capsys,
+                                                    monkeypatch):
+    """Two gloo ranks on the host, every kind at 2 sizes: one point per
+    (kind, size), a fit per kind (positive, or the degenerate None),
+    and the record both packages' ``load_collective_fit`` read the same.
+    The read-back runs on a sweep whose ranks report fixed times through
+    the ``launch.spawn`` seam, so its fit has known numbers whatever the
+    load on the host."""
+    _sweep_record(tmp_path / "BENCH_collectives_cpu_r16.json", capsys)
+
+    out = tmp_path / "fixed" / "BENCH_collectives_cpu_r16.json"
+    out.parent.mkdir()
+    monkeypatch.setattr(bench_collectives.launch, "spawn", _fixed_time_ranks)
+    points, _, rec = _sweep_record(out, capsys)
+    assert [p["latency_s"] for p in points[:2]] == [
+        round(FIXED_ALPHA_S + s / FIXED_BETA, 9) for s in SWEEP_SIZES]
+    psum = rec["detail"]["knees"]["psum"]["2"]
+    assert abs(psum["alpha_s"] - FIXED_ALPHA_S) < 1e-12
+    assert abs(psum["beta_bytes_per_s"] / FIXED_BETA - 1) < 1e-9
+    assert psum["knee_bytes"] == int(psum["alpha_s"]
+                                     * psum["beta_bytes_per_s"])
+    assert rec["value"] == psum["knee_bytes"] and rec["unit"] == "bytes"
     for devices in (1, 2, 4):
         fit = psched.load_collective_fit(str(out), devices)
         assert fit == jsched.load_collective_fit(str(out), devices)

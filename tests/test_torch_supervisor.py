@@ -284,4 +284,7 @@ sys.exit(0 if int(os.environ["SUPERVISE_ATTEMPT"]) >= 1 else 7)
 def test_supervise_capture_is_refused_by_name(capsys):
     assert supervise.main(["--capture"]) == 2
     err = capsys.readouterr().err
-    assert "--capture is not ported" in err and "bench" in err
+    assert "--capture is not ported" in err
+    assert "bench.py is ported (tools.bench" in err
+    assert all(w in err for w in ("bench_lm", "bench_profile",
+                                  "bytes_audit task, which is not ported"))
