@@ -37,10 +37,13 @@ numpy, the input path's variants bitwise, and their records' trajectory,
 and that the serving bench (``tools.bench_serving``) measures lm_base on
 the card: the supervised headline, the saturation and SLO curves, the
 sharded, speculative and batched-prefill points, in a record the ratchet
-reads, and that the headline harness (``tools.bench``) and the
-weak-scaling harness (``tools.bench_scaling``) measure the card: six
-lines with the headline last, each of its kernel variants launching its
-kernel once a step, and the 1 -> 2 rank efficiency over gloo.
+reads, and that the harnesses measure the card under ``supervise
+--capture``: the headline harness (``tools.bench``: six lines with the
+headline last, each of its kernel variants launching its kernel once a
+step), the ResNet-20 profile and its trace, the collectives, the LM
+bench (lm_base's knob matrix over two ranks), the CLI trainer, then the
+resident-storage A/B (``tools.ab_quantize``) and the 1 -> 2 rank
+efficiency over gloo.
 
     python3 chip_smoke.py
 
@@ -378,26 +381,42 @@ Z. (after P) the serving bench: ``tools.bench_serving --device cuda
    by the tool, its supervised worker or any of its ranks.  One
    ``serving_bench`` line: the knee (best in-SLO tokens/s), the headline
    tokens/s and p50/p99, the other instruments' values, the wall s;
-HB. (after Z) the headline and weak-scaling harnesses: ``tools.bench
-   --device cuda --tiny`` as a child process (the shrunken sizes of
-   ``tools.bench.TINY``: 256-row splits, B=64, two repeats, the headline
-   sweep's first point plus one, the A/B's ``pallas`` arm alone).
-   Checks, each fatal: exit 0; the provisional line first, then the six
-   JAX metric lines with the headline last, unit ``steps/sec/chip``;
-   every line's ``detail.device`` names this card; every line's
-   launches equal its ``kernel_steps`` (the steps, warm-up included,
-   its builds ran with each kernel requested): ``dequant`` > 0 on the
-   headline (its ``pallas`` A/B arm) and 0 elsewhere, ``ce_fwd`` =
-   ``ce_bwd`` > 0 on the ``pallas_ce`` line alone, ``sgd`` > 0 on the
+HB. (after Z) the harnesses: ``tools.supervise --capture --tiny
+   --records_dir build/chip_smoke_capture`` as a child process, its six
+   tasks each a child of it (``tools.bench --headline_only --tiny``,
+   ``tools.bench_profile --tiny``, ``tools.bench_collectives`` at 2
+   ranks and two sizes, ``tools.bench_lm --tiny``: lm_tiny throughput
+   and lm_base's seven knobs over two gloo ranks, ``tools.bench --tiny``
+   and ``trainer_sync_mnist`` for 200 steps), with ``tools.ab_quantize
+   --tiny`` and then ``tools.bench_scaling --max_devices 2`` (B=64 a
+   rank) beside it.  Checks, each fatal: exit 0; the journal ends with
+   ``capture_end``, every task ``done`` in priority order; the full
+   bench's record (``tools.bench.TINY``: 256-row splits, B=64, two
+   repeats, the A/B's ``pallas`` arm alone): the provisional line first,
+   then the six JAX metric lines with the headline last, unit
+   ``steps/sec/chip``, every line's ``detail.device`` this card, every
+   line's launches equal to its ``kernel_steps`` (the steps, warm-up
+   included, its builds ran with each kernel requested): ``dequant`` > 0
+   on the headline (its ``pallas`` A/B arm) and 0 elsewhere, ``ce_fwd``
+   = ``ce_bwd`` > 0 on the ``pallas_ce`` line alone, ``sgd`` > 0 on the
    ``fused_sgd`` line alone; ``vs_roofline`` > 0 on the headline,
-   ResNet-20 and softmax lines; ResNet-20's ``mfu`` in (0, 1].  Then
-   ``tools.bench_scaling --device cuda --max_devices 2`` (B=64 a rank):
-   the per-count lines at 1 and 2 ranks and the
-   ``sync_sgd_weak_scaling`` line, ``efficiency_1_to_2``, over
-   ``gloo``, ``host_staged``, one card; 2 ranks' all-reduce bytes a step
-   = 4 x config 3's 3,274,634 parameters; no kernel launched (the
-   affine dequant).  One ``bench_path`` line: each line's steps/s and
-   the kernel launches, the efficiency, the wall s;
+   ResNet-20 and softmax lines; ResNet-20's ``mfu`` in (0, 1]; the
+   headline-only record's one measured line; the LM record's two
+   lm_tiny lines, the five derived lines of a 2-rank matrix and the
+   matrix (gloo, host-staged, one card, seven knobs, activation and peak
+   bytes > 0, base momentum 4 x 57,289,728 bytes, ZeRO-1 and ZeRO-3
+   shrinks in [1.99, 2], a remat saving in (0, 1)), no kernel launched;
+   the profile record's five lines, a trace with device time by kind and
+   its tarball, both shares; the collective fit read back at 2 ranks;
+   the trainer's ``final accuracy`` line.  ``ab_quantize``: six variants
+   in order, each > 0 and bitwise ``off``'s first batch, the dequant
+   kernel once a step on ``u8_kernel`` alone.  ``bench_scaling``: the
+   per-count lines at 1 and 2 ranks and the ``sync_sgd_weak_scaling``
+   line, ``efficiency_1_to_2``, over ``gloo``, ``host_staged``, one
+   card; 2 ranks' all-reduce bytes a step = 4 x config 3's 3,274,634
+   parameters; no kernel launched.  One ``bench_path`` line: each
+   record's rates, the shares, the LM matrix's rates and peaks, the
+   launches, the wall s;
 Q. (after C, H, J, V, W, X and Y) the host-fed input path: the native loader
    built (``native.available()``) and its ``gather`` and ``gather_augment``
    bitwise numpy's on the synthetic MNIST split (uint8 and float32);
@@ -4275,7 +4294,7 @@ def run_serving_bench_phase(gpu: str) -> dict:
     return launches
 
 
-# --- phase HB: the headline and weak-scaling harnesses ---------------------
+# --- phase HB: the harnesses, under supervise --capture ----------------------
 
 #: ``tools.bench``'s metric lines in emission order (the headline last) and
 #: the kernels each line's builds request (its ``kernel_steps``).
@@ -4290,22 +4309,38 @@ HB_LINES = {
 HB_SCALING_ARGV = ["--device", "cuda", "--max_devices", str(MR_RANKS),
                    "--batch_per_chip", str(BATCH), "--unroll", "8",
                    "--steps", "16"]
+CAPTURE_ROOT = ROOT / "build" / "chip_smoke_capture"
+#: ``supervise --capture``'s queue, by priority.
+CAPTURE_TASKS = ("headline_bench", "profile", "collectives", "lm",
+                 "full_bench", "cli_trainer")
+PROFILE_LINES = ("resnet20_profile_augment", "resnet20_traced_window",
+                 "resnet20_profile_no_augment", "resnet20_roofline",
+                 "resnet20_attribution")
+#: ``bench_lm --tiny``'s lines: lm_tiny throughput, then the lm_base matrix
+#: over two gloo ranks (every derived line a 2-rank group allows).
+LM_LINES = ("lm_tiny_tokens_per_sec_per_chip", "lm_tiny_mfu",
+            *(f"{LM_SIZE}_{m}" for m in (
+                "remat_activation_savings_frac",
+                "shard_update_optstate_shrink_x", "zero1_optstate_shrink_x",
+                "zero3_state_residency_shrink_x", "zero3_overlap_speedup_x",
+                "knob_ab_matrix")), "lm_bench_meta")
+AB_VARIANTS = ("off", "auto", "u8_mul", "u8_onehot", "u8_lut", "u8_kernel")
 
 
 def json_lines(text: str) -> list:
     return [json.loads(l) for l in text.splitlines() if l.startswith("{")]
 
 
-def run_bench_phase(gpu: str) -> dict:
-    """Phase HB; returns the launches by path: ``bench:<line>`` (one
-    process each) and ``bench:sync_scaling_<N>`` (per rank)."""
-    t0 = time.perf_counter()
-    rc, out, err = run_tool("bench", "--device", "cuda", "--tiny",
-                            timeout=300)
-    bench_s = time.perf_counter() - t0
-    require(rc == 0, f"phase HB: tools.bench exit code {rc}:\n"
-                     f"{err[-4000:]}")
-    lines = json_lines(out)
+def zero_launches(counts: dict, what: str) -> None:
+    require(not any(counts.values()), f"phase HB: {what} launched {counts}")
+
+
+def check_bench_record(text: str, gpu: str) -> tuple:
+    """``tools.bench --tiny``'s record (the capture's ``full_bench``):
+    every line in order, each line's launches = its steps with each
+    kernel, ``vs_roofline``, ResNet-20's MFU.  Returns (launches by path,
+    rates, the headline's detail, the MFU)."""
+    lines = json_lines(text)
     require(lines and lines[0]["detail"].get("provisional") is True,
             f"phase HB: first line {lines[:1]}")
     lines = lines[1:]
@@ -4336,10 +4371,155 @@ def run_bench_phase(gpu: str) -> dict:
             f"{head.get('dequant_ab')} {head.get('errors')}")
     mfu = lines[0]["detail"]["mfu"]
     require(mfu is not None and 0 < mfu <= 1, f"phase HB: ResNet-20 mfu {mfu}")
+    return launches, rates, head, mfu
 
-    t0 = time.perf_counter()
+
+def check_lm_record(path: Path, gpu: str) -> tuple:
+    """The capture's ``lm`` record: both LM lines, the derived lines of a
+    2-rank matrix, the matrix; no kernel launched anywhere."""
+    recs = json_lines(path.read_text())
+    require([r["metric"] for r in recs] == list(LM_LINES),
+            f"phase HB: lm record {[r['metric'] for r in recs]}")
+    by = {r["metric"]: r for r in recs}
+    for r in recs[:-1]:
+        require(r["value"] > 0
+                and gpu.startswith(r["detail"]["device"]["name"]),
+                f"phase HB: {r['metric']} = {r['value']}")
+    tput, mfu = by["lm_tiny_tokens_per_sec_per_chip"], by["lm_tiny_mfu"]
+    zero_launches(tput["detail"]["launches"], "bench_lm's throughput")
+    launches = {"lm:lm_tiny_throughput": [tput["detail"]["launches"]]}
+    d = by[f"{LM_SIZE}_knob_ab_matrix"]["detail"]
+    require(d["devices"] == MR_RANKS and d["backend"] == "gloo"
+            and d["host_staged"] is True and d["num_chips"] == 1
+            and "errors" not in d and len(d["matrix"]) == 7,
+            f"phase HB: lm matrix {d['devices']} {d['backend']} "
+            f"{d.get('errors')} {sorted(d['matrix'])}")
+    matrix = d["matrix"]
+    for knob, e in matrix.items():
+        for c in e["launches"]:
+            zero_launches(c, f"bench_lm's {knob}")
+        launches[f"lm:{LM_SIZE}_{knob}"] = e["launches"]
+        require(e["memory"]["activation_bytes"] > 0
+                and e["memory"]["peak_bytes"] > 0,
+                f"phase HB: lm {knob} memory {e['memory']}")
+    base = matrix["base"]
+    require(base["opt_state_bytes_per_device"] == 4 * LM_PARAMS
+            and base["collectives"]["multiset"] == {"all-reduce": 1},
+            f"phase HB: lm base {base['opt_state_bytes_per_device']} "
+            f"{base['collectives']}")
+    for m in ("zero1_optstate_shrink_x", "zero3_state_residency_shrink_x"):
+        v = by[f"{LM_SIZE}_{m}"]["value"]
+        require(1.99 <= v <= 2.0, f"phase HB: {m} {v}")
+    saving = by[f"{LM_SIZE}_remat_activation_savings_frac"]["value"]
+    require(0 < saving < 1, f"phase HB: remat saving {saving}")
+    return {"tokens_per_sec": tput["value"], "mfu": mfu["value"],
+            "remat_saving": saving,
+            "zero3_overlap_speedup_x":
+                by[f"{LM_SIZE}_zero3_overlap_speedup_x"]["value"],
+            "steps_per_sec": {k: e.get("steps_per_sec")
+                              for k, e in matrix.items()},
+            "peak_bytes": {k: e["memory"]["peak_bytes"]
+                           for k, e in matrix.items()}}, launches
+
+
+def check_profile_record(path: Path, tgz: Path) -> tuple:
+    """The capture's ``profile`` record: the five lines, a trace on disk
+    (and its tarball), the shares."""
+    recs = json_lines(path.read_text())
+    require([r["metric"] for r in recs] == list(PROFILE_LINES),
+            f"phase HB: profile lines {[r['metric'] for r in recs]}")
+    by = {r["metric"]: r for r in recs}
+    window = by["resnet20_traced_window"]["detail"]
+    attr = by["resnet20_attribution"]
+    require(window["trace_files"] >= 1 and window["trace_bytes"] > 0
+            and window["device_us_per_step_by_kind"] and tgz.is_file()
+            and attr["value"] > 0 and "errors" not in attr["detail"]
+            and {"augment_share", "input_dispatch_share"}
+            <= set(attr["detail"]),
+            f"phase HB: profile {window} {attr} {tgz.is_file()}")
+    launches = {}
+    for tag in ("augment", "no_augment"):
+        d = by[f"resnet20_profile_{tag}"]["detail"]
+        zero_launches(d["launches"], f"bench_profile's {tag}")
+        launches[f"profile:{tag}"] = [d["launches"]]
+    return {"rates": {r["metric"]: r["value"] for r in recs},
+            "shares": {k: attr["detail"][k] for k in
+                       ("augment_share", "input_dispatch_share")},
+            "device_us_by_kind": window["device_us_per_step_by_kind"]}, \
+        launches
+
+
+def check_capture(gpu: str) -> tuple:
+    """``supervise --capture --tiny`` ran to its end with every task ok;
+    each artifact checked."""
+    rows = journal_rows(CAPTURE_ROOT / "supervise_capture.jsonl")
+    done = [r["task"] for r in rows if r["event"] == "task_done"]
+    end = rows[-1] if rows else {}
+    require(done == list(CAPTURE_TASKS) and end.get("event") == "capture_end"
+            and end["results"] == dict.fromkeys(CAPTURE_TASKS, "done"),
+            f"phase HB: capture journal {done} {end}")
+    launches, rates, head, mfu = check_bench_record(
+        (CAPTURE_ROOT / "BENCH_capture.json").read_text(), gpu)
+    headline = json_lines(
+        (CAPTURE_ROOT / "BENCH_headline_capture.json").read_text())[-1]
+    d = headline["detail"]
+    require(headline["metric"] == "mnist_cnn_sync_steps_per_sec_per_chip"
+            and headline["value"] > 0 and d.get("headline_only") is True
+            and d["launches"] == d["kernel_steps"],
+            f"phase HB: headline_bench {headline}")
+    launches["capture:headline_bench"] = [d["launches"]]
+    lm, lm_launches = check_lm_record(
+        CAPTURE_ROOT / "BENCH_lm_capture.json", gpu)
+    profile, profile_launches = check_profile_record(
+        CAPTURE_ROOT / "PROFILE_capture.json",
+        CAPTURE_ROOT / "resnet_trace_capture.tgz")
+    from distributedtensorflowexample_tpu_torch.resilience.scheduler import (
+        load_collective_fit)
+    fit = load_collective_fit(
+        str(CAPTURE_ROOT / "BENCH_collectives_capture.json"), 2)
+    require(fit is not None and fit["fit_devices"] == 2,
+            f"phase HB: the capture's collective fit {fit}")
+    cli = (CAPTURE_ROOT / "CLI_capture.log").read_text()
+    require("final accuracy:" in cli, f"phase HB: cli_trainer {cli[-500:]}")
+    launches.update(lm_launches)
+    launches.update(profile_launches)
+    return {"steps_per_sec_per_chip": rates,
+            "headline_only": headline["value"],
+            "headline_dequant": head["dequant"],
+            "headline_vs_roofline": head["vs_roofline"],
+            "headline_dequant_ab": head["dequant_ab"], "resnet20_mfu": mfu,
+            "lm": lm, "profile": profile, "psum_fit": fit}, launches
+
+
+def check_ab_quantize(gpu: str) -> tuple:
+    """``ab_quantize --tiny``: every variant positive, bitwise off's
+    batch, and the dequant kernel launched once a step on ``u8_kernel``
+    only."""
+    rc, out, err = run_tool("ab_quantize", "--device", "cuda", "--tiny",
+                            timeout=300)
+    require(rc == 0, f"phase HB: ab_quantize exit code {rc}:\n{err[-4000:]}")
+    lines = json_lines(out)
+    require([l["metric"] for l in lines] == [
+        f"headline_{v}_steps_per_sec_per_chip" for v in AB_VARIANTS],
+        f"phase HB: ab_quantize lines {[l['metric'] for l in lines]}")
+    launches, rates = {}, {}
+    for v, l in zip(AB_VARIANTS, lines):
+        d = l["detail"]
+        require(l["value"] > 0 and d["bitwise_vs_off"] is True
+                and d["launches"] == d["kernel_steps"]
+                and (d["launches"]["dequant"] > 0) == (v == "u8_kernel")
+                and not any(d["launches"][k] for k in SOURCES
+                            if k != "dequant")
+                and gpu.startswith(d["device"]["name"]),
+                f"phase HB: ab_quantize {v}: {l}")
+        launches[f"ab_quantize:{v}"] = [d["launches"]]
+        rates[v] = l["value"]
+    return rates, launches
+
+
+def check_scaling() -> tuple:
+    """``bench_scaling`` at 1 and 2 gloo ranks on the card."""
     rc, out, err = run_tool("bench_scaling", *HB_SCALING_ARGV, timeout=300)
-    scaling_s = time.perf_counter() - t0
     require(rc == 0, f"phase HB: tools.bench_scaling exit code {rc}:\n"
                      f"{err[-4000:]}")
     lines = json_lines(out)
@@ -4357,24 +4537,67 @@ def run_bench_phase(gpu: str) -> dict:
     require(two["collectives_per_step"] == {
         "all-reduce": {"count": 1, "bytes": 4 * CNN_PARAMS}},
         f"phase HB: collectives a step {two['collectives_per_step']}")
+    launches = {}
     for l in per_count:
         require(all(not any(c.values()) for c in l["launches"]),
                 f"phase HB: scaling launched {l['launches']}")
         launches[f"bench:sync_scaling_{l['devices']}"] = l["launches"]
-    result = {"steps_per_sec_per_chip": rates,
-              "headline_dequant": head["dequant"],
-              "headline_vs_roofline": head["vs_roofline"],
-              "headline_dequant_ab": head["dequant_ab"],
-              "resnet20_mfu": mfu, "efficiency": d["efficiency"],
-              "scaling_steps_per_sec": [l["steps_per_sec"]
-                                        for l in per_count],
-              "bench_s": round(bench_s, 1),
-              "scaling_s": round(scaling_s, 1),
-              "launches": launches, "gpu": gpu}
+    return {"efficiency": d["efficiency"], "value": summary["value"],
+            "steps_per_sec": [l["steps_per_sec"] for l in per_count]}, \
+        launches
+
+
+def side_tools(gpu: str) -> tuple:
+    """HB's tools outside the capture, one after the other:
+    ``ab_quantize --tiny``, then ``bench_scaling``."""
+    t0 = time.perf_counter()
+    ab, launches = check_ab_quantize(gpu)
+    t1 = time.perf_counter()
+    scaling, scaling_launches = check_scaling()
+    launches.update(scaling_launches)
+    return ab, scaling, launches, {
+        "ab_quantize_s": round(t1 - t0, 1),
+        "scaling_s": round(time.perf_counter() - t1, 1)}
+
+
+def run_bench_phase(gpu: str) -> dict:
+    """Phase HB: ``supervise --capture --tiny`` over the harnesses (the
+    headline, the ResNet-20 profile, the collectives, the LM bench, the
+    full bench, the CLI trainer), with ``ab_quantize --tiny`` and then
+    ``bench_scaling`` beside it on the card (their rates are then not a
+    quiet card's).  Returns the launches by path: ``bench:<line>``,
+    ``capture:headline_bench``, ``lm:<line>``, ``profile:<variant>``,
+    ``ab_quantize:<variant>`` (one process each) and
+    ``bench:sync_scaling_<N>`` (per rank)."""
+    shutil.rmtree(CAPTURE_ROOT, ignore_errors=True)
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        side = pool.submit(side_tools, gpu)
+        rc, out, err = run_tool("supervise", "--capture", "--tiny",
+                                "--records_dir", str(CAPTURE_ROOT),
+                                timeout=900)
+        capture_s = round(time.perf_counter() - t0, 1)
+        ab, scaling, side_launches, side_s = side.result()
+    log = CAPTURE_ROOT / "capture.log"
+    tail = lambda: log.read_text()[-6000:] if log.is_file() else ""
+    require(rc == 0, f"phase HB: supervise --capture exit code {rc}:\n"
+                     f"{err[-4000:]}\n--- capture.log ---\n{tail()}")
+    try:
+        result, launches = check_capture(gpu)
+    except (RuntimeError, OSError, KeyError, ValueError) as e:
+        raise RuntimeError(f"{e}\n--- capture.log ---\n{tail()}") from e
+    launches.update(side_launches)
+    result.update(ab_quantize=ab, scaling=scaling, capture_s=capture_s,
+                  **side_s, wall_s=round(time.perf_counter() - t0, 1),
+                  launches=launches, gpu=gpu)
     print(json.dumps({"bench_path": result}), flush=True)
-    print(f"bench: headline {rates['mnist_cnn_sync']} steps/s/chip (tiny "
-          f"sizes), weak scaling 1 -> {MR_RANKS} gloo ranks "
-          f"{summary['value']} on {gpu}", flush=True)
+    print(f"bench: headline "
+          f"{result['steps_per_sec_per_chip']['mnist_cnn_sync']} "
+          f"steps/s/chip (tiny sizes), lm_tiny "
+          f"{result['lm']['tokens_per_sec']} tokens/s, ResNet-20 shares "
+          f"{result['profile']['shares']}, ab_quantize {ab}, weak scaling "
+          f"1 -> {MR_RANKS} gloo ranks {scaling['value']} on {gpu}",
+          flush=True)
     return launches
 
 

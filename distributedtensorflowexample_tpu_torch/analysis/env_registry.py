@@ -14,9 +14,21 @@ line.  Keys sorted alphabetically.
 from __future__ import annotations
 
 ENV_REGISTRY: dict[str, str] = {
+    "AB_CALLS": (
+        "Calls of the deepest unroll a timed repeat in tools/ab_quantize.py "
+        "(default 2)."),
+    "AB_SMOKE": (
+        "1 = tools/ab_quantize.py's wiring check (as --tiny): a 16-step "
+        "unroll and no roofline probe."),
+    "AB_UNROLL_EPOCHS": (
+        "Epochs in one call of tools/ab_quantize.py's headline config "
+        "(default 16)."),
     "BUCKET_GRADS_AUTO_BYTES": (
         "Overrides --bucket_grads auto's bucket size in bytes without a "
         "code change (parallel/bucketing.py)."),
+    "CAPTURE_PIDFILE": (
+        "supervise --capture's pidfile, relative to --records_dir (default "
+        "capture.pid; tools/supervise.py)."),
     "CUDA_HOME": (
         "CUDA toolkit root whose bin/nvcc builds the kernels "
         "(ops/kernels/build.py; then CUDA_PATH, PATH, /usr/local/cuda)."),
@@ -193,7 +205,8 @@ ENV_REGISTRY: dict[str, str] = {
     "SUPERVISE_JOURNAL": (
         "The supervisor's journal path, exported to the child so "
         "faultline can record its attempts beside it "
-        "(tools/faultline.py)."),
+        "(tools/faultline.py); supervise --capture's journal, relative to "
+        "--records_dir (tools/supervise.py)."),
     "TF_CONFIG": (
         "Reference-compatible cluster topology JSON: the process count, "
         "this process's index and the coordinator (cluster.py)."),

@@ -5,7 +5,10 @@ distributedtensorflowexample_tpu_torch.tools.<name>``:
 - ``faultline`` — one small training loop with a fault plan wired in,
   speaking the supervisor's exit-code protocol;
 - ``supervise`` — any command under the heartbeat watchdog and bounded
-  retries (``resilience/supervisor.py``);
+  retries (``resilience/supervisor.py``), or with ``--capture
+  --records_dir D`` the journaled capture queue over the harnesses below:
+  the headline, the ResNet-20 profile, the collectives, the LM bench, the
+  full bench and the CLI trainer, every artifact under ``D``;
 - ``supervise_fleet`` — an N-rank gang under the fleet supervisor
   (``resilience/fleet.py``), self-healing with ``--heal``
   (``resilience/remediate.py``);
@@ -35,5 +38,15 @@ distributedtensorflowexample_tpu_torch.tools.<name>``:
   MFU and each line's kernel launches (``tests/test_torch_bench.py``);
 - ``bench_scaling`` — weak-scaling efficiency over 1 -> N ranks, the
   collective bytes a step counted through ``parallel/mesh.Mesh``
-  (``tests/test_torch_bench_scaling.py``).
+  (``tests/test_torch_bench_scaling.py``);
+- ``bench_lm`` — the LM's tokens/s and MFU, and the knob A/B matrix
+  (remat, shard_update, bucket, ZeRO-1, ZeRO-3 with and without overlap)
+  over N ranks: bytes a rank, saved-for-backward bytes, collectives
+  (``tests/test_torch_bench_lm.py``);
+- ``bench_profile`` — ResNet-20's rate with and without augment against
+  its roofline probe, the shares, a ``torch.profiler`` window
+  (``tests/test_torch_bench_profile.py``);
+- ``ab_quantize`` — the headline config over each resident storage of
+  its split (float32, uint8 with each dequant, the CUDA dequant), bitwise
+  before timed (``tests/test_torch_ab_quantize.py``).
 """

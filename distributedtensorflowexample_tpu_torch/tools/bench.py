@@ -201,10 +201,12 @@ def _block(metrics: dict) -> None:
 
 
 def _measure(step, ds, state, steps: int, unroll: int,
-             warmup_calls: int = 2) -> tuple[float, list, object]:
-    """Best-of-REPEATS steady-state rate; each repeat ends in a
-    synchronize on its own final metrics, so queued work cannot pass for
-    throughput.  One ``measure`` span a measurement, never a step."""
+             warmup_calls: int = 2,
+             repeats: int | None = None) -> tuple[float, list, object]:
+    """Best-of-``repeats`` (default REPEATS) steady-state rate; each
+    repeat ends in a synchronize on its own final metrics, so queued work
+    cannot pass for throughput.  One ``measure`` span a measurement,
+    never a step."""
     from distributedtensorflowexample_tpu_torch.obs.trace import span
     with span("measure", steps=steps, unroll=unroll) as attrs:
         calls = max(1, steps // unroll)
@@ -214,7 +216,7 @@ def _measure(step, ds, state, steps: int, unroll: int,
             state, metrics = step(state, next(ds))
         _block(metrics)
         rates = []
-        for _ in range(REPEATS):
+        for _ in range(REPEATS if repeats is None else repeats):
             t0 = time.perf_counter()
             for _ in range(calls):
                 state, metrics = step(state, next(ds))
@@ -250,13 +252,14 @@ def _make(model_name: str, dataset: str, batch_per_chip: int, unroll: int,
           fused_opt: bool = False, augment: str = "none", lr: float = 0.05,
           sync: bool = True, async_period: int = 8,
           data_dir: str | None = None, dequant_impl: str = "auto",
-          perm_fn=None):
+          perm_fn=None, quantize: str = "auto"):
     """One knob configuration as an Engine declaration, the same
     construction ``Engine.run`` wires minus hooks: ``(step, ds, state,
     unroll)``.  ``input_fn`` carries the bench's data source (synthetic,
     or the real bytes of ``data_dir``/``DATA_DIR``); the float-LR
     optimizer comes from the config (module docstring).  ``perm_fn``
-    injects an index tape (``DeviceDataset``), as the parity tests do."""
+    injects an index tape (``DeviceDataset``), as the parity tests do;
+    ``quantize`` is the resident split's storage (``--quantize``)."""
     from distributedtensorflowexample_tpu_torch.config import RunConfig
     from distributedtensorflowexample_tpu_torch.data.cifar10 import (
         load_cifar10)
@@ -277,7 +280,7 @@ def _make(model_name: str, dataset: str, batch_per_chip: int, unroll: int,
                     async_period=async_period,
                     pallas_ce=(ce_impl == "pallas"),
                     fused_optimizer=fused_opt,
-                    dequant_impl=dequant_impl,
+                    dequant_impl=dequant_impl, quantize=quantize,
                     device=mesh.device.type)
     spec = RunSpec(model=model_name, dataset=dataset, config=cfg,
                    augment=(augment == "cifar"), input_fn=input_fn)

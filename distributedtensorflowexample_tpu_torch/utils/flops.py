@@ -22,12 +22,31 @@ no PyTorch counterpart; on XLA:CPU the JAX package's two counts of one
 compiled ``mnist_cnn`` step at B=8 disagree by two orders of magnitude
 (``cost_analysis`` 617,842,304; ``flops_audit`` 6,526,112, no
 convolution rows), so neither is an oracle for this one.
+
+The transformer LM (``lm_tiny``, ``lm_small``, ``lm_base``:
+``models/transformer_lm.LM_SIZES``, vocabulary 250, the head tied to the
+embedding) is counted per sequence of ``seq_len`` tokens, so a "row" is
+one sequence.  Per token and block: the QKV projection (``d x 3d``), the
+output projection (``d x d``), the two FFN products (``d x d_ff`` each)
+and the attention's score and value products over the whole ``T x T``
+square (``T x d`` each a token: the causal mask is applied to the
+scores, not skipped); then the head (``d x vocab``).  The embedding
+lookup is a gather and is not counted.  What the LM adds to the
+convention above: every product also pays its input gradient, the first
+one included, since the first block's input comes from the trainable
+embedding; so the LM's step is ``6 x MACs``.  In the attention products
+both operands are activations, and the "weight" gradient is the one into
+the keys (or the values): the same MACs.  This equals the JAX package's
+``flops_audit`` (dot rows: ``2 x`` output elements ``x`` contracted
+elements) of its compiled LM step exactly
+(``tests/test_torch_bench_lm.py``).
 """
 
 from __future__ import annotations
 
 #: The models whose layer shapes this module knows.
-MODELS = ("softmax", "mnist_cnn", "resnet20")
+MODELS = ("softmax", "mnist_cnn", "resnet20", "lm_tiny", "lm_small",
+          "lm_base")
 
 
 def _conv(out_hw: int, kernel: int, cin: int, cout: int) -> int:
@@ -59,8 +78,34 @@ def _resnet_layers(blocks_per_stage: int = 3,
     return layers
 
 
-def layer_macs(model: str) -> list[tuple[str, int]]:
-    """``[(layer, multiply-adds for one row)]`` in forward order."""
+def _lm_layers(size: str, seq_len: int | None) -> list:
+    """The LM's products for one sequence of ``seq_len`` tokens (the
+    shipped splits' ``data/lm.LM_SEQ_LEN`` by default), per block and then
+    the tied head (module docstring)."""
+    from distributedtensorflowexample_tpu_torch.data.lm import LM_SEQ_LEN
+    from distributedtensorflowexample_tpu_torch.models.transformer_lm import (
+        LM_SIZES, LM_VOCAB)
+    dims = LM_SIZES[size]
+    t = LM_SEQ_LEN if seq_len is None else int(seq_len)
+    d, ff = dims["d_model"], dims["d_ff"]
+    layers = []
+    for i in range(dims["n_layers"]):
+        layers += [(f"block{i}.qkv", t * d * 3 * d),
+                   (f"block{i}.scores", t * t * d),
+                   (f"block{i}.values", t * t * d),
+                   (f"block{i}.attn_out", t * d * d),
+                   (f"block{i}.mlp_in", t * d * ff),
+                   (f"block{i}.mlp_out", t * ff * d)]
+    layers.append(("head", t * d * LM_VOCAB))
+    return layers
+
+
+def layer_macs(model: str,
+               seq_len: int | None = None) -> list[tuple[str, int]]:
+    """``[(layer, multiply-adds for one row)]`` in forward order (an LM's
+    row: one sequence of ``seq_len`` tokens)."""
+    if model.startswith("lm_") and model in MODELS:
+        return _lm_layers(model, seq_len)
     if model == "softmax":
         return [("logits", 28 * 28 * 10)]
     if model == "mnist_cnn":
@@ -74,18 +119,22 @@ def layer_macs(model: str) -> list[tuple[str, int]]:
                      f"{MODELS})")
 
 
-def forward_macs(model: str) -> int:
+def forward_macs(model: str, seq_len: int | None = None) -> int:
     """Multiply-adds of one row's forward pass."""
-    return sum(m for _, m in layer_macs(model))
+    return sum(m for _, m in layer_macs(model, seq_len))
 
 
-def train_flops_per_row(model: str) -> int:
+def train_flops_per_row(model: str, seq_len: int | None = None) -> int:
     """FLOPs of one row's training step: forward, weight gradients, and
-    the input gradients of every layer but the first."""
-    macs = [m for _, m in layer_macs(model)]
-    return 2 * sum(macs) + 2 * sum(macs) + 2 * sum(macs[1:])
+    the input gradients of every layer but the first (of every layer, the
+    first included, for the LM)."""
+    macs = [m for _, m in layer_macs(model, seq_len)]
+    first_input = model.startswith("lm_")
+    return 4 * sum(macs) + 2 * sum(macs[0 if first_input else 1:])
 
 
-def train_flops_per_step(model: str, global_batch: int) -> int:
-    """FLOPs of one training step over ``global_batch`` rows."""
-    return train_flops_per_row(model) * int(global_batch)
+def train_flops_per_step(model: str, global_batch: int,
+                         seq_len: int | None = None) -> int:
+    """FLOPs of one training step over ``global_batch`` rows (an LM's
+    rows are sequences of ``seq_len`` tokens)."""
+    return train_flops_per_row(model, seq_len) * int(global_batch)

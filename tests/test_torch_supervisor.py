@@ -281,10 +281,189 @@ sys.exit(0 if int(os.environ["SUPERVISE_ATTEMPT"]) >= 1 else 7)
         ("attempt_start", "child.py", 1), ("attempt_end", "child.py", 1)]
 
 
-def test_supervise_capture_is_refused_by_name(capsys):
-    assert supervise.main(["--capture"]) == 2
-    err = capsys.readouterr().err
-    assert "--capture is not ported" in err
-    assert "bench.py is ported (tools.bench" in err
-    assert all(w in err for w in ("bench_lm", "bench_profile",
-                                  "bytes_audit task, which is not ported"))
+def test_supervise_capture_queue_shape(monkeypatch, tmp_path):
+    """The port's capture queue is the JAX queue's (names and priorities)
+    less ``bytes_audit_cpu``, over the port's harnesses, every artifact
+    under ``--records_dir``, with the JAX ``fresh_measured`` gate and the
+    journal rotation predicate."""
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    try:
+        import supervise as jsupervise
+    finally:
+        sys.path.pop(0)
+    for name in ("OUT", "OUT_HEADLINE", "PROFILE_OUT", "COLLECTIVES_OUT",
+                 "LM_OUT", "TRACE_TGZ", "CLI_OUT", "TRACE_DIR", "LOG"):
+        monkeypatch.delenv(name, raising=False)
+    start = time.time() - 5
+    tasks = supervise._capture_tasks(start, records_dir=str(tmp_path))
+    order = lambda ts: [(t.name, t.priority)
+                        for t in sorted(ts, key=lambda t: t.priority)]
+    jax_order = order(jsupervise._capture_tasks(start))
+    assert order(tasks) == [t for t in jax_order
+                            if t[0] != "bytes_audit_cpu"]
+    assert [n for n, _ in order(tasks)] == [
+        "headline_bench", "profile", "collectives", "lm", "full_bench",
+        "cli_trainer"]
+    by_name = {t.name: t for t in tasks}
+    tool = lambda t: t.argv[t.argv.index("-m") + 1]
+    pkg = "distributedtensorflowexample_tpu_torch"
+    assert {n: tool(t) for n, t in by_name.items()} == {
+        "headline_bench": f"{pkg}.tools.bench",
+        "profile": f"{pkg}.tools.bench_profile",
+        "collectives": f"{pkg}.tools.bench_collectives",
+        "lm": f"{pkg}.tools.bench_lm", "full_bench": f"{pkg}.tools.bench",
+        "cli_trainer": f"{pkg}.trainers.trainer_sync_mnist"}
+    assert "--headline_only" in by_name["headline_bench"].argv
+    assert all("--tiny" not in t.argv for t in tasks)
+    # Every path the queue writes lies under the records dir.
+    for t in tasks:
+        for path in (t.stdout_path, t.stderr_path):
+            assert path is None or path.startswith(str(tmp_path) + os.sep)
+        for flag in ("--json", "--trace_dir", "--log_dir"):
+            if flag in t.argv:
+                assert t.argv[t.argv.index(flag) + 1].startswith(
+                    str(tmp_path) + os.sep)
+    assert by_name["profile"].pre is not None
+    assert by_name["profile"].post is not None
+    assert by_name["collectives"].post is not None
+    assert by_name["lm"].post is not None
+    assert by_name["cli_trainer"].wall_timeout_s == 1800.0
+    # The gate: no fresh measured OUT -> the trainer must not run.
+    out = tmp_path / "BENCH_capture.json"
+    assert by_name["full_bench"].stdout_path == str(out)
+    assert by_name["cli_trainer"].gate() is False
+    out.write_text('{"unit": "steps/sec/chip"}')
+    assert by_name["cli_trainer"].gate() is True
+    old = time.time() - 3600
+    os.utime(out, (old, old))
+    resumed = supervise._capture_tasks(time.time() - 5, True,
+                                       records_dir=str(tmp_path))
+    assert {t.name: t for t in resumed}["cli_trainer"].gate() is True
+    stale = supervise._capture_tasks(time.time() - 5,
+                                     records_dir=str(tmp_path))
+    assert {t.name: t for t in stale}["cli_trainer"].gate() is False
+    # The env names are read relative to the records dir.
+    monkeypatch.setenv("OUT", "mine.json")
+    renamed = supervise._capture_tasks(start, records_dir=str(tmp_path))
+    assert {t.name: t for t in renamed}["full_bench"].stdout_path == \
+        str(tmp_path / "mine.json")
+    # The rotation predicate, as in JAX.
+    ended = tmp_path / "ended.jsonl"
+    ended.write_text('{"event": "task_done", "task": "headline_bench"}\n'
+                     '{"event": "capture_end", "results": {}}\n')
+    midrun = tmp_path / "midrun.jsonl"
+    midrun.write_text('{"event": "task_done", "task": "headline_bench"}\n')
+    for path in (ended, midrun, tmp_path / "absent.jsonl"):
+        assert supervise._capture_ended(str(path)) == \
+            jsupervise._capture_ended(str(path)) == (path == ended)
+
+
+def test_supervise_capture_tiny_shrinks_every_task(tmp_path):
+    tasks = {t.name: t for t in supervise._capture_tasks(
+        time.time(), records_dir=str(tmp_path), tiny=True)}
+    for name in ("headline_bench", "profile", "lm", "full_bench"):
+        assert "--tiny" in tasks[name].argv
+    argv = tasks["collectives"].argv
+    assert argv[-len(supervise.TINY_COLLECTIVES):] == \
+        supervise.TINY_COLLECTIVES
+    argv = tasks["cli_trainer"].argv
+    assert argv[argv.index("--train_steps") + 1] == "200"
+
+
+def test_supervise_capture_needs_a_records_dir(capsys):
+    with pytest.raises(SystemExit) as e:
+        supervise.main(["--capture"])
+    assert e.value.code == 2
+    assert "--records_dir" in capsys.readouterr().err
+
+
+# A capture over three stub tasks: ``second`` hangs (writing its pid) on
+# its first attempt unless the ``release`` file exists.
+_STUB_DRIVER = """
+import os, sys
+from distributedtensorflowexample_tpu_torch.resilience.supervisor import Task
+from distributedtensorflowexample_tpu_torch.tools import supervise
+
+def tasks(start_ts, full_bench_done_prior=False, *, records_dir, tiny=False):
+    at = lambda name: os.path.join(records_dir, name)
+    body = lambda name: (
+        "import os, time\\n"
+        f"open({at(name + '.ran')!r}, 'a').write('x')\\n"
+        f"open({at(name + '.pid')!r}, 'w').write(str(os.getpid()))\\n"
+        f"while {name == 'second'} and not os.path.exists("
+        f"{at('release')!r}):\\n"
+        "    time.sleep(0.05)\\n"
+        f"print({name!r})\\n")
+    return [Task(n, [sys.executable, "-c", body(n)], priority=p,
+                 stdout_path=at(n + ".out"), stderr_path=at("capture.log"))
+            for n, p in (("first", 10), ("second", 20), ("third", 30))]
+
+supervise._capture_tasks = tasks
+raise SystemExit(supervise.main(sys.argv[1:]))
+"""
+
+
+def test_run_capture_resumes_after_a_death_and_rotates_an_ended_one(
+        tmp_path):
+    records = tmp_path / "records"
+    home = tmp_path / "home"
+    home.mkdir()
+    driver = tmp_path / "driver.py"
+    driver.write_text(_STUB_DRIVER)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("OBS_DIR", "SUPERVISE_JOURNAL", "CAPTURE_PIDFILE")}
+    env.update(HOME=str(home), TMPDIR=str(home),
+               PYTHONPATH=os.pathsep.join(
+                   [REPO, env.get("PYTHONPATH", "")]).rstrip(os.pathsep))
+    argv = [sys.executable, str(driver), "--capture", "--records_dir",
+            str(records), "--seed", "0"]
+    before = set(os.listdir(REPO))
+    journal = records / "supervise_capture.jsonl"
+    events = lambda: [json.loads(l)["event"]
+                      for l in journal.read_text().splitlines()]
+
+    # 1: the supervisor dies (SIGKILL) while ``second`` runs.
+    proc = subprocess.Popen(argv, env=env, cwd=tmp_path,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    deadline = time.time() + 60
+    while not (records / "second.pid").exists():
+        assert time.time() < deadline and proc.poll() is None
+        time.sleep(0.05)
+    proc.kill()
+    proc.communicate(timeout=30)
+    os.killpg(int((records / "second.pid").read_text()), signal.SIGKILL)
+    assert "capture_end" not in events()
+    assert (records / "first.ran").read_text() == "x"
+
+    # 2: the relaunch skips ``first`` and ends the capture.
+    (records / "release").write_text("")
+    done = subprocess.run(argv, env=env, cwd=tmp_path, capture_output=True,
+                          text=True, timeout=120)
+    assert done.returncode == 0, done.stderr
+    assert "first: already done (journal)" in done.stderr
+    assert (records / "first.ran").read_text() == "x"
+    assert (records / "second.ran").read_text() == "xx"
+    assert (records / "third.ran").read_text() == "x"
+    end = json.loads(journal.read_text().splitlines()[-1])
+    assert end["event"] == "capture_end" and end["results"] == {
+        "first": "done_prior", "second": "done", "third": "done"}
+    assert (records / "supervise_capture_flight").is_dir()
+    assert not (records / "capture.pid").exists()
+
+    # 3: an ended capture is rotated, flight dir alongside: all run again.
+    again = subprocess.run(argv, env=env, cwd=tmp_path, capture_output=True,
+                           text=True, timeout=120)
+    assert again.returncode == 0, again.stderr
+    assert "journal rotated" in again.stderr
+    assert (records / "supervise_capture.jsonl.prev").is_file()
+    assert (records / "supervise_capture_flight.prev").is_dir()
+    assert events()[-1] == "capture_end"
+    assert [json.loads(l).get("task") for l in journal.read_text()
+            .splitlines() if json.loads(l)["event"] == "task_done"] == [
+        "first", "second", "third"]
+    assert (records / "first.ran").read_text() == "xx"
+    # Nothing written outside the records dir.
+    assert set(os.listdir(REPO)) == before
+    assert list(home.iterdir()) == []
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "driver.py", "home", "records"]
