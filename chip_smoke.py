@@ -69,6 +69,21 @@ without printing a result:
    lm_small and for ResNet-20 at B=128 (config 4's update, one tape of
    augment draws): loss tapes within 2e-2 relative (all bf16; cuDNN,
    cuBLAS and the CPU round at different places);
+4b. the bytes audit (``utils/profiling.audit_step``), each on a build of
+   its own: (a) config 3 at B=64 without the kernel flags gives the same
+   rows on the card as on the CPU, op, category and bytes, row for row
+   (the dequant impl resolved alike; the one exception, named in
+   ``CPU_ONLY_ROWS``: ``F.one_hot``'s range check, which runs on the CPU
+   only); (b) with the three kernel flags (B=64 and 256) and on lm_base
+   (phase 6's build: the CE pair and the fused apply) each kernel has
+   exactly one row per launch, each row's ``effective_bytes`` is its
+   module's ``bytes_per_launch`` and the launches agree with
+   ``ops/kernels.launch_counts()``; then one ``bytes_audit`` line: for
+   config 3 at B=64 and 256 with and without the flags and lm_base at
+   B=16 x T=128, the raw and effective bytes a step, the shares by
+   category, the effective bytes over ``HBM_BYTES_PER_S`` in us and that
+   floor's share of ``profile_step``'s device busy time (printed, not
+   required: L2 can serve a small working set);
 5. config 3's main path: ``trainer_sync_mnist.main`` on ``cuda`` at full
    width with ``--dequant_impl pallas --pallas_ce --fused_optimizer``,
    launch counters set to 0 just before and read just after; every
@@ -382,9 +397,10 @@ Z. (after P) the serving bench: ``tools.bench_serving --device cuda
    ``serving_bench`` line: the knee (best in-SLO tokens/s), the headline
    tokens/s and p50/p99, the other instruments' values, the wall s;
 HB. (after Z) the harnesses: ``tools.supervise --capture --tiny
-   --records_dir build/chip_smoke_capture`` as a child process, its six
+   --records_dir build/chip_smoke_capture`` as a child process, its seven
    tasks each a child of it (``tools.bench --headline_only --tiny``,
-   ``tools.bench_profile --tiny``, ``tools.bench_collectives`` at 2
+   ``tools.bench_profile --tiny``, ``tools.bytes_audit --device cpu``
+   (ResNet-20 at B=64 on the host), ``tools.bench_collectives`` at 2
    ranks and two sizes, ``tools.bench_lm --tiny``: lm_tiny throughput
    and lm_base's seven knobs over two gloo ranks, ``tools.bench --tiny``
    and ``trainer_sync_mnist`` for 200 steps), with ``tools.ab_quantize
@@ -408,7 +424,14 @@ HB. (after Z) the harnesses: ``tools.supervise --capture --tiny
    shrinks in [1.99, 2], a remat saving in (0, 1)), no kernel launched;
    the profile record's five lines, a trace with device time by kind and
    its tarball, both shares; the collective fit read back at 2 ranks;
-   the trainer's ``final accuracy`` line.  ``ab_quantize``: six variants
+   the trainer's ``final accuracy`` line; the bytes fields: every
+   probe's ``roofline_cost_per_step.bytes_accessed`` and the softmax
+   line's ``cost_per_step.bytes_accessed`` and ``roofline_bytes_ratio``
+   > 0, each profile variant's bytes, intensities, bandwidth rooflines
+   and MFU ceilings > 0 with its top 8 ops, the LM throughput line's
+   ``bytes_audit`` (no top ops) and bandwidth roofline > 0, and the
+   ``bytes_audit_cpu`` record (ResNet-20 on the host, the bandwidth
+   field null).  ``ab_quantize``: six variants
    in order, each > 0 and bitwise ``off``'s first batch, the dequant
    kernel once a step on ``u8_kernel`` alone.  ``bench_scaling``: the
    per-count lines at 1 and 2 ranks and the ``sync_sgd_weak_scaling``
@@ -501,9 +524,9 @@ from distributedtensorflowexample_tpu_torch.ops.kernels import (
 from distributedtensorflowexample_tpu_torch.parallel import launch
 from distributedtensorflowexample_tpu_torch.parallel.mesh import (
     Mesh, make_mesh)
+from distributedtensorflowexample_tpu_torch.tools.bench import HBM_BYTES_PER_S
 from distributedtensorflowexample_tpu_torch.utils import kernel_timing as kt
 
-HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 ROOT = Path(__file__).resolve().parent
 TRAIN_STEPS = 600
@@ -618,8 +641,8 @@ def check_dequant(batch: int, gen: torch.Generator, iters: int,
             f"dequant [{batch}, {shape}] is not bitwise equal to its plain "
             f"version")
     row = int(np.prod(shape))
-    nbytes = batch * row * (1 + 4) + batch * 4 + 2 * 4 * s.numel()
-    b_ms, b_by = bound(nbytes, 2 * batch * row)
+    b_ms, b_by = bound(dq.bytes_per_launch(batch, row, s.numel()),
+                       2 * batch * row)
     kern = lambda i: dq.fused_gather_dequant(images, idx[i], s, b)
     lib = lambda i: torch.addcmul(b, images[idx[i]].float(), s)
     return {"max_abs_err": err, "ms": time_ms(kern, iters),
@@ -651,8 +674,9 @@ def check_ce(batch: int, classes: int, gen: torch.Generator,
     kern_fwd = lambda i: ce.ce_fwd(logits, labels)
     kern_bwd = lambda i: ce.ce_bwd(logits, labels, g)
     n_in = batch * classes
-    fb_ms, fb_by = bound(n_in * 4 + batch * 4 + batch * 4, 6 * n_in)
-    bb_ms, bb_by = bound(n_in * 4 + batch * 8 + n_in * 4, 11 * n_in)
+    fb_ms, fb_by = bound(ce.bytes_per_launch(batch, classes), 6 * n_in)
+    bb_ms, bb_by = bound(ce.bytes_per_launch(batch, classes, backward=True),
+                         11 * n_in)
     fwd = {"max_abs_err": max(v[0] for v in out.values()),
            "ms": time_ms(kern_fwd, iters),
            "plain_ms": time_ms(lambda i: ce.ce_fwd_plain(logits, labels),
@@ -711,7 +735,7 @@ def check_sgd(gen: torch.Generator, iters: int, model: str) -> dict:
         torch._foreach_add_(ps, ms, alpha=-lr)
 
     kern = lambda i: sgd.fused_sgd_apply(*sets[i % 3], lr, mu)
-    b_ms, b_by = bound(20 * n, 4 * n)
+    b_ms, b_by = bound(sgd.bytes_per_launch(n), 4 * n)
     return {"n": n, "max_abs_err": max((pk - pp).abs().max().item(),
                                        (mk - mp).abs().max().item()),
             "ulp_mismatches": int((dp > 0).sum() + (dm > 0).sum()),
@@ -780,6 +804,146 @@ def check_card_against_cpu(model: str) -> dict:
                          f"{rel:.3g} relative (cuda {a}, cpu {b})")
     return {"model": model, "cuda": tapes["cuda"], "cpu": tapes["cpu"],
             "max_rel": rel}
+
+
+#: Phase 4b: config 3's audited batches, and the profiled steps a build.
+AUDIT_BATCHES = (BATCH, 256)
+AUDIT_PROFILE_STEPS, AUDIT_PROFILE_WARMUP = 5, 3
+KERNEL_FLAGS = ["--dequant_impl", "pallas", "--pallas_ce", "true",
+                "--fused_optimizer", "true"]
+#: Rows of config 3's audit that only the CPU gives, as ``(opcode, out)``:
+#: ``F.one_hot`` checks its labels' range on the CPU (a ``min`` and a
+#: ``max`` of the int64 labels in torch 2.11, one ``aminmax`` in 2.13)
+#: and leaves the check to the scatter's device assert on the card.
+CPU_ONLY_ROWS = {("min.default", "s64[]"), ("max.default", "s64[]"),
+                 ("aminmax.default", "(s64[], s64[])")}
+
+
+def config3_spec(batch: int, flags: list, device: str):
+    """Config 3's ``RunSpec`` (``trainer_sync_mnist``'s defaults) at
+    ``batch`` on ``device``, with ``flags``."""
+    from distributedtensorflowexample_tpu_torch.engine import RunSpec
+    from distributedtensorflowexample_tpu_torch.trainers import (
+        trainer_sync_mnist)
+    cfg = trainer_sync_mnist.build_config(
+        ["--device", device, "--dataset", "synthetic", "--batch_size",
+         str(batch)] + flags)
+    return RunSpec("mnist_cnn", "mnist", cfg)
+
+
+def audited(spec, data=None, profile: bool = True) -> tuple:
+    """One build of ``spec``: its device busy ms a step from
+    ``profile_step`` (on the card), then one audited call of the same
+    build, the launch counters set to 0 just before each: ``(summary
+    fields, rows, the audited call's launches, dequant impl)``."""
+    from distributedtensorflowexample_tpu_torch.engine import Engine
+    from distributedtensorflowexample_tpu_torch.utils import profiling as prof
+    device = torch.device(spec.config.device)
+    built = Engine(spec).build(Mesh(device), data=data)
+    kernels.reset_launch_counts()
+    busy = (prof.profile_step(spec, AUDIT_PROFILE_STEPS, AUDIT_PROFILE_WARMUP,
+                              built=built)["device_busy_ms_per_step"]
+            if profile else None)
+    profiled = kernels.launch_counts()
+    audit = prof.BytesAudit()
+    kernels.reset_launch_counts()
+    _, record = prof.audit_step(built.step, built.ds, built.state,
+                                audit=audit)
+    launches = kernels.launch_counts()
+    eff = record["bytes_effective_per_step"]
+    floor_us = eff / HBM_BYTES_PER_S * 1e6
+    fields = {"bytes_per_step": record["bytes_per_step"],
+              "bytes_effective_per_step": eff,
+              "shares": {k: round(v / eff, 4) for k, v in
+                         record["by_category_effective_per_step"].items()},
+              "hbm_floor_us": round(floor_us, 3),
+              "device_busy_ms_per_step": busy,
+              "floor_share_of_busy": (round(floor_us / (busy * 1e3), 4)
+                                      if busy else None),
+              "launches": {"profiled": profiled, "audited": launches}}
+    return fields, audit.rows, launches, built.ds.dequant_impl
+
+
+def check_kernel_rows(what: str, rows: list, launches: dict,
+                      want: dict) -> None:
+    """Each kernel of ``want`` (name -> ``bytes_per_launch``) has one
+    audit row per launch, launched once in the audited call, each row at
+    its bytes; a kernel not in ``want`` has neither."""
+    for name in kernels.WRAPPERS:
+        mine = [r for r in rows if r["opcode"] == name]
+        n = 1 if name in want else 0
+        require(len(mine) == launches[name] == n,
+                f"phase 4b: {what}: {len(mine)} {name} rows, "
+                f"{launches[name]} launches, expected {n}")
+        require(all(r["effective_bytes"] == want[name] for r in mine),
+                f"phase 4b: {what}: {name} rows "
+                f"{[r['effective_bytes'] for r in mine]}, bytes_per_launch "
+                f"{want.get(name)}")
+
+
+def row_diff(a: list, b: list) -> str:
+    """Where two row lists part, for the failure message."""
+    i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+             min(len(a), len(b)))
+    return (f"{len(a)} against {len(b)} rows, first difference at row "
+            f"{i}: {a[i:i + 3]} against {b[i:i + 3]}")
+
+
+def run_bytes_audit_phase(gpu: str) -> None:
+    """Phase 4b: the bytes audit of config 3 on the card against the CPU
+    (a), the kernels' rows (b), and the ``bytes_audit`` line."""
+    from distributedtensorflowexample_tpu_torch.data.device_dataset import (
+        try_quantize)
+    from distributedtensorflowexample_tpu_torch.data.mnist import load_mnist
+    from distributedtensorflowexample_tpu_torch.engine import RunSpec
+    from distributedtensorflowexample_tpu_torch.trainers import trainer_lm
+    x, y = load_mnist("", "train", synthetic_size=60000, source="synthetic")
+    # Stored once as the uint8 split every build would make of it.
+    x8, spec = try_quantize(x)
+    require(spec == "unit", f"phase 4b: the synthetic split quantized to "
+                            f"{spec!r}, not 'unit'")
+    data = (x8, y)
+    line, rows, impl = {}, {}, {}
+    for device in ("cuda", "cpu"):
+        fields, got, launches, impl[device] = audited(
+            config3_spec(BATCH, [], device), data, device == "cuda")
+        rows[device] = got
+        if device == "cuda":
+            line[f"config3_b{BATCH}"] = fields
+            check_kernel_rows(f"config 3 B={BATCH}", got, launches, {})
+    require(impl["cuda"] == impl["cpu"],
+            f"phase 4b (a): dequant auto resolved to {impl['cuda']} on the "
+            f"card, {impl['cpu']} on the CPU")
+    key = lambda rs: [(r["opcode"], r["category"], r["bytes"]) for r in rs
+                      if (r["opcode"], r["out"]) not in CPU_ONLY_ROWS]
+    card, cpu = key(rows["cuda"]), key(rows["cpu"])
+    require(card == cpu, f"phase 4b (a): config 3's audit differs between "
+                         f"the card and the CPU: {row_diff(card, cpu)}")
+    require(len(card) == len(rows["cuda"]),
+            f"phase 4b (a): the card gave a CPU-only row {CPU_ONLY_ROWS}")
+    for batch in AUDIT_BATCHES:
+        for tag, flags in (("", []), ("_kernels", KERNEL_FLAGS)):
+            if batch == BATCH and not flags:
+                continue
+            fields, got, launches, _ = audited(
+                config3_spec(batch, flags, "cuda"), data)
+            check_kernel_rows(
+                f"config 3 B={batch}{tag}", got, launches,
+                {"dequant": dq.bytes_per_launch(batch, 28 * 28, 1),
+                 "ce_fwd": ce.bytes_per_launch(batch, 10),
+                 "ce_bwd": ce.bytes_per_launch(batch, 10, backward=True),
+                 "sgd": sgd.bytes_per_launch(CNN_PARAMS)} if flags else {})
+            line[f"config3_b{batch}{tag}"] = fields
+    size, cfg = trainer_lm.build_config(LM_ARGV)
+    fields, got, launches, _ = audited(RunSpec(size, "lm", cfg))
+    tokens = LM_BATCH * 128
+    check_kernel_rows(f"{LM_SIZE} B={LM_BATCH}", got, launches, {
+        "ce_fwd": ce.bytes_per_launch(tokens, 250),
+        "ce_bwd": ce.bytes_per_launch(tokens, 250, backward=True),
+        "sgd": sgd.bytes_per_launch(LM_PARAMS)})
+    line[f"{LM_SIZE}_b{LM_BATCH}_t128_kernels"] = fields
+    print(json.dumps({"bytes_audit": line, "hbm_bytes_per_s": HBM_BYTES_PER_S,
+                      "gpu": gpu}), flush=True)
 
 
 def check_loss_tape(summary: dict, text: str) -> None:
@@ -4311,8 +4475,8 @@ HB_SCALING_ARGV = ["--device", "cuda", "--max_devices", str(MR_RANKS),
                    "--steps", "16"]
 CAPTURE_ROOT = ROOT / "build" / "chip_smoke_capture"
 #: ``supervise --capture``'s queue, by priority.
-CAPTURE_TASKS = ("headline_bench", "profile", "collectives", "lm",
-                 "full_bench", "cli_trainer")
+CAPTURE_TASKS = ("headline_bench", "profile", "bytes_audit_cpu",
+                 "collectives", "lm", "full_bench", "cli_trainer")
 PROFILE_LINES = ("resnet20_profile_augment", "resnet20_traced_window",
                  "resnet20_profile_no_augment", "resnet20_roofline",
                  "resnet20_attribution")
@@ -4338,8 +4502,9 @@ def zero_launches(counts: dict, what: str) -> None:
 def check_bench_record(text: str, gpu: str) -> tuple:
     """``tools.bench --tiny``'s record (the capture's ``full_bench``):
     every line in order, each line's launches = its steps with each
-    kernel, ``vs_roofline``, ResNet-20's MFU.  Returns (launches by path,
-    rates, the headline's detail, the MFU)."""
+    kernel, ``vs_roofline``, ResNet-20's MFU, the audited bytes a step.
+    Returns (launches by path, rates, the headline's detail, the MFU, the
+    softmax line's ``roofline_bytes_ratio``)."""
     lines = json_lines(text)
     require(lines and lines[0]["detail"].get("provisional") is True,
             f"phase HB: first line {lines[:1]}")
@@ -4371,7 +4536,19 @@ def check_bench_record(text: str, gpu: str) -> tuple:
             f"{head.get('dequant_ab')} {head.get('errors')}")
     mfu = lines[0]["detail"]["mfu"]
     require(mfu is not None and 0 < mfu <= 1, f"phase HB: ResNet-20 mfu {mfu}")
-    return launches, rates, head, mfu
+    # The bytes a step of the audited builds: every probe's, and the
+    # softmax line's measured step with the ratio to its probe.
+    for l in lines:
+        cost = l["detail"].get("roofline_cost_per_step")
+        require(cost is None or cost.get("bytes_accessed", 0) > 0,
+                f"phase HB: {l['metric']} probe cost {cost}")
+    soft = next(l["detail"] for l in lines
+                if l["metric"].startswith("mnist_soft"))
+    require(soft["cost_per_step"].get("bytes_accessed", 0) > 0
+            and soft.get("roofline_bytes_ratio", 0) > 0,
+            f"phase HB: softmax cost {soft.get('cost_per_step')} "
+            f"{soft.get('roofline_bytes_ratio')}")
+    return launches, rates, head, mfu, soft["roofline_bytes_ratio"]
 
 
 def check_lm_record(path: Path, gpu: str) -> tuple:
@@ -4387,6 +4564,12 @@ def check_lm_record(path: Path, gpu: str) -> tuple:
                 f"phase HB: {r['metric']} = {r['value']}")
     tput, mfu = by["lm_tiny_tokens_per_sec_per_chip"], by["lm_tiny_mfu"]
     zero_launches(tput["detail"]["launches"], "bench_lm's throughput")
+    audit = tput["detail"].get("bytes_audit") or {}
+    require(audit.get("bytes_effective_per_step", 0) > 0
+            and "top_ops" not in audit
+            and tput["detail"]["bw_roofline_effective_steps_per_sec"] > 0
+            and tput["detail"]["arith_intensity_effective"] > 0,
+            f"phase HB: lm throughput bytes {audit}")
     launches = {"lm:lm_tiny_throughput": [tput["detail"]["launches"]]}
     d = by[f"{LM_SIZE}_knob_ab_matrix"]["detail"]
     require(d["devices"] == MR_RANKS and d["backend"] == "gloo"
@@ -4413,6 +4596,9 @@ def check_lm_record(path: Path, gpu: str) -> tuple:
     saving = by[f"{LM_SIZE}_remat_activation_savings_frac"]["value"]
     require(0 < saving < 1, f"phase HB: remat saving {saving}")
     return {"tokens_per_sec": tput["value"], "mfu": mfu["value"],
+            "bytes_effective_per_step": audit["bytes_effective_per_step"],
+            "bw_roofline_effective_steps_per_sec":
+                tput["detail"]["bw_roofline_effective_steps_per_sec"],
             "remat_saving": saving,
             "zero3_overlap_speedup_x":
                 by[f"{LM_SIZE}_zero3_overlap_speedup_x"]["value"],
@@ -4437,12 +4623,22 @@ def check_profile_record(path: Path, tgz: Path) -> tuple:
             and {"augment_share", "input_dispatch_share"}
             <= set(attr["detail"]),
             f"phase HB: profile {window} {attr} {tgz.is_file()}")
-    launches = {}
+    launches, bytes_fields = {}, {}
     for tag in ("augment", "no_augment"):
         d = by[f"resnet20_profile_{tag}"]["detail"]
         zero_launches(d["launches"], f"bench_profile's {tag}")
         launches[f"profile:{tag}"] = [d["launches"]]
+        keys = ("bytes_per_step", "arith_intensity_flop_per_byte",
+                "arith_intensity_effective", "bw_roofline_steps_per_sec",
+                "bw_roofline_effective_steps_per_sec", "mfu_ceiling_at_bw",
+                "mfu_ceiling_at_bw_effective")
+        require(all((d.get(k) or 0) > 0 for k in keys)
+                and len(d["bytes_audit"]["top_ops"]) == 8,
+                f"phase HB: bench_profile's {tag} bytes fields "
+                f"{ {k: d.get(k) for k in keys} }")
+        bytes_fields[tag] = {k: d[k] for k in keys}
     return {"rates": {r["metric"]: r["value"] for r in recs},
+            "bytes": bytes_fields,
             "shares": {k: attr["detail"][k] for k in
                        ("augment_share", "input_dispatch_share")},
             "device_us_by_kind": window["device_us_per_step_by_kind"]}, \
@@ -4458,7 +4654,7 @@ def check_capture(gpu: str) -> tuple:
     require(done == list(CAPTURE_TASKS) and end.get("event") == "capture_end"
             and end["results"] == dict.fromkeys(CAPTURE_TASKS, "done"),
             f"phase HB: capture journal {done} {end}")
-    launches, rates, head, mfu = check_bench_record(
+    launches, rates, head, mfu, bytes_ratio = check_bench_record(
         (CAPTURE_ROOT / "BENCH_capture.json").read_text(), gpu)
     headline = json_lines(
         (CAPTURE_ROOT / "BENCH_headline_capture.json").read_text())[-1]
@@ -4481,6 +4677,14 @@ def check_capture(gpu: str) -> tuple:
             f"phase HB: the capture's collective fit {fit}")
     cli = (CAPTURE_ROOT / "CLI_capture.log").read_text()
     require("final accuracy:" in cli, f"phase HB: cli_trainer {cli[-500:]}")
+    rec = json.loads((CAPTURE_ROOT / "BYTES_AUDIT_capture.json").read_text())
+    require(rec["workload"] == "resnet20" and rec["device"]["platform"]
+            == "cpu" and rec["audit"]["bytes_effective_per_step"] > 0
+            and rec["bw_roofline_effective_steps_per_sec"] is None,
+            f"phase HB: bytes_audit_cpu {rec.get('workload')} "
+            f"{rec.get('device')} {rec.get('audit', {}).get('bytes_per_step')}")
+    bytes_cpu = {k: rec["audit"][k] for k in (
+        "bytes_per_step", "bytes_effective_per_step")}
     launches.update(lm_launches)
     launches.update(profile_launches)
     return {"steps_per_sec_per_chip": rates,
@@ -4488,6 +4692,8 @@ def check_capture(gpu: str) -> tuple:
             "headline_dequant": head["dequant"],
             "headline_vs_roofline": head["vs_roofline"],
             "headline_dequant_ab": head["dequant_ab"], "resnet20_mfu": mfu,
+            "roofline_bytes_ratio_softmax": bytes_ratio,
+            "bytes_audit_cpu_resnet20_b64": bytes_cpu,
             "lm": lm, "profile": profile, "psum_fit": fit}, launches
 
 
@@ -4665,6 +4871,8 @@ def main() -> int:
         print(json.dumps({"card_vs_cpu_5_steps":
                           check_card_against_cpu(model)}), flush=True)
     lap("4")
+    run_bytes_audit_phase(gpu)
+    lap("4b")
 
     result, counts = run_main_path(gpu)
     print(json.dumps({"main_path": result}), flush=True)

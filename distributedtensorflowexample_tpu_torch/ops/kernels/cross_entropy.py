@@ -23,7 +23,7 @@ import functools
 import numpy as np
 import torch
 
-from distributedtensorflowexample_tpu_torch.ops.kernels import build
+from distributedtensorflowexample_tpu_torch.ops.kernels import build, charge
 
 _FWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                  ctypes.c_int, ctypes.c_float, ctypes.c_float,
@@ -41,6 +41,19 @@ def _smoothing_constants(smoothing: float, classes: int):
     s = float(smoothing)
     return (float(np.float32(1.0 - s)), float(np.float32(s)),
             float(np.float32(s / classes)))
+
+
+def bytes_per_launch(batch: int, classes: int,
+                     backward: bool = False) -> int:
+    """The bytes one launch moves: the forward reads the float32 logits
+    and the int32 labels and writes a float32 loss a row; the backward
+    reads the logits, the labels and the upstream float32 gradient a row
+    and writes float32 dlogits.  The kernels' bounds (``chip_smoke.py``)
+    and their rows in the bytes audit."""
+    logits = batch * classes * 4
+    if backward:
+        return logits + batch * 8 + logits
+    return logits + batch * 4 + batch * 4
 
 
 def ce_fwd_plain(logits: torch.Tensor, labels: torch.Tensor,
@@ -103,6 +116,8 @@ def ce_fwd(logits: torch.Tensor, labels: torch.Tensor,
               build.stream_of(logits))
     build.check("cross_entropy", code)
     ce_fwd.launches += 1
+    charge("ce_fwd", "reduce", (logits, labels), (loss,),
+           bytes_per_launch(batch, classes))
     return loss
 
 
@@ -126,6 +141,8 @@ def ce_bwd(logits: torch.Tensor, labels: torch.Tensor, g: torch.Tensor,
               dlogits.data_ptr(), build.stream_of(logits))
     build.check("cross_entropy", code)
     ce_bwd.launches += 1
+    charge("ce_bwd", "reduce", (logits, labels, g), (dlogits,),
+           bytes_per_launch(batch, classes, backward=True))
     return dlogits
 
 

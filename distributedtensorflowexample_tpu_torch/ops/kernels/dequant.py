@@ -14,7 +14,7 @@ import ctypes
 
 import torch
 
-from distributedtensorflowexample_tpu_torch.ops.kernels import build
+from distributedtensorflowexample_tpu_torch.ops.kernels import build, charge
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
@@ -33,6 +33,14 @@ def vector_path(row_len: int, images_ptr: int, out_ptr: int) -> bool:
     path, one byte per thread."""
     return (row_len % VECTOR_BYTES == 0 and images_ptr % VECTOR_BYTES == 0
             and out_ptr % VECTOR_BYTES == 0)
+
+
+def bytes_per_launch(batch: int, row_len: int, channels: int) -> int:
+    """The bytes one launch moves: each gathered uint8 byte read and its
+    float32 written (5 a sample element), the int32 row ids, and the
+    float32 ``scale`` and ``bias`` of ``channels``.  The kernel's bound
+    (``chip_smoke.py``) and its rows in the bytes audit."""
+    return batch * row_len * (1 + 4) + batch * 4 + 2 * 4 * channels
 
 
 def gather_dequant_plain(images: torch.Tensor, idx: torch.Tensor,
@@ -88,6 +96,8 @@ def fused_gather_dequant(images: torch.Tensor, idx: torch.Tensor,
               build.stream_of(images))
     build.check("dequant", code)
     fused_gather_dequant.launches += 1
+    charge("dequant", "gather", (images, idx, scale, bias), (out,),
+           bytes_per_launch(batch, row_len, channels))
     return out
 
 

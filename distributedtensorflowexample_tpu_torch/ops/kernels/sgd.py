@@ -23,10 +23,17 @@ import ctypes
 import numpy as np
 import torch
 
-from distributedtensorflowexample_tpu_torch.ops.kernels import build
+from distributedtensorflowexample_tpu_torch.ops.kernels import build, charge
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int64, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+
+
+def bytes_per_launch(n: int) -> int:
+    """The bytes one launch over ``n`` float32 parameters moves: ``p``,
+    ``m`` and ``g`` read, ``p`` and ``m`` written (20 a parameter).  The
+    kernel's bound (``chip_smoke.py``) and its rows in the bytes audit."""
+    return 20 * n
 
 
 def sgd_plain(p: torch.Tensor, m: torch.Tensor, g: torch.Tensor,
@@ -63,6 +70,8 @@ def fused_sgd_apply(p: torch.Tensor, m: torch.Tensor, g: torch.Tensor,
               float(lr), float(mu), build.stream_of(p))
     build.check("sgd", code)
     fused_sgd_apply.launches += 1
+    charge("sgd", "elementwise", (p, m, g), (p, m),
+           bytes_per_launch(p.numel()))
 
 
 fused_sgd_apply.launches = 0

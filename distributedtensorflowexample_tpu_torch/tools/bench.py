@@ -61,9 +61,14 @@ Where the port differs from the JAX harness, on purpose:
   line carries ``detail.device`` (``bench_ratchet.describe_device``: the
   card's name and power limit) and ``detail.platform``.
 - (d) **FLOPs from the shapes** (``utils/flops.py``), not XLA's
-  ``cost_analysis``: ``roofline_cost_per_step`` and ``cost_per_step``
-  hold ``flops`` only; ``bytes_accessed`` and ``roofline_bytes_ratio``
-  (XLA figures) are left out.  MFU is FLOPs a step x steps/s a card over
+  ``cost_analysis``, and **bytes from the dispatched ops**:
+  ``roofline_cost_per_step`` and ``cost_per_step`` hold ``flops`` and
+  ``bytes_accessed``, the raw bytes a step of
+  ``utils/profiling.audit_step`` (every aten op's inputs at full size
+  plus its outputs, XLA's convention), each taken on a build of its own
+  (one call, after the line's measurement, never the timed state), and
+  ``roofline_bytes_ratio`` is the probe's bytes over the measured step's,
+  as in JAX.  MFU is FLOPs a step x steps/s a card over
   :data:`PEAK_FLOPS`, the H100 SXM dense bf16 tensor-core peak (the
   record names it and its source); on the CPU ``mfu`` is null.
 - (e) **Kernel launches by line.**  Each line's ``detail.launches``
@@ -89,6 +94,7 @@ Where the port differs from the JAX harness, on purpose:
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import signal
@@ -103,6 +109,10 @@ REPEATS = 3
 PEAK_FLOPS = 989.4e12
 PEAK_FLOPS_SOURCE = ("NVIDIA H100 SXM data sheet: dense BF16 tensor-core "
                      "peak, 989.4 TFLOP/s, at 700 W")
+#: The H100 SXM5 80GB's HBM3 rate, bytes/s (NVIDIA's data sheet): the
+#: bandwidth floor's denominator (``tools.bytes_audit``, the harnesses'
+#: ``bw_roofline_*`` fields, ``chip_smoke.py``'s kernel bounds).
+HBM_BYTES_PER_S = 3.35e12
 
 # Workload sizing, module-level so tests and --tiny shrink the same
 # main() path (the JAX harness's bench.py:46-58).
@@ -299,7 +309,9 @@ def _roofline_probe(mesh, batch_per_chip: int, length: int = 256,
     The gap between this and the measured path is input and per-call
     overhead.  Run in the same process as the measurement it
     calibrates.  ``cost_out`` gets the per-step ``flops`` from the
-    shapes (``utils/flops.py``)."""
+    shapes (``utils/flops.py``) and ``bytes_accessed``, the raw bytes of
+    one step body audited on a state of its own
+    (``utils/profiling.audit_step``)."""
     import torch
 
     from distributedtensorflowexample_tpu_torch.config import RunConfig
@@ -315,19 +327,25 @@ def _roofline_probe(mesh, batch_per_chip: int, length: int = 256,
     from distributedtensorflowexample_tpu_torch.utils.flops import (
         train_flops_per_step)
 
+    from distributedtensorflowexample_tpu_torch.utils.profiling import (
+        audit_step)
+
     global_batch = batch_per_chip * mesh.size
     x, y = make_synthetic(global_batch, sample, 10, seed=0)
     batch = {"image": torch.from_numpy(x).to(mesh.device),
              "label": torch.from_numpy(y).to(mesh.device)}
     cfg = RunConfig(batch_size=batch_per_chip, seed=0, learning_rate=lr,
                     momentum=momentum)
-    state = TrainState.create(build_model(model_name, dropout=0.5,
-                                          mesh=mesh),
-                              lambda m: build_optimizer(cfg, m), 0,
-                              mesh.device, mesh=mesh)
+    fresh_state = lambda: TrainState.create(
+        build_model(model_name, dropout=0.5, mesh=mesh),
+        lambda m: build_optimizer(cfg, m), 0, mesh.device, mesh=mesh)
+    state = fresh_state()
     inner = _build_step_fn(mesh=mesh)
     if cost_out is not None:
-        cost_out["flops"] = train_flops_per_step(model_name, global_batch)
+        flops = train_flops_per_step(model_name, global_batch)
+        cost_out.update(audit_step(
+            lambda st, b: (st, inner(st, b)), itertools.repeat(batch),
+            fresh_state(), flops=flops)[0])
 
     def probe() -> dict:
         metrics: dict = {}
@@ -572,6 +590,8 @@ def _main_run(args, errors: dict, held_headline: dict, ctx: dict,
         _platform, describe_device)
     from distributedtensorflowexample_tpu_torch.utils.flops import (
         train_flops_per_step)
+    from distributedtensorflowexample_tpu_torch.utils.profiling import (
+        audit_step)
 
     obs_recorder.maybe_install(sigterm=False)
     obs_ledger.maybe_begin("bench", config={
@@ -631,11 +651,21 @@ def _main_run(args, errors: dict, held_headline: dict, ctx: dict,
             detail["vs_roofline"] = round(best / max(roof), 4)
         if cost:
             detail["roofline_cost_per_step"] = cost
+            # With the measured step's bytes also present, the bytes
+            # ratio bounds the bandwidth-bound share of the vs_roofline
+            # gap in the same window (the JAX line's).
+            mcost = detail.get("cost_per_step") or {}
+            if mcost.get("bytes_accessed") and cost.get("bytes_accessed"):
+                detail["roofline_bytes_ratio"] = round(
+                    cost["bytes_accessed"] / mcost["bytes_accessed"], 4)
 
     def run_simple(metric, model, dataset, batch_per_chip, unroll, steps,
                    extra_detail=None, roofline_kw=None, attach_cost=False,
                    **make_kw):
-        """Build, measure and emit one workload's line."""
+        """Build, measure and emit one workload's line.  ``attach_cost``
+        adds the measured step's per-step flops and bytes, audited on a
+        build of its own (through the line, so its steps count), after
+        the measurement."""
         line = _Line(on_card)
         step, ds, state, u = line.make(model, dataset, batch_per_chip,
                                        unroll, mesh, dequant_impl=DEQUANT,
@@ -645,10 +675,17 @@ def _main_run(args, errors: dict, held_headline: dict, ctx: dict,
                   "batch_per_chip": batch_per_chip,
                   "dequant": ds.dequant_impl or "none",
                   **(extra_detail or {}), **shared}
-        line.attach(detail)
+        cost: dict = {}
         if attach_cost:
-            detail["cost_per_step"] = {"flops": train_flops_per_step(
-                model, batch_per_chip * mesh.size)}
+            def audit():
+                own = line.make(model, dataset, batch_per_chip, 1, mesh,
+                                dequant_impl=DEQUANT, **make_kw)
+                cost.update(audit_step(*own[:3], flops=train_flops_per_step(
+                    model, batch_per_chip * mesh.size))[0])
+            attempt(f"cost_{metric}", audit)
+        line.attach(detail)
+        if cost:
+            detail["cost_per_step"] = cost
         if roofline_kw is not None:
             attach_roofline(detail, best, f"roofline_{metric}",
                             batch_per_chip, **roofline_kw)

@@ -59,11 +59,15 @@ Where the port differs from the JAX harness, on purpose:
   ``tools/bench_collectives.choose_backend`` (NCCL with a card a rank,
   else gloo: ranks sharing one card say so, ``backend``, ``host_staged``,
   ``num_chips``).  A knob's rate is its slowest rank's.
-- (c) **No XLA audits.**  The JAX lines' ``bytes_audit``,
-  ``bw_roofline_*``, ``arith_intensity_effective`` and
-  ``cost_analysis_flops_*`` fields decompose XLA's ``cost_analysis`` and
-  are left out (the lines' ``note`` says so); the FLOPs come from the
-  shapes.  The compiler's ``temp_bytes`` becomes ``activation_bytes``:
+- (c) **No XLA audits.**  The JAX lines' ``cost_analysis_flops_*``
+  field is XLA's ``cost_analysis`` and is left out (the lines' ``note``
+  says so); the FLOPs come from the shapes.  The throughput line's
+  ``bytes_audit`` (its ``top_ops`` left out, as in JAX),
+  ``bw_roofline_effective_steps_per_sec`` (``tools.bench.HBM_BYTES_PER_S``
+  over the effective bytes a step; null on the CPU) and
+  ``arith_intensity_effective`` come from ``utils/profiling.audit_step``:
+  one call of a build of its own, made after the timed windows.  The
+  compiler's ``temp_bytes`` becomes ``activation_bytes``:
   the distinct storages ``torch.autograd.graph.saved_tensors_hooks`` sees
   packed in one step, parameters excluded (under ``remat`` the
   checkpointed blocks' inputs, which the checkpoint holds by reference,
@@ -101,10 +105,8 @@ KNOBS = {
 #: the matrix stays at lm_base, over two ranks.
 TINY = {"throughput_size": "lm_tiny", "steps": 4, "unroll": 2,
         "repeats": 1, "ab_steps": 1, "ab_repeats": 1, "devices": 2}
-NOTE_AUDITS = ("the JAX line's bytes_audit, bw_roofline_* and "
-               "cost_analysis fields decompose XLA's cost_analysis and are "
-               "left out; FLOPs are counted from the shapes "
-               "(utils/flops.py)")
+NOTE_AUDITS = ("the JAX line's cost_analysis FLOPs are left out; FLOPs are "
+               "counted from the shapes (utils/flops.py)")
 
 
 def _emit(metric: str, value: float, unit: str, detail: dict,
@@ -329,6 +331,8 @@ def run_throughput(args, device: dict, lines: list) -> None:
     from distributedtensorflowexample_tpu_torch.tools import bench
     from distributedtensorflowexample_tpu_torch.utils.flops import (
         train_flops_per_step)
+    from distributedtensorflowexample_tpu_torch.utils.profiling import (
+        audit_step)
 
     mesh = make_mesh(args.device)
     size = args.throughput_size
@@ -338,10 +342,20 @@ def run_throughput(args, device: dict, lines: list) -> None:
         seed=args.seed)
     best, rates, state = _rate(step, ds, state, args.steps, args.unroll,
                                args.repeats)
+    token_storage = str(ds.images.dtype).replace("torch.", "")
+    del step, ds, state
+    _free(mesh.device)
+    # The bytes of one step, on a build of its own (after the windows).
+    flops = train_flops_per_step(size, args.batch_per_chip, args.seq_len)
+    own = _build(size, mesh, args.batch_per_chip, args.seq_len, 1,
+                 seed=args.seed)
+    _, audit = audit_step(*own[:3], flops=flops)
+    del own
+    _free(mesh.device)
     from distributedtensorflowexample_tpu_torch.obs.anomaly import (
         spread_fraction)
     tokens_per_step = global_batch * args.seq_len
-    flops = train_flops_per_step(size, args.batch_per_chip, args.seq_len)
+    eff = audit["bytes_effective_per_step"]
     detail = {
         "platform": "gpu" if args.device == "cuda" else "cpu",
         "devices": mesh.size, "num_chips": mesh.num_chips, "size": size,
@@ -349,13 +363,19 @@ def run_throughput(args, device: dict, lines: list) -> None:
         "unroll": args.unroll, "tokens_per_step": tokens_per_step,
         "steps_per_sec": round(best, 4), "repeats": rates,
         "spread_frac": round(spread_fraction(rates), 4),
-        "token_storage": str(ds.images.dtype).replace("torch.", ""),
+        "token_storage": token_storage,
         "model_flops_per_step_per_device": flops,
         "model_flops_per_sec_per_device": round(flops * best),
         "launches": _launches_are_zero(), "device": device,
         "note": NOTE_AUDITS,
     }
     mfu_detail = dict(detail)
+    detail["bytes_audit"] = {k: v for k, v in audit.items()
+                             if k != "top_ops"}
+    detail["bw_roofline_effective_steps_per_sec"] = (
+        round(bench.HBM_BYTES_PER_S / eff, 2) if args.device == "cuda"
+        else None)
+    detail["arith_intensity_effective"] = round(flops / eff, 3)
     mfu_detail.update(
         peak_flops=bench.PEAK_FLOPS, peak_flops_source=bench.PEAK_FLOPS_SOURCE,
         note=("MFU = the rank's FLOPs a step (utils/flops.py) x its steps/s "
@@ -368,8 +388,6 @@ def run_throughput(args, device: dict, lines: list) -> None:
           detail, lines)
     _emit(f"{size}_mfu", flops * best / bench.PEAK_FLOPS,
           "fraction of PEAK_FLOPS", mfu_detail, lines)
-    del step, ds, state
-    _free(mesh.device)
 
 
 def run_ab_matrix(args, device: dict, lines: list, errors: dict) -> None:

@@ -35,14 +35,23 @@ trace), empty on the CPU.  No ``AnomalyHook`` runs in this process (the
 bench drives the step without the training loop), so the window cannot
 fire a ``step_time_regression``.
 
+Each variant's line has the JAX bytes fields: ``bytes_per_step`` (raw)
+and ``bytes_audit`` (its top 8 ops) of ``utils/profiling.audit_step``,
+one call of a build of the variant's own made after its measurement (the
+timed state is never audited), ``arith_intensity_flop_per_byte`` and
+``arith_intensity_effective`` (FLOPs over raw and effective bytes),
+``bw_roofline_steps_per_sec`` and ``bw_roofline_effective_steps_per_sec``
+(``tools.bench.HBM_BYTES_PER_S`` over those bytes) and
+``mfu_ceiling_at_bw`` / ``_effective`` (the MFU a step at that rate
+would reach); the bandwidth fields are null on the CPU.
+
 Where the port differs from the JAX harness, on purpose: no backend
 probe and no watchdog (``--device cuda`` with no card prints the
 unavailable attribution line and exits 1, never the CPU in its place);
-the per-variant ``bytes_per_step``, ``bytes_audit``, ``bw_roofline_*``,
-``arith_intensity_*`` and ``mfu_ceiling_*`` fields decompose XLA's
-``cost_analysis`` and are left out (the detail's ``note`` says so); MFU
-is ``utils/flops.py``'s count a step times the rate over
-``tools.bench.PEAK_FLOPS`` (null on the CPU).  Each line carries
+the FLOPs are counted from the shapes (``utils/flops.py``), not taken
+from XLA's ``cost_analysis`` (the detail's ``note`` says so); MFU is
+that count a step times the rate over ``tools.bench.PEAK_FLOPS`` (null
+on the CPU).  Each line carries
 ``detail.device`` and the variant's kernel launches (none: the step runs
 the default ``--dequant_impl auto``, the CE pair and the fused optimizer
 off, as in JAX).
@@ -58,10 +67,8 @@ import tempfile
 import time
 import traceback
 
-NOTE_AUDITS = ("the JAX line's bytes_per_step, bytes_audit, bw_roofline_*, "
-               "arith_intensity_* and mfu_ceiling_* fields decompose XLA's "
-               "cost_analysis and are left out; flops_per_step is counted "
-               "from the shapes (utils/flops.py)")
+NOTE_AUDITS = ("flops_per_step is counted from the shapes (utils/flops.py), "
+               "not taken from XLA's cost_analysis")
 
 
 def _emit(metric: str, value: float, detail: dict, unit: str =
@@ -100,6 +107,29 @@ def attribution(rates: dict, errors: dict) -> dict | None:
                       if both else 0.0),
             "unit": "measured/roofline", "vs_baseline": 1.0,
             "detail": detail}
+
+
+def bytes_fields(step, ds, state, flops: int, on_card: bool) -> dict:
+    """The JAX variant line's bytes fields from one audited call of
+    ``step`` (a build of its own): raw and effective bytes a step, the
+    arithmetic intensities and, on the card, the bandwidth rooflines and
+    the MFU ceilings at them."""
+    from distributedtensorflowexample_tpu_torch.tools import bench
+    from distributedtensorflowexample_tpu_torch.utils.profiling import (
+        audit_step)
+    cost, audit = audit_step(step, ds, state, flops=flops, top_k=8)
+    out = {}
+    for suffix, nbytes in (("", cost["bytes_accessed"]),
+                           ("_effective", audit["bytes_effective_per_step"])):
+        rate = bench.HBM_BYTES_PER_S / nbytes if on_card else None
+        out[f"arith_intensity{suffix or '_flop_per_byte'}"] = round(
+            flops / nbytes, 2)
+        out[f"bw_roofline{suffix}_steps_per_sec"] = (
+            round(rate, 1) if on_card else None)
+        out[f"mfu_ceiling_at_bw{suffix}"] = (
+            round(rate * flops / bench.PEAK_FLOPS, 5) if on_card else None)
+    return {"bytes_per_step": cost["bytes_accessed"], "bytes_audit": audit,
+            **out}
 
 
 def traced_call(step, ds, state, trace_dir: str, device) -> tuple:
@@ -216,6 +246,9 @@ def main(argv: list[str] | None = None) -> int:
                   "batch_per_chip": args.batch_per_chip,
                   "dequant": ds.dequant_impl or "none", "device": device,
                   "note": NOTE_AUDITS}
+        attempt(f"bytes_{tag}", lambda: detail.update(bytes_fields(
+            *line.make("resnet20", "cifar10", args.batch_per_chip, 1, mesh,
+                       augment=aug, lr=0.1)[:3], flops, on_card)))
         line.attach(detail)
         _emit(f"resnet20_profile_{tag}", best / n, detail)
         return step, ds, state, u

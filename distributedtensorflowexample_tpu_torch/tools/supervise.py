@@ -33,6 +33,9 @@ phases over the port's ``tools``):
   profile         tools.bench_profile --trace_dir  -> PROFILE_OUT; the
                   stale trace removed first, the trace tarred to
                   TRACE_TGZ after when it is <= 25 MB
+  bytes_audit_cpu tools.bytes_audit --device cpu --workload resnet20
+                  BYTES_ARGS --json                -> BYTES_OUT; needs
+                  no card, so a wedge verdict does not skip it
   collectives     tools.bench_collectives --json   -> COLLECTIVES_OUT
   lm              tools.bench_lm --json            -> LM_OUT
   full_bench      tools.bench                      -> OUT
@@ -42,12 +45,11 @@ phases over the port's ``tools``):
 
 The ``--json`` artifacts are written to ``<name>.tmp`` and promoted after
 a clean exit (an empty one is dropped), so a killed attempt never
-clobbers an earlier record.  The JAX queue's ``bytes_audit_cpu`` task is
-left out: ``tools/bytes_audit.py`` decomposes XLA's ``cost_analysis``,
-which has no PyTorch counterpart (the FLOPs come from the shapes,
-``utils/flops.py``).  The env names OUT, OUT_HEADLINE, PROFILE_OUT,
-COLLECTIVES_OUT, LM_OUT, TRACE_TGZ, CLI_OUT, TRACE_DIR and LOG (the
-children's stderr) are the JAX surface, read relative to
+clobbers an earlier record.  BYTES_ARGS (the JAX default ``--batch_per_chip
+256 --unroll 1``; ``--tiny``: batch 64) are the audit's flags.  The env
+names OUT, OUT_HEADLINE, PROFILE_OUT, BYTES_OUT, COLLECTIVES_OUT, LM_OUT,
+TRACE_TGZ, CLI_OUT, TRACE_DIR and LOG (the children's stderr) are the
+JAX surface, read relative to
 ``--records_dir``; their defaults are the port's own names there, never
 the JAX defaults (files that stand at the repo root).  The journal
 (SUPERVISE_JOURNAL, default ``<records_dir>/supervise_capture.jsonl``)
@@ -88,6 +90,10 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 #: The collectives task's sweep under ``--tiny``.
 TINY_COLLECTIVES = ["--submeshes", "2", "--sizes", "4096,4194304",
                     "--repeats", "3"]
+#: The bytes audit task's flags (BYTES_ARGS; the JAX default, and the
+#: ``--tiny`` batch).
+BYTES_ARGS = "--batch_per_chip 256 --unroll 1"
+TINY_BYTES_ARGS = "--batch_per_chip 64 --unroll 1"
 #: The trainer task's steps (``--tiny``: 200).
 CLI_STEPS, TINY_CLI_STEPS = 5000, 200
 
@@ -122,6 +128,7 @@ def _capture_tasks(start_ts: float, full_bench_done_prior: bool = False, *,
     out = at("OUT", "BENCH_capture.json")
     out_headline = at("OUT_HEADLINE", "BENCH_headline_capture.json")
     profile_out = at("PROFILE_OUT", "PROFILE_capture.json")
+    bytes_out = at("BYTES_OUT", "BYTES_AUDIT_capture.json")
     collectives_out = at("COLLECTIVES_OUT", "BENCH_collectives_capture.json")
     lm_out = at("LM_OUT", "BENCH_lm_capture.json")
     trace_tgz = at("TRACE_TGZ", "resnet_trace_capture.tgz")
@@ -129,6 +136,8 @@ def _capture_tasks(start_ts: float, full_bench_done_prior: bool = False, *,
     trace_dir = at("TRACE_DIR", "resnet_trace")
     small = ["--tiny"] if tiny else []
     tool = lambda name: [py, "-m", f"{_PKG}.tools.{name}"]
+    bytes_args = env.get("BYTES_ARGS", TINY_BYTES_ARGS if tiny
+                         else BYTES_ARGS).split()
 
     def tar_trace() -> None:
         if not os.path.isdir(trace_dir):
@@ -179,6 +188,12 @@ def _capture_tasks(start_ts: float, full_bench_done_prior: bool = False, *,
                          *small],
              priority=20, stdout_path=profile_out, stderr_path=log,
              pre=rm_trace_dir, post=tar_trace),
+        # Needs no card: a wedge verdict does not skip it.
+        Task("bytes_audit_cpu",
+             [*tool("bytes_audit"), "--device", "cpu", "--workload",
+              "resnet20", *bytes_args, "--json", bytes_out + ".tmp"],
+             priority=25, needs_chip=False, stderr_path=log,
+             post=keep_json(bytes_out + ".tmp", bytes_out)),
         Task("collectives",
              [*tool("bench_collectives"), "--json", collectives_out + ".tmp",
               *(TINY_COLLECTIVES if tiny else [])],

@@ -40,6 +40,13 @@ prints one JSON line with:
 Any flag of the trainer CLI (``config.py``) is accepted after the
 script's own.
 
+The bytes audit (:class:`BytesAudit`, :func:`bytes_audit`,
+:func:`audit_step`; the JAX module's ``hlo_bytes_by_op``,
+``bytes_audit`` and ``cost_and_bytes_audit``) counts each train step's
+bytes by op and category, raw and effective, from the aten ops the step
+dispatches; ``tools/bytes_audit.py`` and the harnesses' bytes fields
+read it.
+
 :func:`collective_ms` times one collective of each kind (all-reduce,
 reduce-scatter, all-gather) on a mesh's ranks (``chip_smoke.py`` calls it
 in its two gloo ranks, for the replication modes).
@@ -53,11 +60,17 @@ import os
 import subprocess
 import sys
 import time
+from collections import defaultdict
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
+from torch.utils.module_tracker import ModuleTracker
 
 from distributedtensorflowexample_tpu_torch.device import resolve_device
 from distributedtensorflowexample_tpu_torch.parallel.mesh import Mesh
+from distributedtensorflowexample_tpu_torch.serving.engine import (
+    _COLLECTIVE_NAMESPACES)
 from distributedtensorflowexample_tpu_torch.training.hooks import Hook
 
 
@@ -149,6 +162,250 @@ class ProfilerHook(Hook):
         if self._prof is not None:      # the loop stopped inside the window
             self._finish(int(state.step))
 
+
+# ---------------------------------------------------------------------------
+# The bytes audit: each step's bytes by op and category, raw and effective
+# (the JAX package's ``hlo_bytes_by_op``, ``bytes_audit`` and
+# ``cost_and_bytes_audit``).  JAX parses the compiled module's HLO text;
+# PyTorch runs eagerly and has none, so :class:`BytesAudit` counts the
+# aten ops the step actually dispatches, forward and backward, under a
+# ``TorchDispatchMode``, and keeps JAX's byte convention, categories and
+# record.
+
+#: Short dtype names, as XLA prints them (a row's ``out``).
+_DTYPE_NAMES = {
+    torch.float64: "f64", torch.float32: "f32", torch.bfloat16: "bf16",
+    torch.float16: "f16", torch.int64: "s64", torch.int32: "s32",
+    torch.int16: "s16", torch.int8: "s8", torch.uint8: "u8",
+    torch.bool: "pred", torch.complex64: "c64", torch.complex128: "c128"}
+
+#: Ops that move no bytes of their own (the JAX ``_SKIP_OPS``): views,
+#: allocations and the scalar read.  A transpose that is materialised
+#: shows up as the ``clone``/``copy_`` that follows it, under ``layout``.
+#: Any other view (``OpOverload.is_view``: ``split``, ``unbind``, ...) is
+#: skipped too.
+_SKIP_OPS = frozenset({
+    "view", "_unsafe_view", "expand", "permute", "t", "transpose", "slice",
+    "select", "unsqueeze", "squeeze", "as_strided", "alias", "detach",
+    "empty", "empty_strided", "empty_like", "new_empty",
+    "new_empty_strided", "_local_scalar_dense"})
+
+#: aten op (overload packet) -> the JAX category.  ``_to_copy`` is
+#: ``cast`` when the dtype changes and ``layout`` when it does not; the
+#: ``scatter*``, ``index_put*`` and ``index_add*`` families are
+#: ``gather``; the ``c10d`` namespaces are ``collective``; anything else
+#: is ``elementwise``.  Reductions take ``reduce`` over ``elementwise``,
+#: as JAX's fusion priority does; pooling is ``reduce``, as XLA's
+#: ``reduce-window`` and ``select-and-scatter`` are.
+_CATEGORY = {
+    "convolution": "conv", "convolution_backward": "conv",
+    "mm": "matmul", "addmm": "matmul", "bmm": "matmul",
+    "baddbmm": "matmul",
+    "index_select": "gather", "index": "gather", "embedding": "gather",
+    "embedding_dense_backward": "gather", "gather": "gather",
+    "clone": "layout", "copy_": "layout", "cat": "layout",
+    "stack": "layout", "constant_pad_nd": "layout", "flip": "layout",
+    **dict.fromkeys((
+        "sum", "mean", "amax", "amin", "max", "min", "argmax", "argmin",
+        "var_mean", "var", "logsumexp", "prod", "_softmax", "_log_softmax",
+        "_softmax_backward_data", "_log_softmax_backward_data",
+        "native_batch_norm", "native_batch_norm_backward",
+        "native_layer_norm", "native_layer_norm_backward",
+        "max_pool2d_with_indices", "max_pool2d_with_indices_backward",
+        "avg_pool2d", "avg_pool2d_backward"), "reduce"),
+    **dict.fromkeys((
+        "rand", "randn", "randint", "randperm", "rand_like", "randn_like",
+        "bernoulli", "bernoulli_", "normal", "normal_", "uniform_",
+        "random_", "exponential_", "native_dropout"), "rng"),
+}
+_GATHER_FAMILIES = ("scatter", "index_put", "index_add")
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _tensors(tree) -> list:
+    return [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+
+
+def _shape_token(ts: list) -> str:
+    """``f32[64,10]`` (XLA's spelling), a tuple for several outputs."""
+    toks = [f"{_DTYPE_NAMES.get(t.dtype, str(t.dtype))}"
+            f"[{','.join(str(d) for d in t.shape)}]" for t in ts]
+    return toks[0] if len(toks) == 1 else f"({', '.join(toks)})"
+
+
+def _op_category(func, inputs: list, outputs: list) -> str:
+    """The JAX category of one dispatched aten op (``_CATEGORY``)."""
+    if func.namespace in _COLLECTIVE_NAMESPACES:
+        return "collective"
+    name = func._overloadpacket.__name__
+    if name == "_to_copy":
+        same = inputs and outputs and inputs[0].dtype == outputs[0].dtype
+        return "layout" if same else "cast"
+    if name.startswith(_GATHER_FAMILIES):
+        return "gather"
+    return _CATEGORY.get(name, "elementwise")
+
+
+def _row(opcode: str, category: str, inputs: list, outputs: list,
+         op_name: str, effective: int | None = None) -> dict:
+    """One row in the JAX convention: every tensor input at full size plus
+    every output (an in-place op pays its ``self`` twice: read, then
+    written).  ``effective`` defaults to the JAX rule: a ``gather`` row
+    re-prices its largest input at its output's size (the cost convention
+    charges an indexed read for its whole operand; the data moved is one
+    output's worth of rows)."""
+    in_b = [_nbytes(t) for t in inputs]
+    out_b = sum(_nbytes(t) for t in outputs)
+    raw = sum(in_b) + out_b
+    if effective is None:
+        effective = raw
+        if category == "gather" and in_b:
+            effective = raw - max(0, max(in_b) - out_b)
+    return {"bytes": raw, "effective_bytes": effective,
+            "category": category, "opcode": opcode,
+            "out": _shape_token(outputs) if outputs else "",
+            "op_name": op_name}
+
+
+class BytesAudit(TorchDispatchMode):
+    """Open around a train step (``with audit: step(state, batch)``), it
+    adds one row (:func:`_row`) for every aten op the step dispatches,
+    forward and backward, skipping the ops that move nothing
+    (``_SKIP_OPS``), and one for every launch of a port kernel, which
+    ``ops/kernels.charge`` hands it (a ``ctypes`` launch is no aten op):
+    its inputs at full size plus its output, ``effective_bytes`` its
+    module's ``bytes_per_launch``.  ``op_name`` is the module path the op
+    ran under (``torch.utils.module_tracker.ModuleTracker``, the
+    counterpart of flax's ``op_name``), ``backward/`` before it in the
+    backward pass.
+
+    The mode reaches the autograd engine's device thread: the engine
+    carries the caller's dispatch modes into the threads that run the
+    backward.  Under ``--remat block`` the recompute in the backward is
+    counted, as XLA counts rematerialised ops.  Eager ops are unfused, so
+    an intermediate that XLA would keep inside a fusion is written and
+    read again here: the port's one difference from XLA's convention.
+    On the CPU the kernel wrappers run their plain versions, whose ops
+    are counted as any other (the plain dequant's float64 casts and
+    elementwise ops belong to the CPU audit only).  The audit may be
+    opened again for the next call; ``rows`` collects every call's."""
+
+    def __init__(self):
+        super().__init__()
+        self.rows: list[dict] = []
+        self._tracker = ModuleTracker()
+
+    def __enter__(self):
+        from distributedtensorflowexample_tpu_torch.ops import kernels
+        self._tracker.__enter__()
+        kernels.AUDITS.append(self)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        from distributedtensorflowexample_tpu_torch.ops import kernels
+        try:
+            return super().__exit__(*exc)
+        finally:
+            kernels.AUDITS.remove(self)
+            self._tracker.__exit__(*exc)
+
+    def _op_name(self) -> str:
+        deepest = max(self._tracker.parents,
+                      key=lambda p: (p.count("."), len(p)))
+        path = "" if deepest == "Global" else deepest.replace(".", "/")
+        if self._tracker.is_bw:
+            return f"backward/{path}" if path else "backward"
+        return path
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        name = func._overloadpacket.__name__
+        if name not in _SKIP_OPS and not func.is_view:
+            inputs = _tensors((args, kwargs))
+            outputs = _tensors(out)
+            self.rows.append(_row(str(func).removeprefix("aten."),
+                                  _op_category(func, inputs, outputs),
+                                  inputs, outputs, self._op_name()))
+        return out
+
+    def kernel_row(self, name: str, category: str, inputs: tuple,
+                   outputs: tuple, effective_bytes: int) -> None:
+        self.rows.append(_row(name, category, list(inputs), list(outputs),
+                              self._op_name(), effective_bytes))
+
+
+def bytes_audit(rows: list[dict], unroll: int = 1, top_k: int = 12) -> dict:
+    """The JAX ``bytes_audit`` record from :class:`BytesAudit` rows:
+    whole-run and per-step totals (raw and effective), the totals by
+    category, the phantom gather bytes (raw minus effective) and the
+    ``top_k`` ops.  ``per_step`` divides by ``unroll``, the steps the rows
+    cover.  A top op is one ``(opcode, category, out, op_name)``: the
+    rows of the same op in every step (and any twin in one step) summed,
+    as a JAX row weighs a scan body's instruction by its trip count."""
+    by_cat: dict[str, float] = defaultdict(float)
+    by_cat_eff: dict[str, float] = defaultdict(float)
+    ops: dict[tuple, int] = defaultdict(int)
+    total = eff = 0
+    for r in rows:
+        by_cat[r["category"]] += r["bytes"]
+        by_cat_eff[r["category"]] += r["effective_bytes"]
+        total += r["bytes"]
+        eff += r["effective_bytes"]
+        ops[(r["opcode"], r["category"], r["out"], r["op_name"])] += \
+            r["bytes"]
+    u = max(1, unroll)
+    top = [{"bytes_per_step": round(b / u), "category": cat,
+            "opcode": opcode, "op_name": op_name[-80:], "out": out[:60]}
+           for (opcode, cat, out, op_name), b in sorted(
+               ops.items(), key=lambda kv: -kv[1])[:top_k]]
+    return {
+        "bytes_total": total, "bytes_effective_total": eff,
+        "bytes_per_step": round(total / u),
+        "bytes_effective_per_step": round(eff / u),
+        "phantom_gather_bytes_per_step": round((total - eff) / u),
+        "by_category_per_step": {k: round(v / u) for k, v in
+                                 sorted(by_cat.items(),
+                                        key=lambda kv: -kv[1])},
+        "by_category_effective_per_step": {
+            k: round(v / u) for k, v in
+            sorted(by_cat_eff.items(), key=lambda kv: -kv[1])},
+        "top_ops": top,
+    }
+
+
+def audit_step(step, ds, state, unroll: int = 1, calls: int = 1,
+               flops: int | None = None, top_k: int = 12,
+               audit: BytesAudit | None = None) -> tuple[dict, dict]:
+    """``(cost, audit)`` of ``calls`` calls of a built train step (the
+    JAX ``cost_and_bytes_audit``; the arguments in ``tools.bench._measure``'s
+    order): each call's batch is drawn with ``next(ds)`` outside the
+    audit, then the call runs inside it.
+    ``unroll`` is the build's steps a call, so the record is per step.
+    ``cost`` holds ``flops`` (the caller's count from ``utils/flops.py``,
+    when given) and ``bytes_accessed``, the raw bytes a step.
+
+    Give it a build of its own: the calls advance its state and data
+    cursor, and the dispatch mode's Python overhead slows them, so never
+    audit the state, cursor or window that a harness then times or holds
+    bitwise.  ``audit`` (a :class:`BytesAudit`) keeps the rows for the
+    caller."""
+    audit = BytesAudit() if audit is None else audit
+    start = len(audit.rows)
+    for _ in range(calls):
+        data = next(ds)
+        with audit:
+            state, _ = step(state, data)
+    record = bytes_audit(audit.rows[start:], unroll=calls * unroll,
+                         top_k=top_k)
+    cost = {} if flops is None else {"flops": flops}
+    cost["bytes_accessed"] = record["bytes_per_step"]
+    return cost, record
+
+
 #: Substrings of the port kernels' device names.
 PORT_KERNELS = {"dequant": "dequant_gather_kernel", "ce_fwd": "ce_fwd_kernel",
                 "ce_bwd": "ce_bwd_kernel", "sgd": "sgd_momentum_kernel"}
@@ -215,11 +472,14 @@ def _on_device(evt) -> bool:
     return evt.device_type == torch.autograd.DeviceType.CUDA
 
 
-def profile_step(spec, steps: int, warmup: int) -> dict:
+def profile_step(spec, steps: int, warmup: int, built=None) -> dict:
+    """The step's wall and device time (module docstring) on ``built``, an
+    ``Engine.build`` of ``spec`` made here when not given."""
     from distributedtensorflowexample_tpu_torch.engine import Engine
     cfg = spec.config
     device = resolve_device(cfg.device)
-    built = Engine(spec).build(Mesh(device))
+    if built is None:
+        built = Engine(spec).build(Mesh(device))
 
     def run(n):
         for _ in range(n):

@@ -122,6 +122,23 @@ def test_bitwise_arms_equal_the_jax_batch(split, variant):
     assert np.array_equal(got["label"].numpy(), want["label"])
 
 
+@pytest.mark.parametrize("variant", ["auto", "u8_kernel"])
+def test_an_audit_leaves_the_first_batch_bitwise(split, variant):
+    """A bytes audit (``utils/profiling.audit_step``) of a build of its own
+    before the arm leaves nothing behind that moves its first batch."""
+    from distributedtensorflowexample_tpu_torch.utils import profiling
+    quantize, impl = ab_quantize.VARIANTS[variant]
+    mesh = pmesh.Mesh(torch.device("cpu"))
+    step, ds, state, _ = pbench._make("mnist_cnn", "mnist", B, 1, mesh,
+                                      quantize=quantize, dequant_impl=impl)
+    profiling.audit_step(step, ds, state)
+    jds, want = _jax_batch(split, "auto")
+    _, got = _port_batch(jds, variant)
+    assert np.array_equal(got["image"].numpy().view(np.int32),
+                          want["image"].view(np.int32))
+    assert np.array_equal(got["label"].numpy(), want["label"])
+
+
 def test_u8_mul_is_the_jitted_jax_multiply(jab, split):
     jds, _ = _jax_batch(split, "auto")
     ds, got = _port_batch(jds, "u8_mul")

@@ -45,7 +45,7 @@ from distributedtensorflowexample_tpu_torch.ops import kernels
 from distributedtensorflowexample_tpu_torch.parallel import mesh as pmesh
 from distributedtensorflowexample_tpu_torch.tools import bench as pbench
 from distributedtensorflowexample_tpu_torch.tools import bench_ratchet
-from distributedtensorflowexample_tpu_torch.utils import flops
+from distributedtensorflowexample_tpu_torch.utils import flops, profiling
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HEADLINE = "mnist_cnn_sync_steps_per_sec_per_chip"
@@ -158,6 +158,8 @@ def _run_port(monkeypatch, capsys, recorder, *argv) -> tuple:
                                                      "pallas"))
     monkeypatch.setattr(pbench, "_measure", _fake_measure)
     monkeypatch.setattr(pbench, "_roofline_probe", lambda *a, **k: [100.0])
+    monkeypatch.setattr(profiling, "audit_step", lambda *a, **k: (
+        {"flops": 1.0, "bytes_accessed": 1}, {}))
     monkeypatch.setattr(pengine, "Engine", recorder.engine)
     capsys.readouterr()
     rc = pbench.main(["--device", "cpu", *argv])
@@ -169,10 +171,15 @@ def test_every_workload_resolves_the_jax_knobs(jbench, monkeypatch, capsys):
     jlines = _run_jax(jbench, monkeypatch, capsys, jrec)
     rc, plines = _run_port(monkeypatch, capsys, prec)
     assert rc == 0
-    assert prec.calls == jrec.calls
+    # The JAX builds, and the softmax line's audit build (one step a call)
+    # right after its measured one: the port audits a build of its own.
+    soft = next(i for i, c in enumerate(jrec.calls) if c[0] == "softmax")
+    audit_build = jrec.calls[soft][:3] + (1,) + jrec.calls[soft][4:]
+    assert prec.calls == jrec.calls[:soft + 1] + [audit_build] + \
+        jrec.calls[soft + 1:]
     # Every workload, its A/B arms and sweep points: 2 headline points, 3
     # A/B arms, 1 resnet point, async, softmax and the two variants.
-    assert len(prec.calls) == 10
+    assert len(jrec.calls) == 10
     assert {c[0] for c in prec.calls} == {"mnist_cnn", "resnet20",
                                           "softmax"}
     assert [l["metric"] for l in plines[1:]] == \
@@ -417,6 +424,31 @@ def test_a_line_checks_one_launch_a_step(monkeypatch):
     assert detail["kernel_steps"] == dict.fromkeys(kernels.WRAPPERS, 0)
 
 
+def test_an_audited_build_keeps_the_launch_gate(monkeypatch):
+    """A line's cost audited on a build of its own, made through the line,
+    keeps its launches equal to its kernel steps: run on the kernels'
+    launch path (the wrappers take their launch branch on CPU tensors, the
+    launch itself a no-op), the audit's launches are steps of the line."""
+    from distributedtensorflowexample_tpu_torch.ops.kernels import build
+    monkeypatch.setattr(build, "on_cuda", lambda *a: True)
+    monkeypatch.setattr(build, "bind", lambda *a: (lambda *args: 0))
+    monkeypatch.setattr(build, "check", lambda *a: None)
+    monkeypatch.setattr(build, "stream_of", lambda *a: None)
+    monkeypatch.setattr(pbench, "TRAIN_N", {"mnist": 64, "cifar10": 64})
+    mesh = pmesh.Mesh(torch.device("cpu"))
+    kw = dict(ce_impl="pallas", fused_opt=True, dequant_impl="pallas")
+    line = pbench._Line(on_card=True)
+    step, ds, state, u = line.make("mnist_cnn", "mnist", 8, 2, mesh, **kw)
+    pbench._measure(step, ds, state, 4, u, warmup_calls=1, repeats=1)
+    own = line.make("mnist_cnn", "mnist", 8, 1, mesh, **kw)
+    cost, _ = profiling.audit_step(*own[:3])
+    assert cost["bytes_accessed"] > 0 and kernels.AUDITS == []
+    detail: dict = {}
+    line.attach(detail)
+    assert detail["launches"] == detail["kernel_steps"] == \
+        dict.fromkeys(kernels.WRAPPERS, 2 + 4 + 1)
+
+
 def test_watchdog_fires_and_exits_3():
     fired, exits = [], []
     done = pbench._arm_watchdog(0.05, lambda: fired.append(1),
@@ -459,11 +491,16 @@ def test_a_tiny_cpu_run_emits_six_lines_headline_last(monkeypatch, capsys):
     head = by[HEADLINE]
     assert head["vs_roofline"] > 0 and list(head["dequant_ab"]) == \
         ["pallas"]
-    assert head["roofline_cost_per_step"] == {
-        "flops": flops.train_flops_per_step("mnist_cnn", 8)}
+    cost = head["roofline_cost_per_step"]
+    assert cost["flops"] == flops.train_flops_per_step("mnist_cnn", 8)
+    assert cost["bytes_accessed"] > 0
     assert "errors" not in head
     rn = by[METRICS[0]]
     assert rn["mfu"] is None and rn["vs_roofline"] > 0
     assert rn["flops_per_step"] == flops.train_flops_per_step("resnet20", 8)
-    assert by[METRICS[2]]["cost_per_step"] == {
-        "flops": flops.train_flops_per_step("softmax", 8)}
+    soft = by[METRICS[2]]
+    assert soft["cost_per_step"]["flops"] == \
+        flops.train_flops_per_step("softmax", 8)
+    assert soft["roofline_bytes_ratio"] == round(
+        soft["roofline_cost_per_step"]["bytes_accessed"]
+        / soft["cost_per_step"]["bytes_accessed"], 4)

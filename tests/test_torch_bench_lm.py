@@ -191,7 +191,17 @@ def test_mfu_identity_and_remat_saving(two_rank_record):
     assert sav["value"] == pytest.approx(
         1 - sav["detail"]["activation_bytes_remat"]
         / sav["detail"]["activation_bytes_base"])
-    assert all("bytes_audit" not in r["detail"] for r in two_rank_record)
+    # The throughput line's JAX bytes fields (no top ops; the bandwidth
+    # roofline null on the CPU), and no other line's.
+    audit = d["bytes_audit"]
+    assert "top_ops" not in audit and audit["bytes_per_step"] > \
+        audit["bytes_effective_per_step"] > 0
+    assert d["bw_roofline_effective_steps_per_sec"] is None
+    assert d["arith_intensity_effective"] == round(
+        d["model_flops_per_step_per_device"]
+        / audit["bytes_effective_per_step"], 3)
+    assert [r["metric"] for r in two_rank_record
+            if "bytes_audit" in r["detail"]] == [tput["metric"]]
 
 
 @pytest.mark.parametrize("knob", list(bench_lm.KNOBS))

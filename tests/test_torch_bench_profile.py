@@ -11,7 +11,9 @@ to the JAX package's root ``bench_profile.py``:
   is off after the run;
 - a variant that fails still yields the other lines, and the attribution
   from what survived, with the error (exit 1);
-- the FLOPs a step are ``utils/flops.py``'s; no kernel is launched.
+- the FLOPs a step are ``utils/flops.py``'s; no kernel is launched;
+  each variant carries the JAX bytes fields (``utils/profiling``'s
+  audit), the bandwidth ones null on the CPU.
 """
 
 import json
@@ -84,7 +86,20 @@ def test_lines_in_the_jax_order(run):
         assert d["mfu"] is None and d["unroll"] == 2
         assert d["launches"] == d["kernel_steps"] == dict.fromkeys(
             d["launches"], 0)
-        assert "bytes_audit" not in d and "bytes_per_step" not in d
+        # The JAX bytes fields, from a build of the variant's own; the
+        # bandwidth ones null on the CPU.
+        audit = d["bytes_audit"]
+        assert d["bytes_per_step"] == audit["bytes_per_step"] > \
+            audit["bytes_effective_per_step"] > 0
+        assert len(audit["top_ops"]) == 8
+        assert d["arith_intensity_flop_per_byte"] == round(
+            d["flops_per_step"] / d["bytes_per_step"], 2)
+        assert d["arith_intensity_effective"] == round(
+            d["flops_per_step"] / audit["bytes_effective_per_step"], 2)
+        for key in ("bw_roofline_steps_per_sec",
+                    "bw_roofline_effective_steps_per_sec",
+                    "mfu_ceiling_at_bw", "mfu_ceiling_at_bw_effective"):
+            assert d[key] is None
 
 
 def test_shares_are_the_jax_formulas_on_the_recorded_rates(run):

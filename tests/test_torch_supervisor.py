@@ -282,39 +282,50 @@ sys.exit(0 if int(os.environ["SUPERVISE_ATTEMPT"]) >= 1 else 7)
 
 
 def test_supervise_capture_queue_shape(monkeypatch, tmp_path):
-    """The port's capture queue is the JAX queue's (names and priorities)
-    less ``bytes_audit_cpu``, over the port's harnesses, every artifact
-    under ``--records_dir``, with the JAX ``fresh_measured`` gate and the
-    journal rotation predicate."""
+    """The port's capture queue is the JAX queue's (names and priorities,
+    ``bytes_audit_cpu`` included, with no card needed) over the port's
+    harnesses, every artifact under ``--records_dir``, with the JAX
+    ``fresh_measured`` gate and the journal rotation predicate."""
     sys.path.insert(0, os.path.join(REPO, "tools"))
     try:
         import supervise as jsupervise
     finally:
         sys.path.pop(0)
-    for name in ("OUT", "OUT_HEADLINE", "PROFILE_OUT", "COLLECTIVES_OUT",
-                 "LM_OUT", "TRACE_TGZ", "CLI_OUT", "TRACE_DIR", "LOG"):
+    for name in ("OUT", "OUT_HEADLINE", "PROFILE_OUT", "BYTES_OUT",
+                 "BYTES_ARGS", "COLLECTIVES_OUT", "LM_OUT", "TRACE_TGZ",
+                 "CLI_OUT", "TRACE_DIR", "LOG"):
         monkeypatch.delenv(name, raising=False)
     start = time.time() - 5
     tasks = supervise._capture_tasks(start, records_dir=str(tmp_path))
     order = lambda ts: [(t.name, t.priority)
                         for t in sorted(ts, key=lambda t: t.priority)]
     jax_order = order(jsupervise._capture_tasks(start))
-    assert order(tasks) == [t for t in jax_order
-                            if t[0] != "bytes_audit_cpu"]
+    assert order(tasks) == jax_order
     assert [n for n, _ in order(tasks)] == [
-        "headline_bench", "profile", "collectives", "lm", "full_bench",
-        "cli_trainer"]
+        "headline_bench", "profile", "bytes_audit_cpu", "collectives", "lm",
+        "full_bench", "cli_trainer"]
     by_name = {t.name: t for t in tasks}
     tool = lambda t: t.argv[t.argv.index("-m") + 1]
     pkg = "distributedtensorflowexample_tpu_torch"
     assert {n: tool(t) for n, t in by_name.items()} == {
         "headline_bench": f"{pkg}.tools.bench",
         "profile": f"{pkg}.tools.bench_profile",
+        "bytes_audit_cpu": f"{pkg}.tools.bytes_audit",
         "collectives": f"{pkg}.tools.bench_collectives",
         "lm": f"{pkg}.tools.bench_lm", "full_bench": f"{pkg}.tools.bench",
         "cli_trainer": f"{pkg}.trainers.trainer_sync_mnist"}
     assert "--headline_only" in by_name["headline_bench"].argv
     assert all("--tiny" not in t.argv for t in tasks)
+    # The JAX task's flags, --backend cpu read as --device cpu.
+    jbytes = {t.name: t for t in jsupervise._capture_tasks(start)}[
+        "bytes_audit_cpu"]
+    argv = by_name["bytes_audit_cpu"].argv
+    assert argv[argv.index("-m") + 2:argv.index("--json")] == [
+        "--device" if a == "--backend" else a for a in
+        jbytes.argv[jbytes.argv.index("--backend"):
+                    jbytes.argv.index("--json")]]
+    assert [t.needs_chip for t in tasks] == [
+        t.name != "bytes_audit_cpu" for t in tasks]
     # Every path the queue writes lies under the records dir.
     for t in tasks:
         for path in (t.stdout_path, t.stderr_path):
@@ -325,6 +336,7 @@ def test_supervise_capture_queue_shape(monkeypatch, tmp_path):
                     str(tmp_path) + os.sep)
     assert by_name["profile"].pre is not None
     assert by_name["profile"].post is not None
+    assert by_name["bytes_audit_cpu"].post is not None
     assert by_name["collectives"].post is not None
     assert by_name["lm"].post is not None
     assert by_name["cli_trainer"].wall_timeout_s == 1800.0
@@ -363,11 +375,36 @@ def test_supervise_capture_tiny_shrinks_every_task(tmp_path):
         time.time(), records_dir=str(tmp_path), tiny=True)}
     for name in ("headline_bench", "profile", "lm", "full_bench"):
         assert "--tiny" in tasks[name].argv
+    argv = tasks["bytes_audit_cpu"].argv
+    assert argv[argv.index("--batch_per_chip") + 1] == "64"
     argv = tasks["collectives"].argv
     assert argv[-len(supervise.TINY_COLLECTIVES):] == \
         supervise.TINY_COLLECTIVES
     argv = tasks["cli_trainer"].argv
     assert argv[argv.index("--train_steps") + 1] == "200"
+
+
+def test_capture_bytes_audit_cpu_writes_into_the_records_dir(monkeypatch,
+                                                           tmp_path):
+    """The queue's ``bytes_audit_cpu`` task runs ``tools.bytes_audit`` on
+    the CPU and its record lands in ``--records_dir`` (promoted from its
+    ``.tmp``).  BYTES_ARGS (the JAX knob for its flags) shrinks it to a
+    softmax step here."""
+    monkeypatch.setenv("BYTES_ARGS", "--workload softmax --batch_per_chip 8")
+    monkeypatch.delenv("BYTES_OUT", raising=False)
+    monkeypatch.chdir(REPO)
+    task = {t.name: t for t in supervise._capture_tasks(
+        time.time(), records_dir=str(tmp_path))}["bytes_audit_cpu"]
+    sup = ps.Supervisor(policy=ps.RetryPolicy(retries=0),
+                        journal=ps.Journal(str(tmp_path / "j.jsonl")))
+    assert ps.TaskQueue([task], sup).run() == {"bytes_audit_cpu": "done"}
+    out = tmp_path / "BYTES_AUDIT_capture.json"
+    rec = json.loads(out.read_text())
+    assert rec["workload"] == "softmax" and rec["batch_per_chip"] == 8
+    assert rec["device"]["platform"] == "cpu"
+    assert rec["bw_roofline_effective_steps_per_sec"] is None
+    assert rec["audit"]["bytes_per_step"] > 0
+    assert not (tmp_path / "BYTES_AUDIT_capture.json.tmp").exists()
 
 
 def test_supervise_capture_needs_a_records_dir(capsys):
